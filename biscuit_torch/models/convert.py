@@ -11,9 +11,9 @@ name and layout:
   ``weight``/``bias``/``running_mean``/``running_var``.
 
 ``read_msgpack`` decodes ``flax.serialization.to_bytes`` output with
-``msgpack`` alone: ExtType 1 holds ``(shape, dtype_name, C-order bytes)``.
-The model's arrays are f32 and far below flax's chunking size, so no other
-extension type occurs.
+``msgpack`` alone, and ``write_msgpack`` encodes it: ExtType 1 holds
+``(shape, dtype_name, C-order bytes)``. The model's arrays are f32 and far
+below flax's chunking size, so no other extension type occurs.
 """
 
 from __future__ import annotations
@@ -98,3 +98,21 @@ def read_msgpack(path: str):
 
     with open(path, "rb") as f:
         return msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+
+
+def write_msgpack(path: str, tree) -> None:
+    """Encode nested dicts of numpy arrays as ``flax.serialization.
+    to_bytes`` does (ExtType 1 per array), so ``flax.serialization.
+    from_bytes`` and :func:`read_msgpack` read the file."""
+    import msgpack
+
+    def default(obj):
+        if isinstance(obj, np.ndarray):
+            arr = np.ascontiguousarray(obj)
+            return msgpack.ExtType(1, msgpack.packb(
+                (arr.shape, arr.dtype.name, arr.tobytes("C")),
+                use_bin_type=True))
+        raise TypeError(f"{path}: cannot encode {type(obj).__name__}")
+
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(tree, default=default, strict_types=True))

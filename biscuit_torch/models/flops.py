@@ -91,6 +91,17 @@ def uq_flops_per_tile(arch: str = "xception", tile_px: int = 299,
     )
 
 
+def train_flops_per_tile(arch: str = "xception", tile_px: int = 299,
+                         hidden: int = 1024, hidden_layers: int = 2,
+                         num_classes: int = 2) -> int:
+    """One training step's FLOPs per tile: the forward of the trunk and
+    the head once, and the backward at twice the forward (a data gradient
+    and a weight gradient of every conv and matmul)."""
+    fwd = trunk_flops(arch, tile_px) + head_flops(
+        ARCHS[arch]["exit_convs"][-1], hidden, hidden_layers, num_classes)
+    return 3 * fwd
+
+
 # Published dense peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's
 # data sheet): tensor-core bf16, CUDA-core f32, and HBM3 bandwidth. A card
 # set to a lower power limit runs below them.

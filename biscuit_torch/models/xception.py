@@ -13,9 +13,12 @@ Numerics follow the Flax model: convolutions compute in
 BatchNorm normalizes in f32 and rounds back to the compute dtype (Flax
 promotes bf16 activations against f32 statistics), the global average
 pool rounds to the compute dtype before the f32 features, and the head
-runs in f32. Padding: the two stem convs are VALID, every other conv is
-SAME, and the stride-2 SAME max-pool pads asymmetrically on even sizes
-(explicit -inf pad, never ``MaxPool2d(padding=1)``).
+runs in f32. In train mode (``model.train()``) BatchNorm normalizes with
+the batch's own statistics and updates the running ones as Flax does
+(``batch_norm_train``), and the head samples dropout from an explicit
+``torch.Generator``. Padding: the two stem convs are VALID, every other
+conv is SAME, and the stride-2 SAME max-pool pads asymmetrically on even
+sizes (explicit -inf pad, never ``MaxPool2d(padding=1)``).
 """
 
 from __future__ import annotations
@@ -68,18 +71,52 @@ class Conv(nn.Conv2d):
                         self.padding, 1, self.groups)
 
 
+MOMENTUM = 0.99     # Flax BatchNorm's running-statistics momentum
+
+
+def batch_norm_train(x, weight, bias, eps: float, dims):
+    """Train-mode BatchNorm as Flax computes it: statistics over ``dims``
+    in f32, the biased fast variance ``max(0, E[x^2] - E[x]^2)``, and the
+    output rounded once to x's dtype. ``weight`` and ``bias`` broadcast
+    against x. Returns (y, mean, var), mean and var of shape (C,)."""
+    xf = x.float()
+    mu = xf.mean(dim=dims, keepdim=True)
+    mu2 = xf.square().mean(dim=dims, keepdim=True)
+    var = torch.clamp_min(mu2 - mu.square(), 0.0)
+    inv = torch.rsqrt(var + eps)
+    y = ((xf - mu) * (inv * weight.float()) + bias.float()).to(x.dtype)
+    return y, mu.reshape(-1), var.reshape(-1)
+
+
+def running_update(old, batch):
+    """Flax's running-statistics blend ``0.99 * old + 0.01 * batch``."""
+    return MOMENTUM * old + (1.0 - MOMENTUM) * batch.detach()
+
+
 class BatchNorm(nn.BatchNorm2d):
-    """Flax ``BatchNorm`` (eps 1e-5, momentum 0.99 = torch 0.01) at
-    inference. A bf16 activation with the f32 statistics normalizes in f32
-    and rounds once to bf16, as Flax's promotion does, without an f32 copy
-    of the activation."""
+    """Flax ``BatchNorm`` (eps 1e-5, momentum 0.99 = torch 0.01).
+
+    At inference a bf16 activation with the f32 statistics normalizes in
+    f32 and rounds once to bf16, as Flax's promotion does, without an f32
+    copy of the activation. In train mode it normalizes with the batch's
+    statistics (``batch_norm_train``) and blends the batch's biased
+    variance into ``running_var``; ``F.batch_norm(training=True)`` would
+    blend the unbiased one."""
 
     def __init__(self, c):
         super().__init__(c, eps=1e-5, momentum=0.01)
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y, mu, var = batch_norm_train(x, self.weight[:, None, None],
+                                      self.bias[:, None, None], self.eps,
+                                      (0, 2, 3))
+        with torch.no_grad():
+            self.running_mean.copy_(running_update(self.running_mean, mu))
+            self.running_var.copy_(running_update(self.running_var, var))
+        return y
 
 
 def max_pool_same(x):
@@ -217,13 +254,15 @@ class Head(nn.Module):
         self.logits = nn.Linear(c, num_classes)
 
     def forward(self, feats, mc_dropout: bool = False, generator=None):
-        """``mc_dropout`` samples inverted dropout (keep with 1-rate, divide
-        by 1-rate, as Flax ``Dropout``) from ``generator``."""
+        """``mc_dropout``, or train mode, samples inverted dropout (keep
+        with 1-rate, divide by 1-rate, as Flax ``Dropout``) from
+        ``generator``."""
         h = feats.float()
         keep = 1.0 - self.dropout
+        use_dropout = mc_dropout or self.training
         for i in range(self.hidden_layers):
             h = F.relu(getattr(self, f"hidden{i}")(h))
-            if mc_dropout and self.dropout > 0:
+            if use_dropout and self.dropout > 0:
                 u = torch.rand(h.shape, generator=generator, device=h.device)
                 h = torch.where(u < keep, h / keep, torch.zeros_like(h))
         return self.logits(h)

@@ -1,14 +1,17 @@
 """Build the port's CUDA kernels at first use and count their launches.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
-its own by ``nvcc`` into ``_build/lib<name>-<hash>.so`` (the hash covers
+Each ``csrc/<source>.cu`` exposes a plain C interface and is compiled on
+its own by ``nvcc`` into ``_build/lib<source>-<hash>.so`` (the hash covers
 the source and every header in ``csrc/``, so an edited source never loads
 a stale library), then loaded with ``ctypes``. No PyTorch header is
 compiled, which keeps a build to seconds. ``build_all`` starts one
 ``nvcc`` for each source at once and waits for all of them.
 
-Every wrapper that launches a kernel adds one to its count here, and
-nowhere else, so a run can show that its path went through the kernels.
+``KERNELS`` names the kernels as the launch counts know them; a source
+may hold more than one (``SOURCE``), and ``REPLACES`` gives the TPU
+kernel each one ports. Every wrapper that launches a kernel adds one to
+its count here, and nowhere else, so a run can show that its path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -23,7 +26,20 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("fused_preprocess", "fused_middle_flow", "mcd_head")
+SOURCE = {"fused_preprocess": "fused_preprocess",
+          "fused_middle_flow": "fused_middle_flow",
+          "mcd_head": "mcd_head",
+          "unit_bwd_plane": "fused_unit_bwd",
+          "unit_bwd_strips": "fused_unit_bwd"}
+KERNELS = tuple(SOURCE)
+SOURCES = tuple(dict.fromkeys(SOURCE.values()))
+REPLACES = {
+    "fused_preprocess": "biscuit_tpu/ops/fused_preprocess.py:73",
+    "fused_middle_flow": "biscuit_tpu/ops/fused_sepconv.py:99",
+    "mcd_head": "biscuit_tpu/ops/mcd_head.py:40",
+    "unit_bwd_plane": "biscuit_tpu/ops/fused_unit_bwd.py:186",
+    "unit_bwd_strips": "biscuit_tpu/ops/fused_unit_bwd.py:364",
+}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -91,8 +107,9 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, out)
 
 
-def build_all(names=KERNELS) -> None:
-    """Build every kernel library that is not built yet, in parallel."""
+def build_all(names=SOURCES) -> None:
+    """Build every kernel source's library that is not built yet, in
+    parallel."""
     jobs = {}
     try:
         for name in names:
@@ -111,13 +128,14 @@ def build_all(names=KERNELS) -> None:
 
 
 def build_log(name: str) -> str:
-    """The compiler's output (``-Xptxas -v``) of the last build of name."""
+    """The compiler's output (``-Xptxas -v``) of the last build of the
+    source ``name``."""
     p = BUILD_DIR / f"{name}.log"
     return p.read_text() if p.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if needed."""
+    """The library of the source ``name``, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
         build_all((name,))

@@ -13,12 +13,23 @@ Phases, each printing one JSON line:
    tolerance, its median time over fresh inputs (CUDA events), the plain
    version's time, a library yardstick's time where one exists, and its
    bound (the larger of bytes / HBM rate and operations / peak rate).
+   The two unit-backward kernels are held at the 147x147 64->128 and the
+   19x19 728->728 geometries at batch 128; their ms, plain ms, library
+   ms and bound are the two geometries' added.
 4. main: ``UncertaintyInterface`` at the published width (Xception-299,
    2x1024 head, dropout 0.1, K=30) with seeded random weights answers R
    requests of 256 uint8 tiles; the launch counts are zeroed just before
    and read just after; the outputs are checked, and at dropout 0 the
    kernel path is held against the plain versions on the same model.
-5. the kernels line; 6. the last line ``{"ok": true, "device": ...}``.
+5. train: ``make_train_step`` of ``hp.nature2022`` (Xception-299 bf16,
+   2x1024 head, dropout 0.1, Adam 1e-4 with the 0.98/512 decay, 'xyrjb',
+   batch 128) on seeded random weights: one warm-up step, then counted
+   steps with the launch counts zeroed just before and read just after
+   (34 strip-kernel unit backwards per step); one step with the plane
+   kernel, counted on its own; and at batch 32, augment off and dropout
+   0, the gradients of one kernel step held against one plain-version
+   step from the same weights and batch.
+6. the kernels line; 7. the last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. It needs one CUDA card; without one it exits 1 at once.
@@ -39,12 +50,19 @@ SEED = 0              # weights, tiles and kernel inputs
 REQUESTS = 3          # counted requests on the main path
 N_TIMED = 11          # timed runs per kernel, each on fresh inputs
 N_PLAIN = 3           # timed runs of the plain versions
-
-REPLACES = {
-    "fused_preprocess": "biscuit_tpu/ops/fused_preprocess.py:73",
-    "fused_middle_flow": "biscuit_tpu/ops/fused_sepconv.py:99",
-    "mcd_head": "biscuit_tpu/ops/mcd_head.py:40",
-}
+TRAIN_BATCH = 128     # hp.nature2022's batch size
+TRAIN_STEPS = 5       # counted training steps
+CHECK_BATCH = 32      # batch of the kernel-vs-plain gradient check
+UNITS_PER_STEP = 34   # sep+BN units of Xception: 6 entry, 24 middle, 4 exit
+# (H = W, CI, CO, relu_first) of the unit-backward kernel rows: entry0's
+# first unit and a middle-flow unit.
+UNIT_GEOMETRIES = ((147, 64, 128, False), (19, 728, 728, True))
+SERVING = ("fused_preprocess", "fused_middle_flow", "mcd_head")
+# The device kernels of csrc/fused_unit_bwd.cu, by the names the profiler
+# shows.
+UNIT_BWD_KERNELS = ("bn_sums_kernel", "bn_finalize_kernel", "gp_kernel",
+                    "dgrad_kernel", "wgrad_kernel", "dw_bwd_kernel",
+                    "reduce_partials_kernel")
 
 
 def emit(obj) -> None:
@@ -226,6 +244,106 @@ def kernel_head(torch, gen):
     return out
 
 
+def library_unit_bwd(torch, a, taps, wpw, gamma, beta, relu_first):
+    """The unit's backward as one library call: autograd through cuDNN's
+    depthwise and 1x1 convs and ``F.batch_norm`` in training mode (the
+    port never calls this). Returns a function of the output gradient."""
+    import torch.nn.functional as F
+
+    ci, co = wpw.shape
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (a, taps, wpw, gamma, beta)]
+    x, tp, wp, g, b = leaves
+    r = torch.relu(x) if relu_first else x
+    d = F.conv2d(r.permute(0, 3, 1, 2),
+                 tp.t().reshape(ci, 1, 3, 3).to(a.dtype), padding=1,
+                 groups=ci)
+    p = F.conv2d(d, wp.t().reshape(co, ci, 1, 1).to(a.dtype))
+    y = F.batch_norm(p, None, None, g, b, True, 0.0, 1e-5)
+    y = y.permute(0, 2, 3, 1)
+    return lambda gy: torch.autograd.grad(y, leaves, gy, retain_graph=True)
+
+
+def kernel_unit_bwd(torch, gen):
+    """Both unit-backward kernels against the plain version at each of
+    UNIT_GEOMETRIES, batch TRAIN_BATCH; one row per kernel, its times and
+    bound added over the geometries."""
+    from biscuit_torch.ops.fused_unit_bwd import (
+        unit_bwd_plane,
+        unit_bwd_reference,
+        unit_bwd_strips,
+        unit_fwd,
+    )
+
+    kernels = {"unit_bwd_plane": unit_bwd_plane,
+               "unit_bwd_strips": unit_bwd_strips}
+    rows = {name: {"name": name, "geometries": [], "ms": 0.0,
+                   "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                   "max_abs_err": 0.0} for name in kernels}
+    # da is bf16 and the kernel factors the BN backward as the TPU kernel
+    # does, so a bf16 rounding of gp may flip: 1e-2 of the largest da;
+    # the f32 weight and BN gradients 5e-3 of their largest value.
+    tols = {"da": 1e-2, "dwdw": 5e-3, "dwpw": 5e-3, "dgamma": 5e-3,
+            "dbeta": 5e-3}
+    for hw, ci, co, relu_first in UNIT_GEOMETRIES:
+        n = TRAIN_BATCH
+
+        def normal(shape, std=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * std
+
+        a = normal((n, hw, hw, ci)).to(torch.bfloat16)
+        taps, wpw = normal((9, ci), 0.2), normal((ci, co), ci ** -0.5)
+        gamma, beta = 1 + normal((co,), 0.1), normal((co,), 0.1)
+        gy = normal((n, hw, hw, co)).to(torch.bfloat16)
+        _, mu, var, (r, d, p) = unit_fwd(a, taps, wpw, gamma, beta, 1e-5,
+                                         relu_first)
+        args = (gy, r, d, p, taps, wpw, gamma, mu, var, 1e-5, relu_first)
+        want = unit_bwd_reference(*args)
+        plain = cuda_ms(torch, lambda x: unit_bwd_reference(*x),
+                        [args] * N_PLAIN, warmup=1)
+        lib_fn = library_unit_bwd(torch, a, taps, wpw, gamma, beta,
+                                  relu_first)
+        lib = cuda_ms(torch, lib_fn, [gy] * N_TIMED)
+        del lib_fn
+        m = n * hw * hw
+        n_bytes = m * (2 * co + 3 * ci) * 2 + 2 * m * co * 2
+        b, by = bound_ms(n_bytes, {"bf16": 2.0 * m * 2 * ci * co,
+                                   "f32": 2.0 * m * (18 * ci + 6 * co)})
+        for name, fn in kernels.items():
+            got = fn(*args)
+            torch.cuda.synchronize()
+            errs, abs_errs = {}, {}
+            for key, g, w in zip(tols, got, want):
+                g, w = g.float(), w.float()
+                check(bool(torch.isfinite(g).all()), f"{name} {key} finite")
+                abs_errs[key] = (g - w).abs().max().item()
+                errs[key] = abs_errs[key] / w.abs().max().item()
+                check(errs[key] <= tols[key],
+                      f"{name} {hw}x{hw} {ci}->{co} {key}: relative error "
+                      f"{errs[key]} > {tols[key]}")
+            ms = cuda_ms(torch, lambda x: fn(*x), [args] * N_TIMED)
+            prof = kernel_profile(torch, lambda: fn(*args), top=8)
+            row = rows[name]
+            row["geometries"].append({
+                "hw": hw, "ci": ci, "co": co, "batch": n,
+                "relu_first": relu_first, "rel_err": errs, "tol": tols,
+                "abs_err": abs_errs,
+                "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "bound_ms": b, "bound_by": by, "profile": prof})
+            row["ms"] += ms
+            row["plain_ms"] += plain
+            row["library_ms"] += lib
+            row["bound_ms"] += b
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     max(abs_errs.values()))
+        del a, gy, r, d, p, want, args
+        torch.cuda.empty_cache()
+    for row in rows.values():
+        row["bound_by"] = max(row["geometries"],
+                              key=lambda g: g["bound_ms"])["bound_by"]
+    return list(rows.values())
+
+
 def init_random_(torch, model, seed: int) -> None:
     """Seeded random weights: LeCun-normal convs (Flax's default), PyTorch's default Linear
     init, and BatchNorm affine and running statistics drawn near identity
@@ -278,22 +396,24 @@ def stage_breakdown(torch, ui, tiles, repeats: int = 3):
     return {name: statistics.median(v) for name, v in runs.items()}
 
 
-def kernel_profile(torch, ui, tiles, top: int = 12):
-    """Device time by kernel name over one request (torch.profiler); the
-    CPU-side operator events, which repeat their kernels' time, are left
-    out."""
+def kernel_profile(torch, run, top: int = 12):
+    """Device time by kernel name over one call of ``run``
+    (torch.profiler); the CPU-side operator events, which repeat their
+    kernels' time, are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ui(tiles)
+        run()
         torch.cuda.synchronize()
     rows = [(ev.self_device_time_total, ev.key, ev.count)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
     total = sum(us for us, _, _ in rows)
-    return {"device_ms": total / 1e3,
+    unit_bwd = sum(us for us, key, _ in rows
+                   if any(k in key for k in UNIT_BWD_KERNELS))
+    return {"device_ms": total / 1e3, "unit_bwd_kernels_ms": unit_bwd / 1e3,
             "top": [{"kernel": key[:90], "ms": us / 1e3, "calls": n}
                     for us, key, n in rows[:top]]}
 
@@ -333,7 +453,8 @@ def main_path(torch, seed: int, n_requests: int, card: str):
         secs.append(time.perf_counter() - t0)
     launches = _build.launch_counts()
     for name, count in launches.items():
-        check(count == n_requests,
+        want = n_requests if name in SERVING else 0
+        check(count == want,
               f"{name}: {count} launches for {n_requests} requests")
     for mean, std in outs:
         check(tuple(mean.shape) == (TILES, 2) and tuple(std.shape) == (TILES, 2),
@@ -344,7 +465,7 @@ def main_path(torch, seed: int, n_requests: int, card: str):
         check(float(std.min()) >= 0, "std >= 0")
 
     stage_ms = stage_breakdown(torch, ui, requests[1])
-    prof = kernel_profile(torch, ui, requests[1])
+    prof = kernel_profile(torch, lambda: ui(requests[1]))
 
     # Dropout 0: the kernel path against the plain versions, same model.
     with torch.inference_mode():
@@ -381,6 +502,172 @@ def main_path(torch, seed: int, n_requests: int, card: str):
     }, launches
 
 
+def train_batch(torch, gen, n: int):
+    """Random uint8 tiles, 0/1 labels and a full mask on the card."""
+    tiles = torch.randint(0, 256, (n, TILE_PX, TILE_PX, 3), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 2, (n,), generator=gen, device="cuda")
+    return tiles, labels, torch.ones(n, device="cuda")
+
+
+def running_stats(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if "running_" in k}
+
+
+def gradient_check(torch, model0, hp, normalizer, gen):
+    """One step of the kernel path (unit backwards on the strip kernel)
+    and one of the plain-version path from the same weights and batch,
+    augment off and dropout 0; their gradients compared tensor by
+    tensor (not the updated weights: Adam's first step is about
+    lr * sign(g), which turns rounding noise into full-size steps)."""
+    import copy
+
+    from biscuit_torch.train.trainer import make_optimizer, make_train_step
+
+    hp = hp.copy()
+    hp.augment, hp.dropout = "", 0.0
+    batch = train_batch(torch, gen, CHECK_BATCH)
+    grads, losses = {}, {}
+    for backend in ("auto", "reference"):
+        m = copy.deepcopy(model0).cuda()
+        m.head.dropout = 0.0
+        step = make_train_step(m, make_optimizer(hp, m.parameters()), hp,
+                               normalizer, fused_trunk=True, backend=backend)
+        losses[backend] = float(step(*batch, gen)["loss"])
+        grads[backend] = {n: p.grad.detach().clone()
+                          for n, p in m.named_parameters()}
+        del m, step
+    want, got = grads["reference"], grads["auto"]
+    tree_max = max(g.abs().max().item() for g in want.values())
+    # The two paths run the same forward; the kernel sums in another
+    # order and factors the BN backward as the TPU kernel does, so bf16
+    # roundings of gp and da flip here and there and move through 34
+    # units: 5e-2 of each tensor's largest value. A tensor whose plain
+    # gradient is near zero (largest value under 1e-2 of the tree's
+    # largest) carries noise on the scale of the gradients it is summed
+    # from, not its own, and is held to 1e-3 of the tree's largest
+    # gradient instead; those tensors are listed in the line.
+    tol, near_zero, floor = 5e-2, 1e-2, 1e-3
+    worst = {"rel": 0.0, "name": None}
+    floor_only, failed = {}, {}
+    for name, w in want.items():
+        check(bool(torch.isfinite(got[name]).all()), f"{name} grad finite")
+        scale = w.abs().max().item()
+        diff = (got[name] - w).abs().max().item()
+        rel = diff / max(scale, 1e-30)
+        entry = {"rel": rel, "max_over_tree_max": scale / tree_max,
+                 "diff_over_tree_max": diff / tree_max}
+        if rel <= tol:
+            if rel > worst["rel"]:
+                worst = {"rel": rel, "name": name}
+        elif scale <= near_zero * tree_max and diff <= floor * tree_max:
+            floor_only[name] = entry
+        else:
+            failed[name] = entry
+    check(not failed, f"gradients beyond tolerance: {failed}")
+    check(abs(losses["auto"] - losses["reference"])
+          <= 1e-6 * abs(losses["reference"]), f"same forward: {losses}")
+    return {"batch": CHECK_BATCH, "loss": losses["auto"],
+            "loss_plain": losses["reference"], "tensors": len(want),
+            "tol": tol, "near_zero_of_tree_max": near_zero,
+            "floor_of_tree_max": floor, "tree_max": tree_max,
+            "worst_rel_err": worst["rel"], "worst_tensor": worst["name"],
+            "passed_on_floor_only": floor_only}
+
+
+def train_path(torch, seed: int, card: str):
+    """The training step of hp.nature2022 on the card (see the module
+    docstring); returns (the train line, strip launches, plane launches)."""
+    import copy
+    import math
+
+    from biscuit_torch.data.normalize import make_normalizer
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.flops import (
+        H100_PEAK_BF16,
+        train_flops_per_tile,
+    )
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.ops import _build
+    from biscuit_torch.train.trainer import make_optimizer, make_train_step
+
+    hp = nature2022_params()
+    check(hp.batch_size == TRAIN_BATCH and hp.augment == "xyrjb"
+          and hp.dropout == 0.1 and hp.tile_px == TILE_PX
+          and hp.optimizer == "Adam" and hp.learning_rate == 1e-4
+          and hp.compute_dtype == "bfloat16", "published configuration")
+    normalizer = make_normalizer(hp.normalizer)
+    model0 = build_model(hp)
+    init_random_(torch, model0, seed)
+    model = copy.deepcopy(model0).cuda()
+    tx = make_optimizer(hp, model.parameters())
+    step = make_train_step(model, tx, hp, normalizer)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [train_batch(torch, gen, TRAIN_BATCH)
+               for _ in range(TRAIN_STEPS + 1)]
+    step(*batches[-1], gen)                 # warm-up (cuDNN plans, build)
+    torch.cuda.synchronize()
+    before = running_stats(model)
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launch_counts()
+    outs, secs = [], []
+    for b in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        outs.append(step(*b, gen))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name, count in launches.items():
+        want = UNITS_PER_STEP * TRAIN_STEPS if name == "unit_bwd_strips" else 0
+        check(count == want, f"{name}: {count} launches in {TRAIN_STEPS} "
+                             f"training steps, expected {want}")
+    losses = [float(o["loss"]) for o in outs]
+    accs = [float(o["acc"]) for o in outs]
+    check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
+    check(all(0.0 <= a <= 1.0 for a in accs), f"accuracies in [0, 1] {accs}")
+    after = running_stats(model)
+    check(all(not torch.equal(before[k], after[k]) for k in before),
+          "every running statistic changed")
+    check(all(bool(torch.isfinite(v).all()) for v in after.values())
+          and all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          "finite weights and statistics")
+    tiles_s = TRAIN_BATCH * TRAIN_STEPS / sum(secs)
+    flops = train_flops_per_tile(hp.model, hp.tile_px, hp.hidden_layer_width,
+                                 hp.hidden_layers)
+    prof = kernel_profile(torch, lambda: step(*batches[0], gen), top=15)
+
+    plane_step = make_train_step(model, tx, hp, normalizer, backend="plane")
+    _build.reset_launch_counts()
+    plane_loss = float(plane_step(*batches[1], gen)["loss"])
+    torch.cuda.synchronize()
+    plane_launches = _build.launch_counts()
+    for name, count in plane_launches.items():
+        want = UNITS_PER_STEP if name == "unit_bwd_plane" else 0
+        check(count == want, f"{name}: {count} launches in the plane-kernel "
+                             f"step, expected {want}")
+    check(math.isfinite(plane_loss), "plane-kernel step: finite loss")
+    del step, plane_step, batches, outs, tx, model
+    torch.cuda.empty_cache()
+
+    grad_check = gradient_check(torch, model0, hp, normalizer, gen)
+    return {
+        "phase": "train", "model": hp.model, "tile_px": hp.tile_px,
+        "batch": TRAIN_BATCH, "augment": hp.augment, "dropout": hp.dropout,
+        "optimizer": hp.optimizer, "learning_rate": hp.learning_rate,
+        "steps": TRAIN_STEPS, "step_s": secs,
+        "steps_per_s": TRAIN_STEPS / sum(secs), "tiles_per_s": tiles_s,
+        "train_flops_per_tile": flops,
+        "mfu_bf16": flops * tiles_s / H100_PEAK_BF16,
+        "max_memory_allocated_bytes": peak, "card": card,
+        "losses": losses, "accs": accs, "launches": launches,
+        "plane_step": {"loss": plane_loss, "launches": plane_launches},
+        "gradient_check": grad_check, "profile": prof,
+    }, launches, plane_launches
+
+
 def main() -> int:
     import torch
 
@@ -407,26 +694,33 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {name: [ln.strip() for ln in _build.build_log(name)
                            .splitlines() if "registers" in ln or "spill" in ln]
-                    for name in _build.KERNELS}})
+                    for name in _build.SOURCES}})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for fn in (kernel_preprocess, kernel_middle, kernel_head):
-        row = fn(torch, gen)
+        rows.append(fn(torch, gen))
+        torch.cuda.empty_cache()
+    rows += kernel_unit_bwd(torch, gen)
+    for row in rows:
         row["card"] = card
         emit({"phase": "kernel", **row})
-        rows.append(row)
-        torch.cuda.empty_cache()
 
     main_row, launches = main_path(torch, SEED, REQUESTS, card)
     emit(main_row)
+    torch.cuda.empty_cache()
+    train_row, strip_launches, plane_launches = train_path(torch, SEED, card)
+    emit(train_row)
+    launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
+    launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     emit({"kernels": [
         {"name": r["name"], "route": "cuda",
-         "source": f"biscuit_torch/csrc/{r['name']}.cu",
-         "replaces": REPLACES[r["name"]], "launches": launches[r["name"]],
+         "source": f"biscuit_torch/csrc/{_build.SOURCE[r['name']]}.cu",
+         "replaces": _build.REPLACES[r["name"]],
+         "launches": launches[r["name"]],
          **{k: r[k] for k in keys}} for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

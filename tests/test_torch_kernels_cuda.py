@@ -8,7 +8,9 @@ Small shapes that exercise the ragged edges (rows and columns that do not
 fill a tile); chip_smoke.py holds the same comparisons at the main path's
 shapes. Tolerances as there: bf16 outputs within 2e-2 (preprocess) and
 1e-2 of the largest value (middle flow), head probabilities within 2e-3
-on the same Philox stream.
+on the same Philox stream; the unit backwards within 5e-3 of each
+gradient's largest value (1e-2 for da), since the kernel factors the BN
+backward as the TPU kernel does and a bf16 rounding of gp may flip.
 """
 
 import pytest
@@ -24,6 +26,12 @@ from biscuit_torch.ops.fused_preprocess import (
 from biscuit_torch.ops.fused_sepconv import (
     fused_middle_flow,
     fused_middle_flow_reference,
+)
+from biscuit_torch.ops.fused_unit_bwd import (
+    unit_bwd_plane,
+    unit_bwd_reference,
+    unit_bwd_strips,
+    unit_fwd,
 )
 from biscuit_torch.ops.mcd_head import (
     head_weights,
@@ -88,3 +96,123 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         fused_preprocess(x.to(torch.float32))
     with pytest.raises(ValueError):
         fused_preprocess(x.to(torch.uint8), out_dtype=torch.float32)
+
+
+def test_jpeg_products_stay_f32_with_tf32_on(gen):
+    """The DCT products of the JPEG augmentation pin full f32: a process
+    that turns TF32 on gets the same tiles at quality 99, and keeps its
+    setting."""
+    from biscuit_torch.data.augment import jpeg_apply
+
+    x = torch.randint(0, 256, (8, 64, 64, 3), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    apply = torch.ones(8, dtype=torch.bool, device="cuda")
+    q = torch.full((8,), 99, device="cuda")
+    want = jpeg_apply(x, apply, q)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = jpeg_apply(x, apply, q)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(got, want)
+
+
+# (N, H, W, CI, CO, hs): a small plane, a ragged last strip (19 = 3*6 + 1)
+# over 16 images, and the 37x37 entry geometry in two strips.
+UNIT_SHAPES = [(4, 9, 7, 8, 16, 3), (16, 19, 13, 8, 16, 6),
+               (2, 37, 37, 256, 728, 24)]
+
+
+@pytest.mark.parametrize("relu_first", [True, False])
+@pytest.mark.parametrize("shape", UNIT_SHAPES)
+def test_unit_bwd(gen, shape, relu_first):
+    n, h, w, ci, co, hs = shape
+    a = torch.randn((n, h, w, ci), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    taps = 0.2 * torch.randn((9, ci), generator=gen, device="cuda")
+    wpw = torch.randn((ci, co), generator=gen, device="cuda") / ci ** 0.5
+    gamma = 1 + 0.1 * torch.randn(co, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(co, generator=gen, device="cuda")
+    gy = torch.randn((n, h, w, co), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    _, mu, var, (r, d, p) = unit_fwd(a, taps, wpw, gamma, beta, 1e-5,
+                                     relu_first)
+    args = (gy, r, d, p, taps, wpw, gamma, mu, var, 1e-5, relu_first)
+    want = unit_bwd_reference(*args)
+    for name, fn, kw in (("unit_bwd_plane", unit_bwd_plane, {}),
+                         ("unit_bwd_strips", unit_bwd_strips, {"hs": hs})):
+        before = _build.launch_counts()[name]
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()[name] == before + 1
+        assert got[0].dtype == torch.bfloat16 and got[0].shape == a.shape
+        for i, (g, ref) in enumerate(zip(got, want)):
+            g, ref = g.float(), ref.float()
+            assert bool(torch.isfinite(g).all()), (name, i)
+            err = (g - ref).abs().max().item() / ref.abs().max().item()
+            assert err <= (1e-2 if i == 0 else 5e-3), (name, i, err)
+
+
+def test_unit_bwd_rejects_what_the_kernel_does_not_take(gen):
+    x = torch.zeros((1, 4, 4, 8), device="cuda")
+    v = torch.ones(8, device="cuda")
+    args = (x, x, x, x, torch.zeros((9, 8), device="cuda"),
+            torch.zeros((8, 8), device="cuda"), v, v, v, 1e-5, True)
+    with pytest.raises(ValueError):
+        unit_bwd_plane(*args)          # f32 activations
+    xb = x.to(torch.bfloat16)
+    bad = (xb, xb, xb, xb[..., :4].contiguous()) + args[4:]
+    with pytest.raises(ValueError):
+        unit_bwd_strips(*bad)          # d of the wrong width
+    buf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = buf[1:].view(x.shape)    # contiguous, 2 bytes off a boundary
+    for i in range(4):
+        off = tuple(shifted if j == i else xb for j in range(4)) + args[4:]
+        with pytest.raises(ValueError, match="16-byte"):
+            unit_bwd_plane(*off)
+
+
+def test_train_step_kernel_against_plain(gen):
+    """One fused-trunk step of xception_tiny at 37 px on the card (unit
+    planes down to 2x2 and 1x1) with the strip kernel, and one with the
+    plain-version backward, from the same weights and batch: the same
+    loss, every unit backward on the kernel, and gradients within 5e-2
+    of each tensor's largest value (or, for a tensor whose gradient is
+    under 1e-2 of the largest gradient, within 1e-3 of that)."""
+    import copy
+
+    from biscuit_torch.data.normalize import make_normalizer
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.train.trainer import make_optimizer, make_train_step
+
+    hp = nature2022_params()
+    hp.model, hp.tile_px, hp.hidden_layer_width = "xception_tiny", 37, 32
+    hp.augment, hp.dropout = "", 0.0
+    torch.manual_seed(0)
+    model0 = build_model(hp)
+    tiles = torch.randint(0, 256, (16, 37, 37, 3), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 2, (16,), generator=gen, device="cuda")
+    mask = torch.ones(16, device="cuda")
+    grads, losses = {}, {}
+    for backend in ("auto", "reference"):
+        m = copy.deepcopy(model0).cuda()
+        step = make_train_step(m, make_optimizer(hp, m.parameters()), hp,
+                               make_normalizer(hp.normalizer),
+                               backend=backend)
+        before = _build.launch_counts()["unit_bwd_strips"]
+        losses[backend] = float(step(tiles, labels, mask)["loss"])
+        launched = _build.launch_counts()["unit_bwd_strips"] - before
+        # 16 units: 3 entry blocks x 2, 2 middle blocks x 3, 2 + 2 exit.
+        assert launched == (16 if backend == "auto" else 0)
+        grads[backend] = {n: p.grad for n, p in m.named_parameters()}
+    assert losses["auto"] == losses["reference"]
+    tree_max = max(g.abs().max().item() for g in grads["reference"].values())
+    for name, want in grads["reference"].items():
+        scale = want.abs().max().item()
+        diff = (grads["auto"][name] - want).abs().max().item()
+        assert (diff <= 5e-2 * scale
+                or (scale <= 1e-2 * tree_max and diff <= 1e-3 * tree_max)), \
+            (name, diff / scale, scale / tree_max)
