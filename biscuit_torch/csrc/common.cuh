@@ -95,13 +95,26 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Row r of a row-major A with leading dimension lda. A GEMM whose A rows
+// are not evenly spaced passes its own functor of the same shape
+// (gemm_mainloop_rows): any map from a row index to that row's first
+// element, 16-byte aligned.
+struct DenseRows {
+  const __nv_bfloat16* A;
+  int lda;
+  __device__ __forceinline__ const __nv_bfloat16* operator()(int r) const {
+    return A + (size_t)r * lda;
+  }
+};
+
 // Load k-tile kt of A (rows m0..m0+BM) and B (cols n0..n0+128) into stage.
-// Requires K % 8 == 0, N % 8 == 0 and 16-byte aligned rows (lda, ldb % 8).
-template <int BM>
+// Requires K % 8 == 0, N % 8 == 0 and 16-byte aligned rows (ldb % 8, and
+// every A row as a_row gives it).
+template <int BM, typename ARows>
 __device__ __forceinline__ void gemm_load_tile(
-    GemmSmem<BM>& s, int stage, const __nv_bfloat16* __restrict__ A,
-    int lda, const __nv_bfloat16* __restrict__ B, int ldb, int M, int N,
-    int K, int m0, int n0, int kt) {
+    GemmSmem<BM>& s, int stage, const ARows& a_row,
+    const __nv_bfloat16* __restrict__ B, int ldb, int M, int N, int K,
+    int m0, int n0, int kt) {
   const int tid = threadIdx.x;
   const int k0 = kt * GEMM_BK;
   constexpr int A_CHUNKS = GEMM_BK / 8;   // 16-byte chunks per A row
@@ -111,7 +124,7 @@ __device__ __forceinline__ void gemm_load_tile(
     int r = i / A_CHUNKS, c = (i % A_CHUNKS) * 8;
     int gr = m0 + r, gk = k0 + c;
     bool ok = gr < M && gk < K;
-    const __nv_bfloat16* src = ok ? A + (size_t)gr * lda + gk : A;
+    const __nv_bfloat16* src = ok ? a_row(gr) + gk : B;
     cp_async16(&s.a[stage][r][c], src, ok ? 16 : 0);
   }
 #pragma unroll
@@ -124,11 +137,12 @@ __device__ __forceinline__ void gemm_load_tile(
   }
 }
 
-// Main loop: acc = A[m0:m0+BM, :] * B[:, n0:n0+128], f32 accumulate.
-template <int BM>
-__device__ __forceinline__ void gemm_mainloop(
-    GemmSmem<BM>& s, Acc<BM>& acc, const __nv_bfloat16* __restrict__ A,
-    int lda, const __nv_bfloat16* __restrict__ B, int ldb, int M, int N, int K,
+// Main loop: acc = A[m0:m0+BM, :] * B[:, n0:n0+128], f32 accumulate, with
+// A's rows given by a_row.
+template <int BM, typename ARows>
+__device__ __forceinline__ void gemm_mainloop_rows(
+    GemmSmem<BM>& s, Acc<BM>& acc, const ARows& a_row,
+    const __nv_bfloat16* __restrict__ B, int ldb, int M, int N, int K,
     int m0, int n0) {
   constexpr int MT = Acc<BM>::MT, NT = Acc<BM>::NT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -148,7 +162,7 @@ __device__ __forceinline__ void gemm_mainloop(
 #pragma unroll
   for (int t = 0; t < GEMM_STAGES - 1; ++t) {
     if (t < nk)
-      gemm_load_tile<BM>(s, t, A, lda, B, ldb, M, N, K, m0, n0, t);
+      gemm_load_tile<BM>(s, t, a_row, B, ldb, M, N, K, m0, n0, t);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -157,8 +171,8 @@ __device__ __forceinline__ void gemm_mainloop(
     __syncthreads();
     const int next = kt + GEMM_STAGES - 1;
     if (next < nk)
-      gemm_load_tile<BM>(s, next % GEMM_STAGES, A, lda, B, ldb, M, N, K,
-                             m0, n0, next);
+      gemm_load_tile<BM>(s, next % GEMM_STAGES, a_row, B, ldb, M, N, K, m0,
+                         n0, next);
     cp_async_commit();
 #pragma unroll
     for (int kk = 0; kk < GEMM_BK; kk += 16) {
@@ -187,6 +201,15 @@ __device__ __forceinline__ void gemm_mainloop(
   }
   cp_async_wait<0>();
   __syncthreads();   // the caller may reuse the shared memory
+}
+
+// Main loop over a row-major A (M x K, leading dimension lda).
+template <int BM>
+__device__ __forceinline__ void gemm_mainloop(
+    GemmSmem<BM>& s, Acc<BM>& acc, const __nv_bfloat16* __restrict__ A,
+    int lda, const __nv_bfloat16* __restrict__ B, int ldb, int M, int N, int K,
+    int m0, int n0) {
+  gemm_mainloop_rows<BM>(s, acc, DenseRows{A, lda}, B, ldb, M, N, K, m0, n0);
 }
 
 // Visit the accumulators as f(m16 tile, n8 tile, half, row, col, v[col],

@@ -30,7 +30,9 @@ SOURCE = {"fused_preprocess": "fused_preprocess",
           "fused_middle_flow": "fused_middle_flow",
           "mcd_head": "mcd_head",
           "unit_bwd_plane": "fused_unit_bwd",
-          "unit_bwd_strips": "fused_unit_bwd"}
+          "unit_bwd_strips": "fused_unit_bwd",
+          "fused_block": "fused_block",
+          "depthwise3x3": "depthwise3x3"}
 KERNELS = tuple(SOURCE)
 SOURCES = tuple(dict.fromkeys(SOURCE.values()))
 REPLACES = {
@@ -39,6 +41,8 @@ REPLACES = {
     "mcd_head": "biscuit_tpu/ops/mcd_head.py:40",
     "unit_bwd_plane": "biscuit_tpu/ops/fused_unit_bwd.py:186",
     "unit_bwd_strips": "biscuit_tpu/ops/fused_unit_bwd.py:364",
+    "fused_block": "biscuit_tpu/ops/fused_block.py:115",
+    "depthwise3x3": "biscuit_tpu/ops/depthwise_pallas.py:38",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,11 +1,13 @@
 """Fused Xception middle flow (``csrc/fused_middle_flow.cu``) and the
-trunk composition around it.
+trunk compositions around it.
 
 Counterpart of ``biscuit_tpu/ops/fused_sepconv.py``: ``fold_bn``,
 ``stack_middle_weights``, ``fused_middle_flow`` and
-``trunk_features_fused`` in its default composition (library-conv entry
-flow -> fused middle flow -> library-conv exit flow). The fused
-strided-block composition waits for the port of ``ops/fused_block.py``.
+``trunk_features_fused`` in both its compositions: the default
+(library-conv entry flow -> fused middle flow -> library-conv exit flow)
+and, with ``fuse_blocks=True``, the fully fused trunk (library stem ->
+fused entry blocks -> fused middle flow -> fused exit block -> library
+exit sepconvs and pool), whose strided blocks are ``ops/fused_block.py``.
 
 On a CPU tensor ``fused_middle_flow`` computes its plain version; on a
 CUDA tensor it launches the kernel or raises.
@@ -128,15 +130,37 @@ def fused_middle_flow(x_nhwc, dw, pw, sc, sh):
     return out
 
 
-def trunk_features_fused(model, x, mid_wts=None):
-    """Inference trunk features with the fused middle flow: library-conv
-    entry flow -> fused middle flow -> library-conv exit flow. ``mid_wts``
-    is ``stack_middle_weights``'s result, computed here when None."""
+def trunk_features_fused(model, x, mid_wts=None, fuse_blocks: bool = False,
+                         block_wts=None):
+    """Inference trunk features with the fused middle flow. By default
+    the entry and exit flows are library convs; ``fuse_blocks=True`` runs
+    the stem, then each strided block (entry blocks and exit block)
+    through ``fused_strided_block``, then the exit sepconvs and pool.
+    ``mid_wts`` and ``block_wts`` are ``stack_middle_weights``'s result
+    and the list of ``stack_block_weights`` results of
+    ``fused_block.trunk_blocks``, computed here when None."""
     from ..models.xception import ARCHS
 
     if mid_wts is None:
         mid_wts = stack_middle_weights(
             model.backbone, ARCHS[model.arch]["middle_repeats"])
-    h = model.trunk_entry(x)
+    if not fuse_blocks:
+        h = model.trunk_entry(x)
+        h = fused_middle_flow(h, *mid_wts)
+        return model.trunk_exit(h)
+
+    from .fused_block import (
+        fused_strided_block,
+        stack_block_weights,
+        trunk_blocks,
+    )
+
+    blocks = trunk_blocks(model.backbone)
+    if block_wts is None:
+        block_wts = [stack_block_weights(b) for b in blocks]
+    h = model.trunk_stem(x).contiguous()
+    for blk, wts in zip(blocks[:-1], block_wts[:-1]):
+        h = fused_strided_block(h, wts, blk.relu_first)
     h = fused_middle_flow(h, *mid_wts)
-    return model.trunk_exit(h)
+    h = fused_strided_block(h, block_wts[-1], blocks[-1].relu_first)
+    return model.trunk_exit_tail(h)

@@ -11,8 +11,11 @@ Backends: on the card the middle flow goes through the fused kernel
 (``ops/mcd_head.py``); ``fused_trunk=False`` / ``use_kernel=False`` pick
 the library-conv middle flow and the module head instead. On the CPU the
 defaults are the module paths, as the JAX package defaults to XLA off the
-TPU; passing ``True`` runs the kernels' plain versions. The opt-in int8
-trunk is not ported yet.
+TPU; passing ``True`` runs the kernels' plain versions. ``fuse_blocks``
+(default False, as the JAX package without ``BISCUIT_FUSED_BLOCKS=1``)
+opts into the fully fused trunk, whose entry and exit blocks go through
+the fused strided-block kernel (``ops/fused_block.py``); it implies the
+fused trunk. The opt-in int8 trunk is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,15 +29,24 @@ from ..device import resolve_device
 from ..models.xception import ARCHS
 
 
+def _fused(fused_trunk: Optional[bool], fuse_blocks: bool, on_card: bool):
+    """Whether the trunk is the fused one: ``fuse_blocks`` needs it."""
+    if fuse_blocks:
+        if fused_trunk is False:
+            raise ValueError("fuse_blocks=True runs the fused trunk; it "
+                             "cannot be combined with fused_trunk=False")
+        return True
+    return on_card if fused_trunk is None else fused_trunk
+
+
 def trunk_features(model, x, fused_trunk: Optional[bool] = None,
-                   mid_wts=None):
+                   mid_wts=None, fuse_blocks: bool = False, block_wts=None):
     """Deterministic pooled f32 features of preprocessed NHWC tiles."""
-    if fused_trunk is None:
-        fused_trunk = x.is_cuda
-    if fused_trunk:
+    if _fused(fused_trunk, fuse_blocks, x.is_cuda):
         from ..ops.fused_sepconv import trunk_features_fused
 
-        return trunk_features_fused(model, x, mid_wts)
+        return trunk_features_fused(model, x, mid_wts, fuse_blocks,
+                                    block_wts)
     return model.features(x)
 
 
@@ -68,10 +80,12 @@ def mc_dropout_head(model, feats, seed: int = 0, k: int = 30,
 def mc_dropout_predict(model, x, seed: int = 0, k: int = 30,
                        use_kernel: Optional[bool] = None,
                        fused_trunk: Optional[bool] = None,
-                       mid_wts=None, head_wts=None):
+                       mid_wts=None, head_wts=None, fuse_blocks: bool = False,
+                       block_wts=None):
     """(mean softmax, std softmax) over k dropout samples; trunk runs once.
     ``x`` is a preprocessed (normalized + standardized) NHWC batch."""
-    feats = trunk_features(model, x, fused_trunk, mid_wts)
+    feats = trunk_features(model, x, fused_trunk, mid_wts, fuse_blocks,
+                           block_wts)
     return mc_dropout_head(model, feats, seed, k, use_kernel, head_wts)
 
 
@@ -97,23 +111,27 @@ class UncertaintyInterface:
     def __init__(self, model_path: str, k: Optional[int] = None,
                  device=None, seed: int = 0,
                  use_kernel: Optional[bool] = None,
-                 fused_trunk: Optional[bool] = None):
+                 fused_trunk: Optional[bool] = None,
+                 fuse_blocks: bool = False):
         from .trainer import load_checkpoint
 
         model, hp, meta = load_checkpoint(model_path, device)
-        self._setup(model, hp, meta, k, seed, use_kernel, fused_trunk)
+        self._setup(model, hp, meta, k, seed, use_kernel, fused_trunk,
+                    fuse_blocks)
 
     @classmethod
     def from_model(cls, model, hp, k: Optional[int] = None, device=None,
                    seed: int = 0, use_kernel: Optional[bool] = None,
-                   fused_trunk: Optional[bool] = None):
+                   fused_trunk: Optional[bool] = None,
+                   fuse_blocks: bool = False):
         """Build from an in-memory model and its ModelParams."""
         obj = cls.__new__(cls)
         obj._setup(model.to(resolve_device(device)).eval(), hp, {}, k, seed,
-                   use_kernel, fused_trunk)
+                   use_kernel, fused_trunk, fuse_blocks)
         return obj
 
-    def _setup(self, model, hp, meta, k, seed, use_kernel, fused_trunk):
+    def _setup(self, model, hp, meta, k, seed, use_kernel, fused_trunk,
+               fuse_blocks):
         self.model, self.hp, self.meta = model, hp, meta
         self.device = next(model.parameters()).device
         self.k = k if k is not None else hp.uq_samples
@@ -121,17 +139,23 @@ class UncertaintyInterface:
         self.seed = int(seed)
         self._calls = 0
         on_card = self.device.type == "cuda"
-        self._fused = on_card if fused_trunk is None else fused_trunk
+        self._fused = _fused(fused_trunk, fuse_blocks, on_card)
+        self._fuse_blocks = bool(fuse_blocks)
         self._use_kernel = (on_card and model.hidden_layers == 2
                             if use_kernel is None else use_kernel)
         # Kernel-layout weights, made once instead of on every call.
-        self._mid_wts = self._head_wts = None
+        self._mid_wts = self._head_wts = self._block_wts = None
         with torch.no_grad():
             if self._fused:
                 from ..ops.fused_sepconv import stack_middle_weights
 
                 self._mid_wts = stack_middle_weights(
                     model.backbone, ARCHS[model.arch]["middle_repeats"])
+            if self._fuse_blocks:
+                from ..ops.fused_block import stack_block_weights, trunk_blocks
+
+                self._block_wts = [stack_block_weights(b)
+                                   for b in trunk_blocks(model.backbone)]
             if self._use_kernel:
                 from ..ops.mcd_head import head_weights
 
@@ -151,4 +175,5 @@ class UncertaintyInterface:
             return mc_dropout_predict(
                 self.model, x, seed, self.k, use_kernel=self._use_kernel,
                 fused_trunk=self._fused, mid_wts=self._mid_wts,
-                head_wts=self._head_wts)
+                head_wts=self._head_wts, fuse_blocks=self._fuse_blocks,
+                block_wts=self._block_wts)

@@ -15,12 +15,23 @@ Phases, each printing one JSON line:
    bound (the larger of bytes / HBM rate and operations / peak rate).
    The two unit-backward kernels are held at the 147x147 64->128 and the
    19x19 728->728 geometries at batch 128; their ms, plain ms, library
-   ms and bound are the two geometries' added.
+   ms and bound are the two geometries' added. The fused strided block
+   is held at the four serving geometries (entry0 147^2 64->128, entry1
+   74^2 128->256, entry2 37^2 256->728, exit 19^2 728->728->1024) at 256
+   tiles, its library yardstick the port's eval-mode ``XceptionBlock``;
+   the depthwise 3x3 at 147^2 x 128 and 19^2 x 728 in bf16, with its
+   gradients held against autograd of its plain version; each row adds
+   its geometries.
 4. main: ``UncertaintyInterface`` at the published width (Xception-299,
    2x1024 head, dropout 0.1, K=30) with seeded random weights answers R
    requests of 256 uint8 tiles; the launch counts are zeroed just before
    and read just after; the outputs are checked, and at dropout 0 the
    kernel path is held against the plain versions on the same model.
+   main_fused_blocks: the same with ``fuse_blocks=True`` (the fully fused
+   trunk, 4 fused-block launches a request), its features held against
+   the plain-version composition and against phase main's composition.
+   depthwise_entry: one forward and backward through
+   ``depthwise_conv3x3``, the standalone op's own entry point.
 5. train: ``make_train_step`` of ``hp.nature2022`` (Xception-299 bf16,
    2x1024 head, dropout 0.1, Adam 1e-4 with the 0.98/512 decay, 'xyrjb',
    batch 128) on seeded random weights: one warm-up step, then counted
@@ -29,7 +40,9 @@ Phases, each printing one JSON line:
    kernel, counted on its own; and at batch 32, augment off and dropout
    0, the gradients of one kernel step held against one plain-version
    step from the same weights and batch.
-6. the kernels line; 7. the last line ``{"ok": true, "device": ...}``.
+6. the kernels line (launches: the serving phases for kernels 1-4, the
+   depthwise entry phase, the training phase); 7. the last line
+   ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. It needs one CUDA card; without one it exits 1 at once.
@@ -58,6 +71,14 @@ UNITS_PER_STEP = 34   # sep+BN units of Xception: 6 entry, 24 middle, 4 exit
 # first unit and a middle-flow unit.
 UNIT_GEOMETRIES = ((147, 64, 128, False), (19, 728, 728, True))
 SERVING = ("fused_preprocess", "fused_middle_flow", "mcd_head")
+BLOCKS_PER_REQUEST = 4     # entry0-2 and the exit block, with fuse_blocks
+# (H = W, Cin, F0, F1, relu_first) of the strided blocks on the serving
+# path at 299 px: entry0, entry1 (the even-size pool), entry2, exit.
+BLOCK_GEOMETRIES = ((147, 64, 128, 128, False), (74, 128, 256, 256, True),
+                    (37, 256, 728, 728, True), (19, 728, 728, 1024, True))
+# (H = W, C) of the depthwise 3x3 rows: entry0's second conv and the
+# middle flow's.
+DW_GEOMETRIES = ((147, 128), (19, 728))
 # The device kernels of csrc/fused_unit_bwd.cu, by the names the profiler
 # shows.
 UNIT_BWD_KERNELS = ("bn_sums_kernel", "bn_finalize_kernel", "gp_kernel",
@@ -344,6 +365,179 @@ def kernel_unit_bwd(torch, gen):
     return list(rows.values())
 
 
+def kernel_fused_block(torch, gen):
+    """The fused strided block against its plain version at each of
+    BLOCK_GEOMETRIES at TILES tiles; its times and bound added over the
+    geometries. The library yardstick is the eval-mode XceptionBlock
+    module the weights come from (cuDNN convs, BN, pool), which the fused
+    path never calls."""
+    from biscuit_torch.models.xception import XceptionBlock
+    from biscuit_torch.ops.fused_block import (
+        fused_strided_block,
+        fused_strided_block_reference,
+        stack_block_weights,
+    )
+
+    row = {"name": "fused_block", "geometries": [], "ms": 0.0,
+           "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0}
+    # f32 sums in another order can flip a bf16 rounding of a0, a1 or y1:
+    # 1e-2 of the largest value.
+    tol_rel = 1e-2
+    for hw, cin, f0, f1, relu_first in BLOCK_GEOMETRIES:
+        block = XceptionBlock(cin, (f0, f1), 2, relu_first)
+        init_random_(torch, block, SEED + hw)
+        block = block.cuda().eval()
+        wts = stack_block_weights(block)
+        xs = [torch.randn((TILES, hw, hw, cin), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+              for _ in range(N_TIMED)]
+        got = fused_strided_block(xs[0], wts, relu_first).float()
+        ref = fused_strided_block_reference(xs[0], wts, relu_first).float()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "fused_block finite")
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        check(err <= tol_rel * scale, f"fused_block {hw}^2 {cin}->{f0}->{f1}:"
+                                      f" max abs err {err} > {tol_rel * scale}")
+        del got, ref
+        ms = cuda_ms(torch, lambda x: fused_strided_block(x, wts, relu_first),
+                     xs)
+        plain = cuda_ms(torch, lambda x: fused_strided_block_reference(
+            x, wts, relu_first), xs[:N_PLAIN], warmup=1)
+        with torch.inference_mode():
+            lib = cuda_ms(torch, lambda x: block(x.permute(0, 3, 1, 2)), xs)
+        m, h2 = TILES * hw * hw, -(-hw // 2)
+        m2 = TILES * h2 * h2
+        n_bytes = (m * cin * 2 + m2 * f1 * 2
+                   + sum(t.numel() * t.element_size() for t in wts))
+        b, by = bound_ms(n_bytes, {
+            "bf16": 2.0 * m * (cin * f0 + f0 * f1) + 2.0 * m2 * cin * f1,
+            "f32": 18.0 * m * (cin + f0) + 2.0 * m * (f0 + f1)})
+        row["geometries"].append({
+            "hw": hw, "cin": cin, "f0": f0, "f1": f1, "tiles": TILES,
+            "relu_first": relu_first, "max_abs_err": err,
+            "tol": tol_rel * scale, "max_abs_ref": scale, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": b,
+            "bound_by": by,
+            "profile": kernel_profile(
+                torch, lambda: fused_strided_block(xs[0], wts, relu_first),
+                top=6)})
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", b)):
+            row[key] += v
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        del xs, block, wts
+        torch.cuda.empty_cache()
+    row["bound_by"] = max(row["geometries"],
+                          key=lambda g: g["bound_ms"])["bound_by"]
+    return row
+
+
+def bf16_ulp(torch, v):
+    """One bf16 ulp at each value of v (8 significant bits)."""
+    _, e = torch.frexp(v.float().abs())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def kernel_depthwise(torch, gen):
+    """The depthwise 3x3 against its plain version at each of
+    DW_GEOMETRIES (bf16, TILES images): the forward, and dx and dk of one
+    backward against autograd of the plain version; times of the forward,
+    added over the geometries. Library: F.conv2d(groups=C)."""
+    import torch.nn.functional as F
+
+    from biscuit_torch.ops.depthwise import (
+        depthwise_conv3x3,
+        depthwise_conv3x3_reference,
+    )
+
+    row = {"name": "depthwise3x3", "geometries": [], "ms": 0.0,
+           "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0}
+    # Forward and dx: nine f32 taps in the same order on both sides, so
+    # at most a rounding tie flips: one bf16 ulp of each value. dk: f32
+    # sums over N*H*W products in another order: 1e-4 of the largest.
+    tol_dk = 1e-4
+    for hw, c in DW_GEOMETRIES:
+        shape = (TILES, hw, hw, c)
+        k = 0.3 * torch.randn((3, 3, 1, c), generator=gen, device="cuda")
+        xs = [torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(N_TIMED)]
+        g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        outs = {}
+        for name, fn in (("kernel", depthwise_conv3x3),
+                         ("plain", depthwise_conv3x3_reference)):
+            xg, kg = xs[0].clone().requires_grad_(), k.clone().requires_grad_()
+            y = fn(xg, kg)
+            outs[name] = (y.detach(), *torch.autograd.grad(y, (xg, kg), g))
+            del xg, kg, y
+        torch.cuda.synchronize()
+        errs = {}
+        for key, got, want in zip(("y", "dx", "dk"), outs["kernel"],
+                                  outs["plain"]):
+            got, want = got.float(), want.float()
+            check(bool(torch.isfinite(got).all()), f"depthwise3x3 {key} finite")
+            errs[key] = (got - want).abs().max().item()
+            if key == "dk":
+                ok = errs[key] <= tol_dk * want.abs().max().item()
+            else:
+                ok = bool(((got - want).abs() <= bf16_ulp(torch, want)).all())
+            check(ok, f"depthwise3x3 {hw}^2 x {c} {key}: max abs err "
+                      f"{errs[key]}")
+        del outs
+        ms = cuda_ms(torch, lambda x: depthwise_conv3x3(x, k), xs)
+        plain = cuda_ms(torch, lambda x: depthwise_conv3x3_reference(x, k),
+                        xs[:N_PLAIN], warmup=1)
+        w = k.reshape(3, 3, c).permute(2, 0, 1)[:, None].to(torch.bfloat16)
+        lib = cuda_ms(torch, lambda x: F.conv2d(x.permute(0, 3, 1, 2), w,
+                                                padding=1, groups=c), xs)
+        m = TILES * hw * hw
+        b, by = bound_ms(2 * m * c * 2 + 9 * c * 4, {"f32": 18.0 * m * c})
+        row["geometries"].append({
+            "hw": hw, "c": c, "tiles": TILES, "dtype": "bfloat16",
+            "max_abs_err": errs, "tol": {"y": "1 bf16 ulp", "dx": "1 bf16 ulp",
+                                         "dk": f"{tol_dk} of max"},
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b,
+            "bound_by": by})
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", b)):
+            row[key] += v
+        row["max_abs_err"] = max(row["max_abs_err"], errs["y"])
+        del xs, g
+        torch.cuda.empty_cache()
+    row["bound_by"] = max(row["geometries"],
+                          key=lambda g: g["bound_ms"])["bound_by"]
+    return row
+
+
+def depthwise_entry(torch, gen, card: str):
+    """The standalone op's own path: one forward and backward through
+    ``depthwise_conv3x3`` at entry0's 147^2 x 128 (bf16, TILES images),
+    with the launch counts zeroed just before and read just after."""
+    from biscuit_torch.ops import _build
+    from biscuit_torch.ops.depthwise import depthwise_conv3x3
+
+    hw, c = DW_GEOMETRIES[0]
+    x = torch.randn((TILES, hw, hw, c), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    k = (0.3 * torch.randn((3, 3, 1, c), generator=gen,
+                           device="cuda")).requires_grad_()
+    _build.reset_launch_counts()
+    y = depthwise_conv3x3(x, k)
+    dx, dk = torch.autograd.grad(y, (x, k), torch.ones_like(y))
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    for name, count in launches.items():
+        want = 2 if name == "depthwise3x3" else 0
+        check(count == want, f"{name}: {count} launches in one forward and "
+                             f"backward of depthwise_conv3x3")
+    check(bool(torch.isfinite(dx).all() and torch.isfinite(dk).all()),
+          "depthwise_conv3x3 finite gradients")
+    return {"phase": "depthwise_entry", "hw": hw, "c": c, "tiles": TILES,
+            "card": card, "launches": launches}, launches
+
+
 def init_random_(torch, model, seed: int) -> None:
     """Seeded random weights: LeCun-normal convs (Flax's default), PyTorch's default Linear
     init, and BatchNorm affine and running statistics drawn near identity
@@ -418,32 +612,33 @@ def kernel_profile(torch, run, top: int = 12):
                     for us, key, n in rows[:top]]}
 
 
-def main_path(torch, seed: int, n_requests: int, card: str):
+def serving_setup(torch, seed: int, n_requests: int):
+    """hp.nature2022's model with seeded random weights on the card, and
+    n_requests + 1 requests of TILES uint8 tiles (the last one a
+    warm-up)."""
     from biscuit_torch.hp import nature2022_params
     from biscuit_torch.models.xception import build_model
-    from biscuit_torch.ops import _build
-    from biscuit_torch.ops.fused_preprocess import (
-        fused_preprocess,
-        fused_preprocess_reference,
-    )
-    from biscuit_torch.ops.fused_sepconv import fused_middle_flow_reference
-    from biscuit_torch.ops.mcd_head import mcd_head, mcd_head_reference
-    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
 
     hp = nature2022_params()
     model = build_model(hp)
     init_random_(torch, model, seed)
-    ui = UncertaintyInterface.from_model(model, hp, device="cuda", seed=seed)
-    check(ui.k == K and ui.hp.dropout == 0.1 and ui.hp.tile_px == TILE_PX,
-          "published configuration")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shape = (TILES, TILE_PX, TILE_PX, 3)
     requests = [torch.randint(0, 256, shape, generator=gen, device="cuda",
                               dtype=torch.uint8)
                 for _ in range(n_requests + 1)]
+    return hp, model.cuda().eval(), requests
+
+
+def serve(torch, ui, requests, n_requests: int, per_request: dict):
+    """Warm up on the last request, then answer the first n_requests with
+    the launch counts zeroed just before and read just after; check the
+    counts (per_request launches of each kernel named there, 0 of the
+    rest) and the output contract. Returns (outputs, seconds, launches)."""
+    from biscuit_torch.ops import _build
+
     ui(requests[-1])                        # warm-up (cuDNN plans)
     torch.cuda.synchronize()
-
     _build.reset_launch_counts()
     outs, secs = [], []
     for tiles in requests[:n_requests]:
@@ -453,9 +648,10 @@ def main_path(torch, seed: int, n_requests: int, card: str):
         secs.append(time.perf_counter() - t0)
     launches = _build.launch_counts()
     for name, count in launches.items():
-        want = n_requests if name in SERVING else 0
+        want = per_request.get(name, 0) * n_requests
         check(count == want,
-              f"{name}: {count} launches for {n_requests} requests")
+              f"{name}: {count} launches for {n_requests} requests, "
+              f"expected {want}")
     for mean, std in outs:
         check(tuple(mean.shape) == (TILES, 2) and tuple(std.shape) == (TILES, 2),
               "output shape")
@@ -463,7 +659,33 @@ def main_path(torch, seed: int, n_requests: int, card: str):
               "finite outputs")
         check(float((mean.sum(-1) - 1).abs().max()) <= 1e-3, "rows sum to 1")
         check(float(std.min()) >= 0, "std >= 0")
+    return outs, secs, launches
 
+
+def held_features(what: str, got, want):
+    """max |got - want| within 3e-2 of want's largest feature: the bf16
+    trunk rounds every conv output to bf16 on both paths, and a flipped
+    rounding early on moves the pooled features by ~1e-2 relative."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= 3e-2 * scale, f"{what}: max abs err {err} > {3e-2 * scale}")
+    return err, scale
+
+
+def main_path(torch, hp, model, requests, n_requests: int, card: str):
+    from biscuit_torch.ops.fused_preprocess import (
+        fused_preprocess,
+        fused_preprocess_reference,
+    )
+    from biscuit_torch.ops.fused_sepconv import fused_middle_flow_reference
+    from biscuit_torch.ops.mcd_head import mcd_head, mcd_head_reference
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+
+    ui = UncertaintyInterface.from_model(model, hp, device="cuda", seed=SEED)
+    check(ui.k == K and ui.hp.dropout == 0.1 and ui.hp.tile_px == TILE_PX,
+          "published configuration")
+    outs, secs, launches = serve(torch, ui, requests, n_requests,
+                                 {name: 1 for name in SERVING})
     stage_ms = stage_breakdown(torch, ui, requests[1])
     prof = kernel_profile(torch, lambda: ui(requests[1]))
 
@@ -477,13 +699,7 @@ def main_path(torch, seed: int, n_requests: int, card: str):
         hp_mid = fused_middle_flow_reference(model.trunk_entry(xp),
                                              *ui._mid_wts)
         fp = model.trunk_exit(hp_mid)
-        feat_scale = fp.abs().max().item()
-        feat_err = (fk - fp).abs().max().item()
-        # bf16 trunk: both paths round every conv output to bf16; a flipped
-        # rounding early on moves the pooled features by ~1e-2 relative.
-        feat_tol = 3e-2 * feat_scale
-        check(feat_err <= feat_tol,
-              f"features: max abs err {feat_err} > {feat_tol}")
+        feat_err, feat_scale = held_features("features", fk, fp)
         km, _ = mcd_head(fk, *ui._head_wts, k=K, dropout=0.0, seed=0)
         rm, _ = mcd_head_reference(fp, *ui._head_wts, k=K, dropout=0.0)
         head_err = (km - rm).abs().max().item()
@@ -496,8 +712,116 @@ def main_path(torch, seed: int, n_requests: int, card: str):
         "card": card, "launches": launches,
         "mean_of_mean": outs[0][0].mean(0).tolist(),
         "mean_of_std": outs[0][1].mean(0).tolist(),
-        "features_max_abs_err": feat_err, "features_tol": feat_tol,
+        "features_max_abs_err": feat_err, "features_tol": 3e-2 * feat_scale,
         "features_max_abs": feat_scale, "dropout0_mean_max_abs_err": head_err,
+        "stage_ms": stage_ms, "profile": prof,
+    }, launches
+
+
+def stage_breakdown_fused(torch, ui, tiles, repeats: int = 3):
+    """Median device time of each stage of one request of the fully fused
+    trunk, from CUDA events between the stages (the request's own calls,
+    in its order)."""
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.ops.fused_block import fused_strided_block, trunk_blocks
+    from biscuit_torch.ops.fused_sepconv import fused_middle_flow
+    from biscuit_torch.ops.mcd_head import mcd_head
+
+    names = ("preprocess", "stem", "entry_blocks", "middle_flow",
+             "exit_block", "exit_tail", "head")
+    blocks = trunk_blocks(ui.model.backbone)
+    runs = {name: [] for name in names}
+    with torch.inference_mode():
+        for _ in range(repeats):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+            ev[0].record()
+            x = inference_preprocess(tiles, ui.wsi_normalizer)
+            ev[1].record()
+            h = ui.model.trunk_stem(x).contiguous()
+            ev[2].record()
+            for blk, wts in zip(blocks[:-1], ui._block_wts[:-1]):
+                h = fused_strided_block(h, wts, blk.relu_first)
+            ev[3].record()
+            h = fused_middle_flow(h, *ui._mid_wts)
+            ev[4].record()
+            h = fused_strided_block(h, ui._block_wts[-1], blocks[-1].relu_first)
+            ev[5].record()
+            f = ui.model.trunk_exit_tail(h)
+            ev[6].record()
+            mcd_head(f, *ui._head_wts, k=ui.k, dropout=ui.model.dropout)
+            ev[7].record()
+            torch.cuda.synchronize()
+            for i, name in enumerate(names):
+                runs[name].append(ev[i].elapsed_time(ev[i + 1]))
+    return {name: statistics.median(v) for name, v in runs.items()}
+
+
+def main_fused_blocks(torch, hp, model, requests, n_requests: int,
+                      card: str):
+    """Phase main with ``fuse_blocks=True`` on the same model and
+    requests: the fully fused trunk, its launches, output contract, stage
+    times, and at dropout 0 its features against the plain-version
+    composition and against phase main's default composition."""
+    from biscuit_torch.ops.fused_block import (
+        fused_strided_block_reference,
+        trunk_blocks,
+    )
+    from biscuit_torch.ops.fused_preprocess import (
+        fused_preprocess,
+        fused_preprocess_reference,
+    )
+    from biscuit_torch.ops.fused_sepconv import fused_middle_flow_reference
+    from biscuit_torch.ops.mcd_head import mcd_head, mcd_head_reference
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+
+    ui = UncertaintyInterface.from_model(model, hp, device="cuda", seed=SEED,
+                                         fuse_blocks=True)
+    check(ui._block_wts is not None and len(ui._block_wts) ==
+          BLOCKS_PER_REQUEST, "four strided blocks stacked")
+    per_request = {name: 1 for name in SERVING}
+    per_request["fused_block"] = BLOCKS_PER_REQUEST
+    outs, secs, launches = serve(torch, ui, requests, n_requests, per_request)
+    stage_ms = stage_breakdown_fused(torch, ui, requests[1])
+    prof = kernel_profile(torch, lambda: ui(requests[1]))
+
+    with torch.inference_mode():
+        tiles = requests[0]
+        xk = fused_preprocess(tiles, ui.wsi_normalizer)
+        fk = trunk_features(model, xk, True, ui._mid_wts, True, ui._block_wts)
+        fd = trunk_features(model, xk, True, ui._mid_wts)   # phase main's
+        xp = fused_preprocess_reference(tiles, ui.wsi_normalizer,
+                                        torch.bfloat16)
+        blocks = trunk_blocks(model.backbone)
+        h = model.trunk_stem(xp).contiguous()
+        for blk, wts in zip(blocks[:-1], ui._block_wts[:-1]):
+            h = fused_strided_block_reference(h, wts, blk.relu_first)
+        h = fused_middle_flow_reference(h, *ui._mid_wts)
+        h = fused_strided_block_reference(h, ui._block_wts[-1],
+                                          blocks[-1].relu_first)
+        fp = model.trunk_exit_tail(h)
+        del h
+        plain_err, plain_scale = held_features("fused-block features vs plain",
+                                               fk, fp)
+        default_err, default_scale = held_features(
+            "fused-block features vs the default composition", fk, fd)
+        km, _ = mcd_head(fk, *ui._head_wts, k=K, dropout=0.0, seed=0)
+        rm, _ = mcd_head_reference(fp, *ui._head_wts, k=K, dropout=0.0)
+        head_err = (km - rm).abs().max().item()
+        check(head_err <= 2e-2, f"dropout-0 mean: max abs err {head_err}")
+    return {
+        "phase": "main_fused_blocks", "model": "xception",
+        "tile_px": TILE_PX, "k": K, "dropout": hp.dropout,
+        "fuse_blocks": True, "requests": n_requests,
+        "tiles_per_request": TILES, "request_s": secs,
+        "tiles_per_s": TILES * n_requests / sum(secs), "card": card,
+        "launches": launches,
+        "mean_of_mean": outs[0][0].mean(0).tolist(),
+        "mean_of_std": outs[0][1].mean(0).tolist(),
+        "features_vs_plain_max_abs_err": plain_err,
+        "features_vs_plain_tol": 3e-2 * plain_scale,
+        "features_vs_default_max_abs_err": default_err,
+        "features_vs_default_tol": 3e-2 * default_scale,
+        "dropout0_mean_max_abs_err": head_err,
         "stage_ms": stage_ms, "profile": prof,
     }, launches
 
@@ -702,15 +1026,30 @@ def main() -> int:
         rows.append(fn(torch, gen))
         torch.cuda.empty_cache()
     rows += kernel_unit_bwd(torch, gen)
+    for fn in (kernel_fused_block, kernel_depthwise):
+        rows.append(fn(torch, gen))
+        torch.cuda.empty_cache()
     for row in rows:
         row["card"] = card
         emit({"phase": "kernel", **row})
 
-    main_row, launches = main_path(torch, SEED, REQUESTS, card)
+    hp, model, requests = serving_setup(torch, SEED, REQUESTS)
+    main_row, launches = main_path(torch, hp, model, requests, REQUESTS,
+                                   card)
     emit(main_row)
+    torch.cuda.empty_cache()
+    fused_row, fused_launches = main_fused_blocks(torch, hp, model, requests,
+                                                  REQUESTS, card)
+    emit(fused_row)
+    del model, requests
+    torch.cuda.empty_cache()
+    dw_row, dw_launches = depthwise_entry(torch, gen, card)
+    emit(dw_row)
     torch.cuda.empty_cache()
     train_row, strip_launches, plane_launches = train_path(torch, SEED, card)
     emit(train_row)
+    launches["fused_block"] = fused_launches["fused_block"]
+    launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
 

@@ -10,7 +10,12 @@ shapes. Tolerances as there: bf16 outputs within 2e-2 (preprocess) and
 1e-2 of the largest value (middle flow), head probabilities within 2e-3
 on the same Philox stream; the unit backwards within 5e-3 of each
 gradient's largest value (1e-2 for da), since the kernel factors the BN
-backward as the TPU kernel does and a bf16 rounding of gp may flip.
+backward as the TPU kernel does and a bf16 rounding of gp may flip; the
+fused strided block within 1e-2 of the largest value (an f32 sum in
+another order may flip a bf16 rounding of a0, a1 or y1); the depthwise
+3x3 forward and input gradient within 2e-6 of the largest value in f32
+and one bf16 ulp of each value in bf16, its filter gradient within 1e-5
+of the largest value (sums over N*H*W in another order).
 """
 
 import pytest
@@ -19,6 +24,14 @@ import torch
 from biscuit_torch.data.normalize import ReinhardFastNormalizer
 from biscuit_torch.models.xception import Head
 from biscuit_torch.ops import _build
+from biscuit_torch.ops.depthwise import (
+    depthwise_conv3x3,
+    depthwise_conv3x3_reference,
+)
+from biscuit_torch.ops.fused_block import (
+    fused_strided_block,
+    fused_strided_block_reference,
+)
 from biscuit_torch.ops.fused_preprocess import (
     fused_preprocess,
     fused_preprocess_reference,
@@ -216,3 +229,108 @@ def test_train_step_kernel_against_plain(gen):
         assert (diff <= 5e-2 * scale
                 or (scale <= 1e-2 * tree_max and diff <= 1e-3 * tree_max)), \
             (name, diff / scale, scale / tree_max)
+
+
+def _block_weights(gen, cin, f0, f1):
+    """A random weight tuple as stack_block_weights gives it."""
+
+    def normal(shape, std):
+        return std * torch.randn(shape, generator=gen, device="cuda")
+
+    def bn(c):
+        return (0.6 + 0.8 * torch.rand(c, generator=gen, device="cuda"),
+                normal((c,), 0.2))
+
+    return (normal((9, cin), 0.3),
+            normal((cin, f0), cin ** -0.5).to(torch.bfloat16), *bn(f0),
+            normal((9, f0), 0.3),
+            normal((f0, f1), f0 ** -0.5).to(torch.bfloat16), *bn(f1),
+            normal((cin, f1), cin ** -0.5).to(torch.bfloat16), *bn(f1))
+
+
+# (N, H, W, Cin, F0, F1, relu_first): odd and even H and W, F0 != F1,
+# widths that are not multiples of 64 (nor of the GEMM's 128-column tile),
+# a 4x4 plane (xception_tiny's entry2) and a 1-pixel one.
+BLOCK_SHAPES = [(2, 13, 13, 24, 40, 40, True), (3, 14, 14, 24, 40, 56, False),
+                (2, 16, 13, 16, 16, 16, False), (2, 19, 19, 72, 72, 136, True),
+                (1, 12, 18, 8, 8, 24, False), (5, 4, 4, 48, 48, 64, True),
+                (3, 1, 1, 8, 16, 8, True)]
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+def test_fused_block(gen, shape):
+    n, h, w, cin, f0, f1, relu_first = shape
+    wts = _block_weights(gen, cin, f0, f1)
+    x = (1.5 * torch.randn((n, h, w, cin), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    before = _build.launch_counts()["fused_block"]
+    got = fused_strided_block(x, wts, relu_first)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fused_block"] == before + 1
+    want = fused_strided_block_reference(x, wts, relu_first)
+    assert got.dtype == torch.bfloat16
+    assert got.shape == want.shape == (n, -(-h // 2), -(-w // 2), f1)
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+def _bf16_ulp(v):
+    _, e = torch.frexp(v.float().abs())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 7, 9, 24), (3, 6, 4, 6),
+                                   (2, 19, 19, 728)])
+def test_depthwise3x3(gen, shape, dtype):
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    k = 0.3 * torch.randn((3, 3, 1, c), generator=gen, device="cuda")
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    outs = {}
+    for name, fn in (("kernel", depthwise_conv3x3),
+                     ("plain", depthwise_conv3x3_reference)):
+        xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
+        before = _build.launch_counts()["depthwise3x3"]
+        y = fn(xg, kg)
+        dx, dk = torch.autograd.grad(y, (xg, kg), g)
+        torch.cuda.synchronize()
+        launched = _build.launch_counts()["depthwise3x3"] - before
+        assert launched == (2 if name == "kernel" else 0)
+        outs[name] = (y, dx, dk)
+    for i, (got, want) in enumerate(zip(outs["kernel"], outs["plain"])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        got, want = got.float(), want.float()
+        if i == 2:
+            tol = 1e-5 * want.abs().max().item()
+            assert (got - want).abs().max().item() <= tol
+        elif dtype == torch.float32:
+            tol = 2e-6 * want.abs().max().item()
+            assert (got - want).abs().max().item() <= tol
+        else:
+            assert bool(((got - want).abs() <= _bf16_ulp(want)).all())
+
+
+def test_block_and_depthwise_reject_what_the_kernels_do_not_take(gen):
+    wts = _block_weights(gen, 16, 16, 16)
+    x = torch.zeros((1, 6, 6, 16), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((3, 3, 1, 16), device="cuda")
+    buf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = buf[1:].view(x.shape)    # contiguous, 2 bytes off a boundary
+    strided = x.permute(0, 2, 1, 3)    # not contiguous
+    with pytest.raises(TypeError):
+        fused_strided_block(x.float(), wts)
+    with pytest.raises(ValueError):
+        fused_strided_block(strided, wts)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_strided_block(shifted, wts)
+    with pytest.raises(ValueError):
+        fused_strided_block(x[..., :8].contiguous(), wts)   # Cin != weights
+    with pytest.raises(TypeError):
+        depthwise_conv3x3(x.to(torch.float16), k)
+    with pytest.raises(ValueError):
+        depthwise_conv3x3(strided, k)
+    with pytest.raises(ValueError, match="16-byte"):
+        depthwise_conv3x3(shifted, k)
+    torch.cuda.synchronize()           # no launch faulted the context
