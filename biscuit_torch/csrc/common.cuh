@@ -1,6 +1,7 @@
 // Shared device code of the port's kernels: a bf16 tensor-core GEMM main
 // loop (mma.sync m16n8k16, f32 accumulate, a three-stage cp.async ring),
-// Philox4x32-10, and block reductions.
+// shared-memory barriers and bulk copies, Philox4x32-10, and block
+// reductions.
 //
 // The GEMM computes one BM x 128 tile of C = A * B with A row-major
 // (M x K, bf16) and B row-major (K x N, bf16), with 8 warps in a 2 x 4
@@ -266,6 +267,64 @@ __device__ __forceinline__ U4 dropout_bits(uint32_t seed_lo, uint32_t seed_hi,
   return philox4x32_10(
       U4{(uint32_t)(col >> 2), (uint32_t)row, (uint32_t)pass, (uint32_t)layer},
       seed_lo, seed_hi);
+}
+
+// ----------------------------------------------- mbarriers, bulk copies
+// A shared-memory barrier of `count` arrivals a phase, which a bulk copy
+// can also complete by its byte count (expect_tx / complete_tx).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// Make the initialised barriers visible before any thread uses them.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Spin until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
+      "}\n" ::"r"(smem_u32(bar))
+      : "memory");
+}
+// One arrival that also expects `bytes` from bulk copies this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory by the copy engine, completing
+// `bytes` of the barrier's expected transaction count.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // ------------------------------------------------------------ reductions

@@ -9,21 +9,25 @@
 // What bounds it on the H100: bytes. It reads each input once and writes
 // each output once (4 bytes an element in bf16, 8 in f32) against 18 f32
 // operations an element: at 147 x 147 x 128 and N = 256 that is 2.83 GB,
-// 0.85 ms at 3.35 TB/s, against 0.19 ms of f32 arithmetic at 67 TFLOP/s.
+// 0.85 ms at 3.35 TB/s, against 0.19 ms of f32 arithmetic at 67 TFLOP/s
+// (0.43 ms of instruction issue, since each multiply and add is rounded on
+// its own).
 //
 // Design: the TPU kernel rolls a whole (NB, H*W, C) block held in VMEM
-// and masks the wrapped edges. Here a thread owns four channels of one
-// image column and walks down it two rows a step with a rolling window
-// (depthwise.cuh), so each input comes from memory or cache 3 times, not
-// 9, from neighbouring threads in contiguous 8- or 16-byte loads, with six
-// loads in flight a step; edges are bounds checks that contribute exact
-// zeros. One pass, no scratch. It reaches about 2 TB/s (PERF.md); holding
-// more loads in flight without more registers is the open step.
+// and masks the wrapped edges. Here a block walks down one column range
+// of one or more images, all channels, with a ring of input row pairs in
+// shared memory that one producer thread fills by bulk copies (one
+// contiguous copy a row) up to eight pairs ahead; the consumers compute
+// two rows a step from a register window and never take a block-wide
+// barrier (depthwise.cuh). Each input crosses HBM once and the loads in
+// flight cost no registers. It replaces a pass that read each input from
+// L1 three times with six loads in flight a thread (about 2 TB/s, 92-98
+// registers). C not a multiple of 8 takes the narrow one-channel path.
+// One launch, no scratch.
 #include "depthwise.cuh"
 
 // x, out: (N, H, W, C), bf16 when is_f32 == 0, else f32. taps: (9, C) f32
-// in (dy, dx) row-major order. Four channels a thread when C % 4 == 0,
-// else one. Every pointer 16-byte aligned.
+// in (dy, dx) row-major order. Every pointer 16-byte aligned.
 extern "C" int depthwise3x3_launch(const void* x, const void* taps, void* out,
                                    int n_img, int H, int W, int C, int is_f32,
                                    int device, void* stream) {
@@ -31,21 +35,9 @@ extern "C" int depthwise3x3_launch(const void* x, const void* taps, void* out,
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
   const float* t = (const float*)taps;
-  const bool v4 = C % 4 == 0;
-  if (is_f32) {
-    const float* xi = (const float*)x;
-    float* o = (float*)out;
-    e = v4 ? bt::depthwise3x3<float, float, false, 4>(xi, t, o, n_img, H, W,
-                                                      C, s)
-           : bt::depthwise3x3<float, float, false, 1>(xi, t, o, n_img, H, W,
-                                                      C, s);
-  } else {
-    const __nv_bfloat16* xi = (const __nv_bfloat16*)x;
-    __nv_bfloat16* o = (__nv_bfloat16*)out;
-    e = v4 ? bt::depthwise3x3<__nv_bfloat16, __nv_bfloat16, false, 4>(
-                 xi, t, o, n_img, H, W, C, s)
-           : bt::depthwise3x3<__nv_bfloat16, __nv_bfloat16, false, 1>(
-                 xi, t, o, n_img, H, W, C, s);
-  }
-  return (int)e;
+  if (is_f32)
+    return (int)bt::depthwise3x3<float, float, false>(
+        (const float*)x, t, (float*)out, n_img, H, W, C, s);
+  return (int)bt::depthwise3x3<__nv_bfloat16, __nv_bfloat16, false>(
+      (const __nv_bfloat16*)x, t, (__nv_bfloat16*)out, n_img, H, W, C, s);
 }

@@ -43,9 +43,9 @@
 //      gathered by a row map in the loader, no copy), whose epilogue
 //      applies res_bn, adds the pooled value it reads from the output
 //      buffer, and writes bf16 over it.
-// The depthwise passes (depthwise.cuh) walk image columns two rows a step
-// with a rolling window, reading each input 3 times rather than 9. Border
-// pixels are bounds checks, never padded copies. The wrapper allocates a0,
+// The depthwise passes (depthwise.cuh) stage input rows in a shared-memory
+// ring filled by bulk copies; the SAME border is zeros in that ring, never
+// a padded copy. The wrapper allocates a0,
 // y0, a1 and y1 (6.4 GB at entry0 and N = 256), whose round trips are
 // most of the time at entry0 and entry1: keeping y0 and a1 on chip (the
 // depthwise taps as the GEMMs' A-tile producers) is the next step there,
@@ -213,9 +213,9 @@ extern "C" int fused_block_launch(
   const size_t smem = sizeof(bt::GemmSmem<BM>);
 
   // 1. a0 = bf16(dw3x3([relu] x)).
-  e = relu_first ? bt::depthwise3x3<bf16, bf16, true, 4>(
+  e = relu_first ? bt::depthwise3x3<bf16, bf16, true>(
                        xb, (const float*)dw0, (bf16*)a0, n_img, H, W, Cin, s)
-                 : bt::depthwise3x3<bf16, bf16, false, 4>(
+                 : bt::depthwise3x3<bf16, bf16, false>(
                        xb, (const float*)dw0, (bf16*)a0, n_img, H, W, Cin, s);
   if (e != cudaSuccess) return (int)e;
 
@@ -228,7 +228,7 @@ extern "C" int fused_block_launch(
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   // 3. a1 = bf16(dw3x3(y0)).
-  if ((e = bt::depthwise3x3<float, bf16, false, 4>(
+  if ((e = bt::depthwise3x3<float, bf16, false>(
            (const float*)y0, (const float*)dw1, (bf16*)a1, n_img, H, W, F0,
            s)) != cudaSuccess)
     return (int)e;

@@ -34,7 +34,7 @@
 // bound by that traffic and by each GEMM tile's epilogue, which does not
 // overlap its main loop. Keeping the carry on chip (the depthwise taps as
 // the GEMM's A-tile producer) and a persistent GEMM are the next steps.
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -117,11 +117,6 @@ constexpr int PW_THREADS = 256;
 constexpr int PW_TILE = 128 * PW_BK * 2;       // bytes of one 128 x 64 tile
 constexpr int PW_SMEM = 2 * PW_STAGES * PW_TILE + 1024;   // + alignment
 
-// Row r, 16-byte chunk ch of a 128-byte-swizzled tile.
-__device__ __forceinline__ uint32_t swz(int r, int ch) {
-  return r * 128 + ((ch ^ (r & 7)) << 4);
-}
-
 // 128 rows x 64 k of a K-major matrix into a swizzled tile (zero-filled
 // past `rows` and K).
 __device__ __forceinline__ void load_tile_swz(unsigned char* tile,
@@ -133,48 +128,9 @@ __device__ __forceinline__ void load_tile_swz(unsigned char* tile,
     const int r = i >> 3, ch = i & 7;
     const int gr = row0 + r, gk = k0 + ch * 8;
     const bool ok = gr < rows && gk < K;
-    bt::cp_async16(tile + swz(r, ch),
+    bt::cp_async16(tile + bt::swz(r, ch),
                    ok ? src + (size_t)gr * ld + gk : src, ok ? 16 : 0);
   }
-}
-
-// Shared-memory matrix descriptor: 128-byte swizzle, 8-row groups 1024 B
-// apart.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_m64n128k16(float d[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, "
-      " %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
 }
 
 // y = (A . B) * sc + sh [+ res] -> f32 carry, or bf16 out when out_bf16.
@@ -213,7 +169,7 @@ __global__ void __launch_bounds__(PW_THREADS)
     bt::cp_async_wait<PW_STAGES - 2>();
     // cp.async wrote through the generic proxy; wgmma reads through the
     // async proxy.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bt::fence_proxy_async();
     __syncthreads();
     const int next = kt + PW_STAGES - 1;
     if (next < nk) {
@@ -223,14 +179,15 @@ __global__ void __launch_bounds__(PW_THREADS)
                     next * PW_BK, C);
     }
     bt::cp_async_commit();
-    const uint64_t da = smem_desc(bt::smem_u32(sa + st * PW_TILE) + wg * 64 * 128);
-    const uint64_t db = smem_desc(bt::smem_u32(sb + st * PW_TILE));
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint64_t da =
+        bt::smem_desc(bt::smem_u32(sa + st * PW_TILE) + wg * 64 * 128);
+    const uint64_t db = bt::smem_desc(bt::smem_u32(sb + st * PW_TILE));
+    bt::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < PW_BK / 16; ++kk)     // 32 bytes per k16 step
-      wgmma_m64n128k16(d, da + 2 * kk, db + 2 * kk);
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      bt::wgmma_m64n128k16(d, da + 2 * kk, db + 2 * kk);
+    bt::wgmma_commit();
+    bt::wgmma_wait<0>();
   }
   bt::cp_async_wait<0>();
 

@@ -1,0 +1,111 @@
+// Hopper warpgroup MMA (wgmma) helpers shared by the kernels that run it:
+// 128-byte-swizzled shared-memory tiles, their matrix descriptors, and the
+// bf16 instructions the port issues.
+//
+// A 128-byte-swizzled tile stores rows of 128 bytes; 16-byte chunk ch of
+// row r sits at chunk ch ^ (r & 7), and 8-row groups are 1024 bytes apart.
+// Such a tile must start on a 1024-byte boundary.
+//   K-major operand (A, or B given as N x K): a row is 64 k-values of one
+//     m (or n); stepping k by 16 adds 32 bytes to the start address.
+//   MN-major operand (B given as K x N, its row-major (in, out) layout): a
+//     row is 64 n-values of one k; 8 k-rows form a 1024-byte group, so
+//     stepping k by 16 adds 2048 bytes. The instruction is told by its
+//     transpose flag.
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace bt {
+
+// Byte offset of row r, 16-byte chunk ch, in a 128-byte-swizzled tile.
+__device__ __forceinline__ uint32_t swz(int r, int ch) {
+  return r * 128 + ((ch ^ (r & 7)) << 4);
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading byte offset (lbo16, in 16-byte units: the stride between
+// 64-wide MN groups of an MN-major operand, unused by a K-major one) and a
+// stride byte offset of 1024 bytes between 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr,
+                                              uint32_t lbo16 = 1) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo16 << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N of this warpgroup's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Shared-memory writes of the generic proxy (st.shared, cp.async) made
+// visible to wgmma, which reads through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 128, f32) += A (64 x 16, K-major) . B (16 x 128, K-major).
+__device__ __forceinline__ void wgmma_m64n128k16(float d[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      " %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, K-major) . B (16 x 64, MN-major).
+__device__ __forceinline__ void wgmma_m64n64k16_bmn(float d[32], uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      " %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+}  // namespace bt

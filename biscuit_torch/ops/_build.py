@@ -48,6 +48,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict = {}
+_fns: dict = {}
 _launches = {name: 0 for name in KERNELS}
 
 
@@ -146,6 +147,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _libs[name] = lib
     return lib
+
+
+def bound(name: str, symbol: str, argtypes,
+          restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of the source ``name`` (a launcher
+    returning a cudaError_t unless ``restype`` says otherwise), its
+    prototype set once and kept."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+        _fns[symbol] = fn
+    return fn
 
 
 def check(rc: int, name: str) -> None:

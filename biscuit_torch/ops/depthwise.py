@@ -51,6 +51,10 @@ def depthwise_conv3x3_reference(x, kernel):
     return acc.to(x.dtype)
 
 
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p])
+
+
 def _forward(x, taps):
     """The op on (9, C) f32 taps: the kernel on a CUDA tensor, the plain
     version on a CPU one."""
@@ -70,12 +74,10 @@ def _forward(x, taps):
                              f"boundary (a view at an offset does not)")
     n, h, w, c = x.shape
     out = torch.empty_like(x)
-    fn = _build.load(NAME).depthwise3x3_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    rc = fn(_build.ptr(x), _build.ptr(taps), _build.ptr(out), n, h, w, c,
-            int(x.dtype == torch.float32), x.device.index or 0,
-            _build.stream_ptr(x))
+    rc = _build.bound(NAME, "depthwise3x3_launch", _ARGTYPES)(
+        _build.ptr(x), _build.ptr(taps), _build.ptr(out), n, h, w, c,
+        int(x.dtype == torch.float32), x.device.index or 0,
+        _build.stream_ptr(x))
     _build.check(rc, NAME)
     _build.count_launch(NAME)
     return out

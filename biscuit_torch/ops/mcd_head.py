@@ -138,6 +138,11 @@ def mcd_head_reference(feats, w1, b1, w2, b2, w3, b3, k: int = 30,
     return mean, torch.sqrt(torch.clamp_min(q / k - mean * mean, 0.0))
 
 
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+             + [ctypes.c_uint] * 3 + [ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p])
+
+
 def mcd_head(feats, w1, b1, w2, b2, w3, b3, k: int = 30,
              dropout: float = 0.1, seed: int = 0):
     """K-pass MC-dropout head over pooled features.
@@ -174,25 +179,19 @@ def mcd_head(feats, w1, b1, w2, b2, w3, b3, k: int = 30,
                              f"{tuple(t.shape)} {t.dtype}")
         if t.device != feats.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {feats.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     dev = feats.device
-    mean = torch.empty((n, c), dtype=torch.float32, device=dev)
-    std = torch.empty_like(mean)
-    fb = torch.empty((n, f), dtype=torch.bfloat16, device=dev)
-    h1 = torch.empty((n, hdim), dtype=torch.float32, device=dev)
-    a2 = torch.empty((k * n, hdim), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((k * n, (hdim + 31) // 32, c), dtype=torch.float32,
-                       device=dev)
-    lib = _build.load(NAME)
-    fn = lib.mcd_head_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
-                   + [ctypes.c_uint] * 3 + [ctypes.c_float, ctypes.c_int,
-                                             ctypes.c_void_p])
-    rc = fn(*(_build.ptr(t) for t in (feats, w1, b1, w2, b2, w3, b3, mean,
-                                      std, fb, h1, a2, part)),
-            n, f, hdim, c, k, seed & _MASK32, (seed >> 32) & _MASK32,
-            _threshold(dropout), _keep_scale(dropout), dev.index or 0,
-            _build.stream_ptr(feats))
+    out = torch.empty((2, n, c), dtype=torch.float32, device=dev)
+    scratch = torch.empty(_build.bound(
+        NAME, "mcd_head_scratch_bytes", [ctypes.c_int] * 2,
+        ctypes.c_size_t)(n, hdim), dtype=torch.uint8, device=dev)
+    rc = _build.bound(NAME, "mcd_head_launch", _ARGTYPES)(
+        *(_build.ptr(x) for x in (feats, w1, b1, w2, b2, w3, b3)),
+        out.data_ptr(), out.data_ptr() + n * c * 4, scratch.data_ptr(), n, f,
+        hdim, c, k, seed & _MASK32, (seed >> 32) & _MASK32,
+        _threshold(dropout), _keep_scale(dropout), dev.index or 0,
+        _build.stream_ptr(feats))
     _build.check(rc, NAME)
     _build.count_launch(NAME)
-    return mean, std
+    return out[0], out[1]

@@ -13,6 +13,10 @@ Phases, each printing one JSON line:
    tolerance, its median time over fresh inputs (CUDA events), the plain
    version's time, a library yardstick's time where one exists, and its
    bound (the larger of bytes / HBM rate and operations / peak rate).
+   The MC head also repeats one seed bit for bit, shows its two device
+   kernels in a ``profile`` (torch.profiler device time by kernel), as
+   the fused block and depthwise rows do per geometry, and gives its host
+   time a call (``host_us``, 50 calls enqueued without a synchronize).
    The two unit-backward kernels are held at the 147x147 64->128 and the
    19x19 728->728 geometries at batch 128; their ms, plain ms, library
    ms and bound are the two geometries' added. The fused strided block
@@ -72,6 +76,7 @@ UNITS_PER_STEP = 34   # sep+BN units of Xception: 6 entry, 24 middle, 4 exit
 UNIT_GEOMETRIES = ((147, 64, 128, False), (19, 728, 728, True))
 SERVING = ("fused_preprocess", "fused_middle_flow", "mcd_head")
 BLOCKS_PER_REQUEST = 4     # entry0-2 and the exit block, with fuse_blocks
+HEAD_DEVICE_KERNELS = 2    # mcd_head: layer 1, then the pass kernel
 # (H = W, Cin, F0, F1, relu_first) of the strided blocks on the serving
 # path at 299 px: entry0, entry1 (the even-size pool), entry2, exit.
 BLOCK_GEOMETRIES = ((147, 64, 128, 128, False), (74, 128, 256, 256, True),
@@ -251,9 +256,26 @@ def kernel_head(torch, gen):
         out[f"max_abs_err_dropout_{rate}"] = err
         out[f"tol_dropout_{rate}"] = tol
     check(float(ks.mean()) > 0, "mcd_head: std > 0 at dropout 0.1")
+    again = mcd_head(fs[0], *wts, k=K, dropout=0.1, seed=1234)
+    check(torch.equal(again[0], km) and torch.equal(again[1], ks),
+          "mcd_head: one seed repeats bit for bit")
     out["max_abs_err"] = max(errs)
     out["ms"] = cuda_ms(torch, lambda x: mcd_head(x, *wts, k=K, dropout=0.1,
                                                   seed=7), fs)
+    prof = kernel_profile(torch, lambda: mcd_head(fs[0], *wts, k=K,
+                                                  dropout=0.1, seed=7), top=6)
+    out["device_kernels"] = sum(r["calls"] for r in prof["top"])
+    check(out["device_kernels"] == HEAD_DEVICE_KERNELS,
+          f"mcd_head: {out['device_kernels']} device kernels a call, "
+          f"expected {HEAD_DEVICE_KERNELS}")
+    out["profile"] = prof
+    # Host time a call: 50 calls enqueued with no synchronize between them.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        mcd_head(fs[0], *wts, k=K, dropout=0.1, seed=7)
+    out["host_us"] = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
     out["plain_ms"] = cuda_ms(torch, lambda x: mcd_head_reference(
         x, *wts, k=K, dropout=0.1, seed=7), fs[:N_PLAIN], warmup=1)
     out["library_ms"] = cuda_ms(torch, lambda x: library_head(torch, x, *wts),
@@ -499,7 +521,9 @@ def kernel_depthwise(torch, gen):
             "max_abs_err": errs, "tol": {"y": "1 bf16 ulp", "dx": "1 bf16 ulp",
                                          "dk": f"{tol_dk} of max"},
             "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b,
-            "bound_by": by})
+            "bound_by": by,
+            "profile": kernel_profile(
+                torch, lambda: depthwise_conv3x3(xs[0], k), top=3)})
         for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                        ("bound_ms", b)):
             row[key] += v

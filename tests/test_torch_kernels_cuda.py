@@ -90,17 +90,43 @@ def test_fused_middle_flow(gen, n, hw, c, u):
     assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
 
 
-@pytest.mark.parametrize("n,f,h,rate", [(13, 256, 128, 0.0),
-                                        (13, 256, 136, 0.3),
-                                        (300, 2048, 1024, 0.1)])
-def test_mcd_head(gen, n, f, h, rate):
+# (N, F, H, rate, K, C): N not a multiple of a block's tiles (13, 300),
+# H not a multiple of the 128-column tile (136), K of 1 and 2 with 8
+# classes (64 and 32 tiles a block, 512 and 256 sums), K below and above
+# one block's 64 rows (33 pads to 64, 70 walks two row chunks), 5 classes,
+# H past what the pass kernel holds at once: 1152 keeps A whole beside
+# W3 at C = 2 and streams W3 at C = 8; 1160 and 2048 also rebuild A in
+# two segments of uneven width.
+HEAD_SHAPES = [(13, 256, 128, 0.0, 7, 2), (13, 256, 136, 0.3, 7, 2),
+               (300, 2048, 1024, 0.1, 7, 2), (300, 256, 136, 0.1, 1, 2),
+               (13, 256, 136, 0.2, 30, 5), (300, 256, 128, 0.2, 33, 2),
+               (13, 256, 136, 0.1, 70, 5), (256, 2048, 1024, 0.1, 30, 2),
+               (300, 256, 136, 0.1, 1, 8), (300, 256, 136, 0.1, 2, 8),
+               (13, 256, 1152, 0.2, 7, 2), (13, 256, 1152, 0.1, 7, 8),
+               (300, 256, 1160, 0.1, 30, 8), (40, 256, 2048, 0.1, 70, 5),
+               (256, 2048, 2048, 0.1, 30, 2)]
+
+
+@pytest.mark.parametrize("n,f,h,rate,k,c", HEAD_SHAPES)
+def test_mcd_head(gen, n, f, h, rate, k, c):
     torch.manual_seed(0)
-    wts = head_weights(Head(f, 2, 2, h, rate).cuda())
+    wts = head_weights(Head(f, c, 2, h, rate).cuda())
     feats = torch.randn((n, f), generator=gen, device="cuda")
-    km, ks = mcd_head(feats, *wts, k=7, dropout=rate, seed=99)
-    rm, rs = mcd_head_reference(feats, *wts, k=7, dropout=rate, seed=99)
+    km, ks = mcd_head(feats, *wts, k=k, dropout=rate, seed=99)
+    rm, rs = mcd_head_reference(feats, *wts, k=k, dropout=rate, seed=99)
+    assert km.shape == ks.shape == (n, c)
     assert (km - rm).abs().max().item() <= 2e-3
     assert (ks - rs).abs().max().item() <= 2e-3
+
+
+def test_mcd_head_repeats_bit_for_bit(gen):
+    torch.manual_seed(0)
+    wts = head_weights(Head(2048, 2, 2, 1024, 0.1).cuda())
+    feats = torch.randn((256, 2048), generator=gen, device="cuda")
+    first = mcd_head(feats, *wts, k=30, dropout=0.1, seed=5)
+    second = mcd_head(feats, *wts, k=30, dropout=0.1, seed=5)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
@@ -281,8 +307,12 @@ def _bf16_ulp(v):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+# H below the 8-row ring (1x1, 2x5), W wider than a block's 32-column
+# range (70 is cut in three), C of 6 (the narrow path), 12 and 24.
 @pytest.mark.parametrize("shape", [(2, 7, 9, 24), (3, 6, 4, 6),
-                                   (2, 19, 19, 728)])
+                                   (2, 19, 19, 728), (3, 1, 1, 16),
+                                   (2, 2, 5, 24), (2, 5, 70, 12),
+                                   (1, 9, 33, 6)])
 def test_depthwise3x3(gen, shape, dtype):
     c = shape[-1]
     x = torch.randn(shape, generator=gen, device="cuda").to(dtype)

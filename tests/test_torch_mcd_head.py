@@ -171,3 +171,40 @@ def test_unaligned_batches_are_rows_of_the_full_batch(n):
     torch.testing.assert_close(m, full_m[:n], rtol=0, atol=0)
     torch.testing.assert_close(s, full_s[:n], rtol=0, atol=0)
     np.testing.assert_allclose(m.sum(-1).numpy(), 1.0, rtol=1e-6)
+
+
+
+# (N, K, C, H) at the edges of the kernel's contract: K of 1 and 2 with
+# 8 classes (64 and 32 tiles a block), K above one block's 64 rows (70),
+# H not a multiple of the 128-column tile (136, 264), H past what the
+# kernel's A operand holds at once (2048), one class.
+ORACLE_SHAPES = [(13, 1, 8, 136), (13, 2, 8, 136), (7, 7, 2, 128),
+                 (5, 30, 5, 136), (3, 33, 2, 136), (3, 70, 5, 136),
+                 (2, 30, 8, 2048), (1, 1, 1, 8), (4, 64, 3, 264)]
+
+
+@pytest.mark.parametrize("n,k,c,h", ORACLE_SHAPES)
+def test_seeded_masks_match_numpy_oracle(n, k, c, h):
+    """The plain version on its own Philox stream, against the numpy
+    oracle given the same stream's keep-masks."""
+    rate, seed = 0.2, (3 << 32) | 17
+    rng = np.random.default_rng(n * 1000 + k)
+    params = {name: {"kernel": rng.normal(0, d ** -0.5, (d, o)).astype(
+                         np.float32),
+                     "bias": rng.normal(0, 0.1, o).astype(np.float32)}
+              for name, d, o in (("hidden0", F_DIM, h), ("hidden1", h, h),
+                                 ("logits", h, c))}
+    feats = rng.normal(0, 1, (n, F_DIM)).astype(np.float32)
+    thresh = int(rate * 2 ** 32)
+    keep1, keep2 = (philox_dropout_bits(seed, k, layer, n, h).numpy()
+                    >= thresh for layer in (0, 1))
+    want_m, want_s = _numpy_oracle(feats, params, keep1, keep2, rate)
+    wts = []
+    for name in ("hidden0", "hidden1", "logits"):
+        wts.append(torch.from_numpy(params[name]["kernel"]).to(torch.bfloat16))
+        wts.append(torch.from_numpy(params[name]["bias"]))
+    got_m, got_s = mcd_head(torch.from_numpy(feats), *wts, k=k, dropout=rate,
+                            seed=seed)
+    assert got_m.shape == got_s.shape == (n, c)
+    np.testing.assert_allclose(got_m.numpy(), want_m, atol=2e-3)
+    np.testing.assert_allclose(got_s.numpy(), want_s, atol=2e-3)
