@@ -8,9 +8,10 @@
 // grid, each owning a (BM/2) x 32 sub-tile. It leaves the
 // accumulators in registers in the mma C-fragment layout; each kernel
 // writes its own epilogue with for_each_acc. This is the simple design
-// (no wgmma, no TMA). Its shared memory (GemmSmem) is dynamic: a kernel
-// using it declares `extern __shared__` and its launcher raises the
-// block's limit with set_gemm_smem.
+// (no wgmma, no TMA), which the unit backward's dgrad runs; the serving
+// path's pointwise convs run sepconv_gemm.cuh. Its shared memory
+// (GemmSmem) is dynamic: a kernel using it declares `extern __shared__`
+// and its launcher raises the block's limit with set_gemm_smem.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -96,26 +97,13 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Row r of a row-major A with leading dimension lda. A GEMM whose A rows
-// are not evenly spaced passes its own functor of the same shape
-// (gemm_mainloop_rows): any map from a row index to that row's first
-// element, 16-byte aligned.
-struct DenseRows {
-  const __nv_bfloat16* A;
-  int lda;
-  __device__ __forceinline__ const __nv_bfloat16* operator()(int r) const {
-    return A + (size_t)r * lda;
-  }
-};
-
 // Load k-tile kt of A (rows m0..m0+BM) and B (cols n0..n0+128) into stage.
-// Requires K % 8 == 0, N % 8 == 0 and 16-byte aligned rows (ldb % 8, and
-// every A row as a_row gives it).
-template <int BM, typename ARows>
+// Requires K % 8 == 0, N % 8 == 0 and 16-byte aligned rows (lda, ldb % 8).
+template <int BM>
 __device__ __forceinline__ void gemm_load_tile(
-    GemmSmem<BM>& s, int stage, const ARows& a_row,
-    const __nv_bfloat16* __restrict__ B, int ldb, int M, int N, int K,
-    int m0, int n0, int kt) {
+    GemmSmem<BM>& s, int stage, const __nv_bfloat16* __restrict__ A,
+    int lda, const __nv_bfloat16* __restrict__ B, int ldb, int M, int N,
+    int K, int m0, int n0, int kt) {
   const int tid = threadIdx.x;
   const int k0 = kt * GEMM_BK;
   constexpr int A_CHUNKS = GEMM_BK / 8;   // 16-byte chunks per A row
@@ -125,7 +113,7 @@ __device__ __forceinline__ void gemm_load_tile(
     int r = i / A_CHUNKS, c = (i % A_CHUNKS) * 8;
     int gr = m0 + r, gk = k0 + c;
     bool ok = gr < M && gk < K;
-    const __nv_bfloat16* src = ok ? a_row(gr) + gk : B;
+    const __nv_bfloat16* src = ok ? A + (size_t)gr * lda + gk : A;
     cp_async16(&s.a[stage][r][c], src, ok ? 16 : 0);
   }
 #pragma unroll
@@ -138,12 +126,11 @@ __device__ __forceinline__ void gemm_load_tile(
   }
 }
 
-// Main loop: acc = A[m0:m0+BM, :] * B[:, n0:n0+128], f32 accumulate, with
-// A's rows given by a_row.
-template <int BM, typename ARows>
-__device__ __forceinline__ void gemm_mainloop_rows(
-    GemmSmem<BM>& s, Acc<BM>& acc, const ARows& a_row,
-    const __nv_bfloat16* __restrict__ B, int ldb, int M, int N, int K,
+// Main loop: acc = A[m0:m0+BM, :] * B[:, n0:n0+128], f32 accumulate.
+template <int BM>
+__device__ __forceinline__ void gemm_mainloop(
+    GemmSmem<BM>& s, Acc<BM>& acc, const __nv_bfloat16* __restrict__ A,
+    int lda, const __nv_bfloat16* __restrict__ B, int ldb, int M, int N, int K,
     int m0, int n0) {
   constexpr int MT = Acc<BM>::MT, NT = Acc<BM>::NT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -163,7 +150,7 @@ __device__ __forceinline__ void gemm_mainloop_rows(
 #pragma unroll
   for (int t = 0; t < GEMM_STAGES - 1; ++t) {
     if (t < nk)
-      gemm_load_tile<BM>(s, t, a_row, B, ldb, M, N, K, m0, n0, t);
+      gemm_load_tile<BM>(s, t, A, lda, B, ldb, M, N, K, m0, n0, t);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -172,8 +159,8 @@ __device__ __forceinline__ void gemm_mainloop_rows(
     __syncthreads();
     const int next = kt + GEMM_STAGES - 1;
     if (next < nk)
-      gemm_load_tile<BM>(s, next % GEMM_STAGES, a_row, B, ldb, M, N, K, m0,
-                         n0, next);
+      gemm_load_tile<BM>(s, next % GEMM_STAGES, A, lda, B, ldb, M, N, K,
+                             m0, n0, next);
     cp_async_commit();
 #pragma unroll
     for (int kk = 0; kk < GEMM_BK; kk += 16) {
@@ -202,15 +189,6 @@ __device__ __forceinline__ void gemm_mainloop_rows(
   }
   cp_async_wait<0>();
   __syncthreads();   // the caller may reuse the shared memory
-}
-
-// Main loop over a row-major A (M x K, leading dimension lda).
-template <int BM>
-__device__ __forceinline__ void gemm_mainloop(
-    GemmSmem<BM>& s, Acc<BM>& acc, const __nv_bfloat16* __restrict__ A,
-    int lda, const __nv_bfloat16* __restrict__ B, int ldb, int M, int N, int K,
-    int m0, int n0) {
-  gemm_mainloop_rows<BM>(s, acc, DenseRows{A, lda}, B, ldb, M, N, K, m0, n0);
 }
 
 // Visit the accumulators as f(m16 tile, n8 tile, half, row, col, v[col],

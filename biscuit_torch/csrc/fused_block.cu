@@ -30,65 +30,34 @@
 // this is six simple passes over HBM behind one entry point, each with a
 // fixed order of summation:
 //   1. depthwise pass over x (relu as it is read when relu_first) -> a0;
-//   2. GEMM a0 . pw0 on mma.sync tensor cores (common.cuh's main loop),
-//      epilogue BN0 and relu -> f32 y0. y0 exists only inside the image,
-//      so the next pass sees exact zeros at the border, never BN0's shift;
+//   2. GEMM a0 . pw0, epilogue BN0 and relu -> f32 y0. y0 exists only
+//      inside the image, so the next pass sees exact zeros at the border,
+//      never BN0's shift;
 //   3. depthwise pass over y0 -> a1;
 //   4. GEMM a1 . pw1, epilogue BN1 -> bf16 y1;
 //   5. the max-pool of y1 into the output buffer, one thread per output
 //      pixel and 8 channels in 16-byte loads (-inf outside the image; the
 //      window starts at row 2i - 1 when H is odd and at 2i when H is even,
 //      and the same for W);
-//   6. the residual GEMM over x's even-row, even-column pixels (its A rows
-//      gathered by a row map in the loader, no copy), whose epilogue
-//      applies res_bn, adds the pooled value it reads from the output
-//      buffer, and writes bf16 over it.
+//   6. the residual GEMM over x's even-row, even-column pixels, read in
+//      place by a tensor map with element strides (no copy), whose
+//      epilogue applies res_bn, adds the pooled value it reads from the
+//      output buffer, and writes bf16 over it.
 // The depthwise passes (depthwise.cuh) stage input rows in a shared-memory
 // ring filled by bulk copies; the SAME border is zeros in that ring, never
-// a padded copy. The wrapper allocates a0,
-// y0, a1 and y1 (6.4 GB at entry0 and N = 256), whose round trips are
-// most of the time at entry0 and entry1: keeping y0 and a1 on chip (the
-// depthwise taps as the GEMMs' A-tile producers) is the next step there,
-// and wgmma with a store-coalescing epilogue where the products bound it.
-#include "common.cuh"
+// a padded copy. The three GEMMs are sepconv_gemm.cuh: TMA loads, a
+// producer and two consumer warpgroups on wgmma, a persistent grid of CTA
+// pairs that share B by multicast, and an epilogue staged through shared
+// memory into 16-byte stores. The wrapper allocates a0, y0, a1 and y1
+// (6.4 GB at entry0 and N = 256), whose round trips are most of the time
+// at entry0 and entry1: keeping y0 and a1 on chip (the depthwise taps as
+// the GEMMs' A-tile producers) is the next step there.
 #include "depthwise.cuh"
+#include "sepconv_gemm.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-constexpr int BM = 128;
-
-// One pointwise conv of the block: (A . B) * sc + sh over M pixel rows.
-// FIRST: relu, written in f32 (y0); else written in bf16 (y1). Block b
-// covers column block b % ncol and row block b / ncol, so the blocks that
-// share an A tile run together and read it from L2.
-template <bool FIRST>
-__global__ void __launch_bounds__(bt::GEMM_THREADS)
-    sep_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                    const float* __restrict__ sc, const float* __restrict__ sh,
-                    void* __restrict__ out, int M, int N, int K, int ncol) {
-  extern __shared__ unsigned char smem_raw[];
-  auto& s = bt::gemm_smem<BM>(smem_raw);
-  bt::Acc<BM> acc;
-  const int n0 = (blockIdx.x % ncol) * bt::GEMM_BN;
-  const int m0 = (blockIdx.x / ncol) * BM;
-  bt::gemm_mainloop<BM>(s, acc, A, K, B, N, M, N, K, m0, n0);
-  bt::for_each_acc<BM>(
-      acc, m0, n0, [&](int, int, int, int row, int col, float v0, float v1) {
-        if (row >= M || col >= N) return;
-        const float2 a = *reinterpret_cast<const float2*>(sc + col);
-        const float2 b = *reinterpret_cast<const float2*>(sh + col);
-        v0 = __fadd_rn(__fmul_rn(v0, a.x), b.x);
-        v1 = __fadd_rn(__fmul_rn(v1, a.y), b.y);
-        const size_t o = (size_t)row * N + col;
-        if (FIRST)
-          *reinterpret_cast<float2*>((float*)out + o) =
-              make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-        else
-          *reinterpret_cast<__nv_bfloat162*>((bf16*)out + o) =
-              __floats2bfloat162_rn(v0, v1);
-      });
-}
+using bt::bf16;
 
 // Output pixel m = (n * H2 + i) * W2 + j of the stride-2 grid.
 struct Pixel2 {
@@ -98,17 +67,6 @@ struct Pixel2 {
     const int t = m / W2;
     i = t % H2;
     n = t / H2;
-  }
-};
-
-// A rows of the residual 1x1 stride-2 conv: output pixel m reads x at
-// (n, 2i, 2j), whatever the parity of H and W.
-struct StridedRows {
-  const bf16* x;
-  int H, W, C, H2, W2;
-  __device__ __forceinline__ const bf16* operator()(int m) const {
-    const Pixel2 p(m, H2, W2);
-    return x + (((size_t)p.n * H + 2 * p.i) * W + 2 * p.j) * C;
   }
 };
 
@@ -156,41 +114,6 @@ __global__ void __launch_bounds__(POOL_THREADS)
   *reinterpret_cast<uint4*>(out + (size_t)m * F + c) = u;
 }
 
-// out = bf16(f32(out) + (x_s2 . rw) * rs + rh), out holding the pooled y1.
-__global__ void __launch_bounds__(bt::GEMM_THREADS)
-    residual_kernel(const bf16* __restrict__ x, const bf16* __restrict__ rw,
-                    const float* __restrict__ rs,
-                    const float* __restrict__ rh, bf16* out, int n_img,
-                    int H, int W, int Cin, int F, int ncol) {
-  extern __shared__ unsigned char smem_raw[];
-  auto& s = bt::gemm_smem<BM>(smem_raw);
-  bt::Acc<BM> acc;
-  const int H2 = (H + 1) / 2, W2 = (W + 1) / 2;
-  const int M = n_img * H2 * W2;
-  const int n0 = (blockIdx.x % ncol) * bt::GEMM_BN;
-  const int m0 = (blockIdx.x / ncol) * BM;
-  bt::gemm_mainloop_rows<BM>(s, acc, StridedRows{x, H, W, Cin, H2, W2}, rw,
-                             F, M, F, Cin, m0, n0);
-  bt::for_each_acc<BM>(
-      acc, m0, n0, [&](int, int, int, int row, int col, float v0, float v1) {
-        if (row >= M || col >= F) return;
-        __nv_bfloat162* o =
-            reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * F + col);
-        const float2 pooled = __bfloat1622float2(*o);
-        const float2 a = *reinterpret_cast<const float2*>(rs + col);
-        const float2 b = *reinterpret_cast<const float2*>(rh + col);
-        const float r0 = __fadd_rn(__fmul_rn(v0, a.x), b.x);
-        const float r1 = __fadd_rn(__fmul_rn(v1, a.y), b.y);
-        *o = __floats2bfloat162_rn(__fadd_rn(pooled.x, r0),
-                                   __fadd_rn(pooled.y, r1));
-      });
-}
-
-unsigned gemm_blocks(int M, int N) {
-  return (unsigned)(((N + bt::GEMM_BN - 1) / bt::GEMM_BN) *
-                    (((size_t)M + BM - 1) / BM));
-}
-
 }  // namespace
 
 // x: (N, H, W, Cin) bf16. dw0 (9, Cin), dw1 (9, F0) f32 taps; pw0 (Cin, F0),
@@ -210,7 +133,19 @@ extern "C" int fused_block_launch(
   cudaStream_t s = (cudaStream_t)stream;
   const int M = n_img * H * W;
   const bf16* xb = (const bf16*)x;
-  const size_t smem = sizeof(bt::GemmSmem<BM>);
+  const bt::DenseA rows{M};
+  const bt::StridedA xs = bt::strided_rows(n_img, H, W);
+  const bt::SgPlan p0 = bt::sg_plan(rows, F0);
+  const bt::SgPlan p1 = bt::sg_plan(rows, F1);
+  const bt::SgPlan pr = bt::sg_plan(xs, F1);
+  CUtensorMap a0map, pw0map, a1map, pw1map, xmap, rwmap;
+  if ((e = bt::rows_map(&a0map, a0, M, Cin)) != cudaSuccess ||
+      (e = bt::weight_map(&pw0map, p0, pw0, 1, Cin, F0)) != cudaSuccess ||
+      (e = bt::rows_map(&a1map, a1, M, F0)) != cudaSuccess ||
+      (e = bt::weight_map(&pw1map, p1, pw1, 1, F0, F1)) != cudaSuccess ||
+      (e = bt::strided_map(&xmap, xs, x, H, W, Cin)) != cudaSuccess ||
+      (e = bt::weight_map(&rwmap, pr, rw, 1, Cin, F1)) != cudaSuccess)
+    return (int)e;
 
   // 1. a0 = bf16(dw3x3([relu] x)).
   e = relu_first ? bt::depthwise3x3<bf16, bf16, true>(
@@ -220,12 +155,15 @@ extern "C" int fused_block_launch(
   if (e != cudaSuccess) return (int)e;
 
   // 2. y0 = relu(BN0(a0 . pw0)), f32.
-  auto* gemm0 = sep_gemm_kernel<true>;
-  if ((e = bt::set_gemm_smem<BM>(gemm0)) != cudaSuccess) return (int)e;
-  gemm0<<<gemm_blocks(M, F0), bt::GEMM_THREADS, smem, s>>>(
-      (const bf16*)a0, (const bf16*)pw0, (const float*)s0, (const float*)h0,
-      y0, M, F0, Cin, (F0 + bt::GEMM_BN - 1) / bt::GEMM_BN);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  bt::BnEpilogue epi0{};
+  epi0.sc = (const float*)s0;
+  epi0.sh = (const float*)h0;
+  epi0.out_f32 = (float*)y0;
+  epi0.ld = F0;
+  epi0.relu = 1;
+  if ((e = bt::sepconv_gemm(p0, a0map, pw0map, rows, epi0, F0, Cin, 0, s)) !=
+      cudaSuccess)
+    return (int)e;
 
   // 3. a1 = bf16(dw3x3(y0)).
   if ((e = bt::depthwise3x3<float, bf16, false>(
@@ -234,12 +172,14 @@ extern "C" int fused_block_launch(
     return (int)e;
 
   // 4. y1 = bf16(BN1(a1 . pw1)).
-  auto* gemm1 = sep_gemm_kernel<false>;
-  if ((e = bt::set_gemm_smem<BM>(gemm1)) != cudaSuccess) return (int)e;
-  gemm1<<<gemm_blocks(M, F1), bt::GEMM_THREADS, smem, s>>>(
-      (const bf16*)a1, (const bf16*)pw1, (const float*)s1, (const float*)h1,
-      y1, M, F1, F0, (F1 + bt::GEMM_BN - 1) / bt::GEMM_BN);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  bt::BnEpilogue epi1{};
+  epi1.sc = (const float*)s1;
+  epi1.sh = (const float*)h1;
+  epi1.out_bf16 = (bf16*)y1;
+  epi1.ld = F1;
+  if ((e = bt::sepconv_gemm(p1, a1map, pw1map, rows, epi1, F1, F0, 0, s)) !=
+      cudaSuccess)
+    return (int)e;
 
   // 5. out = maxpool(y1); 6. out = bf16(out + res_bn(x_s2 . rw)).
   const int M2 = n_img * ((H + 1) / 2) * ((W + 1) / 2);
@@ -248,10 +188,27 @@ extern "C" int fused_block_launch(
                 POOL_THREADS, 0, s>>>((const bf16*)y1, (bf16*)out, n_img, H,
                                       W, F1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = bt::set_gemm_smem<BM>(residual_kernel)) != cudaSuccess)
+  bt::BnEpilogue epir{};
+  epir.sc = (const float*)rs;
+  epir.sh = (const float*)rh;
+  epir.out_bf16 = (bf16*)out;
+  epir.ld = F1;
+  epir.add_out = 1;
+  return (int)bt::sepconv_gemm(pr, xmap, rwmap, xs, epir, F1, Cin, 0, s);
+}
+
+// The plans of the block's three GEMMs (sepconv_gemm_report, one after
+// another: GEMM0, GEMM1, then the residual conv's).
+extern "C" int fused_block_gemm_plan(int n_img, int H, int W, int Cin, int F0,
+                                     int F1, int* out) {
+  const bt::DenseA rows{n_img * H * W};
+  const bt::StridedA xs = bt::strided_rows(n_img, H, W);
+  cudaError_t e;
+  if ((e = bt::sepconv_gemm_report<bt::DenseA>(bt::sg_plan(rows, F0),
+                                                      out)) != cudaSuccess ||
+      (e = bt::sepconv_gemm_report<bt::DenseA>(
+           bt::sg_plan(rows, F1), out + bt::SG_REPORT)) != cudaSuccess)
     return (int)e;
-  residual_kernel<<<gemm_blocks(M2, F1), bt::GEMM_THREADS, smem, s>>>(
-      xb, (const bf16*)rw, (const float*)rs, (const float*)rh, (bf16*)out,
-      n_img, H, W, Cin, F1, (F1 + bt::GEMM_BN - 1) / bt::GEMM_BN);
-  return (int)cudaGetLastError();
+  return (int)bt::sepconv_gemm_report<bt::StridedA>(
+      bt::sg_plan(xs, F1), out + 2 * bt::SG_REPORT);
 }

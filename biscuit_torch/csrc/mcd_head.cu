@@ -410,7 +410,7 @@ __global__ void __launch_bounds__(PS_THREADS, 1)
       bt::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)   // A: +32 bytes, B: +2048 per k16
-        bt::wgmma_m64n64k16_bmn(d, da + 2 * kk, db + 128 * kk);
+        bt::wgmma_bmn<64>(d, da + 2 * kk, db + 128 * kk);
       bt::wgmma_commit();
       if (kc != nkc - 1) {
         // Keep this step's products in flight; the previous step's are

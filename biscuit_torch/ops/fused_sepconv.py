@@ -81,6 +81,14 @@ def fused_middle_flow_reference(x_nhwc, dw, pw, sc, sh):
     return x.to(x_nhwc.dtype)
 
 
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _aligned(t):
+    """t, or a copy of it that starts on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fused_middle_flow(x_nhwc, dw, pw, sc, sh):
     """Run the full middle flow on an NHWC activation.
 
@@ -112,19 +120,17 @@ def fused_middle_flow(x_nhwc, dw, pw, sc, sh):
                              f"got {tuple(t.shape)} {t.dtype} {t.device}")
         if t.device != x_nhwc.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x_nhwc.device}")
-    x = x_nhwc.contiguous()
+    # The kernel reads every operand through 16-byte vectors and tensor
+    # maps; a tensor that starts off such a boundary is copied first.
+    x, dw, pw, sc, sh = (_aligned(t.contiguous()) for t in (x_nhwc, dw, pw,
+                                                             sc, sh))
     out = torch.empty_like(x)
     carry = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     tmp = torch.empty_like(carry)
     a = torch.empty_like(x)
-    pwt = torch.empty_like(pw)      # the weights K-major, for the GEMM
-    lib = _build.load(NAME)
-    fn = lib.fused_middle_flow_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    rc = fn(*(_build.ptr(t) for t in (x, dw, pw, sc, sh, out, carry, tmp, a,
-                                      pwt)),
-            n, h, w, c, u, x.device.index or 0, _build.stream_ptr(x))
+    rc = _build.bound(NAME, "fused_middle_flow_launch", _ARGTYPES)(
+        *(_build.ptr(t) for t in (x, dw, pw, sc, sh, out, carry, tmp, a)),
+        n, h, w, c, u, x.device.index or 0, _build.stream_ptr(x))
     _build.check(rc, NAME)
     _build.count_launch(NAME)
     return out

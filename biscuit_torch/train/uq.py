@@ -8,8 +8,10 @@ runs the naive K full passes for cross-checking.
 
 Backends: on the card the middle flow goes through the fused kernel
 (``ops/fused_sepconv.py``) and the head through the MC head kernel
-(``ops/mcd_head.py``); ``fused_trunk=False`` / ``use_kernel=False`` pick
-the library-conv middle flow and the module head instead. On the CPU the
+(``ops/mcd_head.py``) when its shape fits the kernel
+(``head_kernel_applicable``; other heads run the module head);
+``fused_trunk=False`` / ``use_kernel=False`` pick the library-conv middle
+flow and the module head instead. On the CPU the
 defaults are the module paths, as the JAX package defaults to XLA off the
 TPU; passing ``True`` runs the kernels' plain versions. ``fuse_blocks``
 (default False, as the JAX package without ``BISCUIT_FUSED_BLOCKS=1``)
@@ -50,9 +52,19 @@ def trunk_features(model, x, fused_trunk: Optional[bool] = None,
     return model.features(x)
 
 
-def _kernel_applicable(model, feats) -> bool:
-    """The head kernel covers two hidden layers on card tensors."""
-    return feats.is_cuda and model.hidden_layers == 2
+def head_kernel_applicable(head, on_card: bool) -> bool:
+    """Whether the MC head kernel takes ``head``: two hidden layers,
+    F % 8 == H % 8 == 0 and 0 < C <= ``MAX_CLASSES``, on the card. Every
+    other head runs the module head on the same device, as the
+    reference's ``_pallas_applicable`` routes by shape; the kernel's
+    wrapper still raises on a shape it cannot take."""
+    from ..ops.mcd_head import MAX_CLASSES
+
+    if not on_card or head.hidden_layers != 2:
+        return False
+    f, h = head.hidden0.in_features, head.hidden0.out_features
+    c = head.logits.out_features
+    return f % 8 == 0 and h % 8 == 0 and 0 < c <= MAX_CLASSES
 
 
 def mc_dropout_head(model, feats, seed: int = 0, k: int = 30,
@@ -60,7 +72,7 @@ def mc_dropout_head(model, feats, seed: int = 0, k: int = 30,
     """K dropout-sampled head passes over precomputed features ->
     (mean (N, C), std (N, C)) of the softmax."""
     if use_kernel is None:
-        use_kernel = _kernel_applicable(model, feats)
+        use_kernel = head_kernel_applicable(model.head, feats.is_cuda)
     if use_kernel:
         from ..ops.mcd_head import head_weights, mcd_head
 
@@ -141,7 +153,7 @@ class UncertaintyInterface:
         on_card = self.device.type == "cuda"
         self._fused = _fused(fused_trunk, fuse_blocks, on_card)
         self._fuse_blocks = bool(fuse_blocks)
-        self._use_kernel = (on_card and model.hidden_layers == 2
+        self._use_kernel = (head_kernel_applicable(model.head, on_card)
                             if use_kernel is None else use_kernel)
         # Kernel-layout weights, made once instead of on every call.
         self._mid_wts = self._head_wts = self._block_wts = None

@@ -7,7 +7,11 @@ Phases, each printing one JSON line:
 
 1. env: torch/CUDA versions and ``nvidia-smi`` name and power limit (also
    printed raw on a line of its own); TF32 off for the f32 comparisons.
-2. build: every kernel of the main path built from ``biscuit_torch/csrc``.
+2. build: every kernel of the main path built from ``biscuit_torch/csrc``;
+   ptxas: the registers, spills and shared memory of the sepconv GEMM
+   (``csrc/sepconv_gemm.cuh``) in the two sources that run it (the middle
+   flow and fused block rows add the GEMM's plan: column tile, cluster
+   size, stages, dynamic shared memory, registers).
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (256 tiles of 299 px, K=30), with its error and
    tolerance, its median time over fresh inputs (CUDA events), the plain
@@ -15,7 +19,9 @@ Phases, each printing one JSON line:
    bound (the larger of bytes / HBM rate and operations / peak rate).
    The MC head also repeats one seed bit for bit, shows its two device
    kernels in a ``profile`` (torch.profiler device time by kernel), as
-   the fused block and depthwise rows do per geometry, and gives its host
+   the middle flow (with its GEMM and depthwise time a unit,
+   ``unit_ms``, and the byte floor of its two-pass design) and the fused
+   block and depthwise rows do per geometry, and gives its host
    time a call (``host_us``, 50 calls enqueued without a synchronize).
    The two unit-backward kernels are held at the 147x147 64->128 and the
    19x19 728->728 geometries at batch 128; their ms, plain ms, library
@@ -55,6 +61,7 @@ line. It needs one CUDA card; without one it exits 1 at once.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -127,6 +134,45 @@ def bound_ms(n_bytes: float, ops: dict):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+PLAN_KEYS = ("tile_n", "cluster", "stages", "smem_bytes", "registers",
+             "local_bytes", "resident_blocks")
+
+
+def gemm_plans(source: str, *shape) -> list:
+    """The plans of csrc/sepconv_gemm.cuh's GEMMs that the kernel of
+    ``source`` runs at ``shape`` (its launcher's arguments): column tile,
+    cluster size, ring stages, dynamic shared memory, and
+    registers and local bytes a thread as the runtime reports them, and
+    the blocks resident at once (the persistent grid)."""
+    import ctypes
+
+    from biscuit_torch.ops import _build
+
+    k = len(PLAN_KEYS)
+    n = k if source == "fused_middle_flow" else 3 * k
+    out = (ctypes.c_int * n)()
+    fn = _build.bound(source, f"{source}_gemm_plan",
+                      [ctypes.c_int] * len(shape)
+                      + [ctypes.POINTER(ctypes.c_int)])
+    _build.check(fn(*shape, out), source)
+    return [dict(zip(PLAN_KEYS, out[i:i + k])) for i in range(0, n, k)]
+
+
+def ptxas_entries(log: str, names) -> list:
+    """ptxas's registers, spills and shared memory for each compiled entry
+    function whose (mangled) name holds one of ``names``."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            keep = any(n in m.group(1) for n in names)
+            if keep:
+                out.append({"function": m.group(1), "info": []})
+        elif keep and ("registers" in ln or "spill" in ln or "smem" in ln):
+            out[-1]["info"].append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -179,6 +225,7 @@ def library_middle(torch, x, dw, pw, sc, sh):
 
 
 def kernel_middle(torch, gen):
+    from biscuit_torch.models.flops import H100_HBM_BYTES_PER_S
     from biscuit_torch.ops.fused_sepconv import (
         fused_middle_flow,
         fused_middle_flow_reference,
@@ -212,9 +259,22 @@ def kernel_middle(torch, gen):
     n_bytes = 2 * m * c * 2 + u * (9 * c * 4 + c * c * 2 + 2 * c * 4)
     b, by = bound_ms(n_bytes, {"bf16": 2.0 * m * c * c * u,
                                "f32": 18.0 * m * c * u})
+    # The floor of the two-pass design, whose f32 carry crosses HBM: per
+    # unit the depthwise reads it and writes the bf16 GEMM input, the GEMM
+    # reads that and writes the carry, and reads the residual every third.
+    two_pass = u * m * c * (4 + 2 + 2 + 4) + (u // 3) * m * c * 4
+    prof = kernel_profile(torch, lambda: fused_middle_flow(xs[0], dw, pw, sc,
+                                                           sh), top=6)
+    per_unit = {part: sum(r["ms"] for r in prof["top"]
+                          if any(k in r["kernel"] for k in names)) / u
+                for part, names in (("gemm", ("sepconv_gemm",)),
+                                    ("depthwise", ("dw_staged", "dw_narrow")))}
     return {"name": "fused_middle_flow", "max_abs_err": err, "tol": tol,
             "max_abs_ref": scale, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": b, "bound_by": by}
+            "library_ms": lib, "bound_ms": b, "bound_by": by,
+            "two_pass_bytes_ms": two_pass / H100_HBM_BYTES_PER_S * 1e3,
+            "unit_ms": per_unit, "profile": prof,
+            "gemm_plan": gemm_plans("fused_middle_flow", TILES, hw, hw, c)[0]}
 
 
 def library_head(torch, feats, w1, b1, w2, b2, w3, b3):
@@ -438,6 +498,8 @@ def kernel_fused_block(torch, gen):
             "f32": 18.0 * m * (cin + f0) + 2.0 * m * (f0 + f1)})
         row["geometries"].append({
             "hw": hw, "cin": cin, "f0": f0, "f1": f1, "tiles": TILES,
+            "gemm_plan": dict(zip(("gemm0", "gemm1", "residual"), gemm_plans(
+                "fused_block", TILES, hw, hw, cin, f0, f1))),
             "relu_first": relu_first, "max_abs_err": err,
             "tol": tol_rel * scale, "max_abs_ref": scale, "ms": ms,
             "plain_ms": plain, "library_ms": lib, "bound_ms": b,
@@ -1043,6 +1105,10 @@ def main() -> int:
           "ptxas": {name: [ln.strip() for ln in _build.build_log(name)
                            .splitlines() if "registers" in ln or "spill" in ln]
                     for name in _build.SOURCES}})
+    # The sepconv GEMM, instantiation by instantiation.
+    emit({"phase": "ptxas", **{
+        name: ptxas_entries(_build.build_log(name), ("sepconv_gemm_kernel",))
+        for name in ("fused_middle_flow", "fused_block")}})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []

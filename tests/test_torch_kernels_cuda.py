@@ -75,8 +75,7 @@ def test_fused_preprocess(gen, shape):
     assert (got - want).abs().max().item() <= 2e-2
 
 
-@pytest.mark.parametrize("n,hw,c,u", [(3, 5, 16, 3), (2, 19, 728, 6)])
-def test_fused_middle_flow(gen, n, hw, c, u):
+def _middle_inputs(gen, n, hw, c, u):
     def normal(shape, std):
         return torch.randn(shape, generator=gen, device="cuda") * std
 
@@ -85,8 +84,44 @@ def test_fused_middle_flow(gen, n, hw, c, u):
     sc = 0.8 + 0.4 * torch.rand((u, c), generator=gen, device="cuda")
     sh = normal((u, c), 0.05)
     x = normal((n, hw, hw, c), 1.0).to(torch.bfloat16)
-    got = fused_middle_flow(x, dw, pw, sc, sh).float()
+    return x, dw, pw, sc, sh
+
+
+# (N, hw, C, U): a plane smaller than a GEMM tile; two blocks at the
+# serving width, whose K = 728 ends in a ragged k-tile (11 x 64 + 24) and
+# whose N = 728 in a ragged column tile; 64 images, whose tiles outnumber
+# the SMs, so each block walks several; one image; K = N = 8; and a 45 x 45
+# plane, too large for a block's image slice, on the shared depthwise pass.
+@pytest.mark.parametrize("n,hw,c,u", [(3, 5, 16, 3), (2, 19, 728, 6),
+                                      (64, 19, 728, 3), (1, 19, 728, 3),
+                                      (2, 7, 8, 3), (1, 45, 16, 3)])
+def test_fused_middle_flow(gen, n, hw, c, u):
+    x, dw, pw, sc, sh = _middle_inputs(gen, n, hw, c, u)
+    before = _build.launch_counts()["fused_middle_flow"]
+    got = fused_middle_flow(x, dw, pw, sc, sh)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fused_middle_flow"] == before + 1
     want = fused_middle_flow_reference(x, dw, pw, sc, sh).float()
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    got = got.float()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+def test_fused_middle_flow_takes_views_off_a_boundary(gen):
+    """Inputs that start 2 or 4 bytes off a 16-byte boundary, which the
+    tensor maps cannot read in place, are copied, not refused."""
+    x, dw, pw, sc, sh = _middle_inputs(gen, 2, 6, 16, 3)
+    want = fused_middle_flow_reference(x, dw, pw, sc, sh).float()
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    got = fused_middle_flow(shifted(x), shifted(dw), shifted(pw), shifted(sc),
+                            shifted(sh)).float()
     assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
 
 
@@ -127,6 +162,42 @@ def test_mcd_head_repeats_bit_for_bit(gen):
     second = mcd_head(feats, *wts, k=30, dropout=0.1, seed=5)
     assert torch.equal(first[0], second[0])
     assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("classes,width", [(9, 64), (2, 1020)])
+def test_interface_serves_heads_the_kernel_cannot_take(gen, classes, width):
+    """Nine classes, or a hidden width that is not a multiple of 8: the
+    interface routes the head to the module head on the card, answers,
+    and matches the module head at dropout 0."""
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.xception import XceptionClassifier
+    from biscuit_torch.train.uq import (
+        UncertaintyInterface,
+        mc_dropout_head,
+        trunk_features,
+    )
+
+    hp = nature2022_params()
+    hp.model, hp.tile_px, hp.dropout = "xception_tiny", 37, 0.0
+    torch.manual_seed(0)
+    model = XceptionClassifier(arch="xception_tiny", num_classes=classes,
+                               hidden_layers=2, hidden_width=width,
+                               dropout=0.0, compute_dtype=torch.bfloat16)
+    tiles = torch.randint(0, 256, (6, 37, 37, 3), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    ui = UncertaintyInterface.from_model(model, hp, k=4)
+    before = _build.launch_counts()["mcd_head"]
+    mean, std = ui(tiles)
+    assert _build.launch_counts()["mcd_head"] == before
+    assert mean.shape == std.shape == (6, classes)
+    with torch.inference_mode():
+        x = inference_preprocess(tiles, ui.wsi_normalizer)
+        feats = trunk_features(ui.model, x, True, ui._mid_wts)
+        want_m, want_s = mc_dropout_head(ui.model, feats, k=4,
+                                         use_kernel=False)
+    assert (mean - want_m).abs().max().item() <= 1e-3
+    assert (std - want_s).abs().max().item() <= 1e-3
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
@@ -277,10 +348,13 @@ def _block_weights(gen, cin, f0, f1):
 # (N, H, W, Cin, F0, F1, relu_first): odd and even H and W, F0 != F1,
 # widths that are not multiples of 64 (nor of the GEMM's 128-column tile),
 # a 4x4 plane (xception_tiny's entry2) and a 1-pixel one.
+# Also entry0's geometry (147^2 64->128->128) and an output row wider than
+# the residual GEMM's 128-row tile (W = 260: two runs of one row).
 BLOCK_SHAPES = [(2, 13, 13, 24, 40, 40, True), (3, 14, 14, 24, 40, 56, False),
                 (2, 16, 13, 16, 16, 16, False), (2, 19, 19, 72, 72, 136, True),
                 (1, 12, 18, 8, 8, 24, False), (5, 4, 4, 48, 48, 64, True),
-                (3, 1, 1, 8, 16, 8, True)]
+                (3, 1, 1, 8, 16, 8, True), (2, 147, 147, 64, 128, 128, False),
+                (1, 3, 260, 8, 8, 16, True)]
 
 
 @pytest.mark.parametrize("shape", BLOCK_SHAPES)

@@ -25,8 +25,10 @@ from flax.core import unfreeze
 
 from biscuit_torch import resolve_device
 from biscuit_torch.train.trainer import load_checkpoint
+from biscuit_torch.models.xception import Head
 from biscuit_torch.train.uq import (
     UncertaintyInterface,
+    head_kernel_applicable,
     mc_dropout_full,
     mc_dropout_predict,
 )
@@ -128,6 +130,20 @@ def test_sampled_calls_differ_and_repeat_from_seed(saved):
     assert float(s1.mean()) > 0
     assert not torch.equal(m1, m2)
     torch.testing.assert_close(outs[1][0][0], m1, rtol=0, atol=0)
+
+
+# (classes, hidden width, hidden layers, on the card, kernel): the kernel
+# takes two hidden layers with F % 8 == H % 8 == 0 and 0 < C <= 8 on the
+# card; 9 classes, H = 1020, one hidden layer or the CPU go to the module
+# head, as the reference's _pallas_applicable routes by shape.
+@pytest.mark.parametrize("classes,width,layers,on_card,want", [
+    (2, 1024, 2, True, True), (8, 1024, 2, True, True),
+    (9, 1024, 2, True, False), (2, 1020, 2, True, False),
+    (2, 1024, 1, True, False), (2, 1024, 2, False, False)])
+def test_head_routing_follows_the_kernel_shapes(classes, width, layers,
+                                                on_card, want):
+    head = Head(2048, classes, layers, width, 0.1)
+    assert head_kernel_applicable(head, on_card) is want
 
 
 def test_entry_points_need_a_card_unless_cpu(saved):
