@@ -15,139 +15,169 @@
 // `_unit_bwd_kernel` (whole plane, via `unit_bwd_pallas`) and
 // `_unit_bwd_strip_kernel` (H strips with halo rows, via
 // `unit_bwd_pallas_strips`). Their numerics are kept: gd stays f32 into
-// the depthwise taps, both weight gradients accumulate in f32.
+// the depthwise taps, both weight gradients accumulate in f32, and gp is
+// formed as A*g - B - xh*C before its bf16 rounding.
 //
-// What bounds it on the H100: bytes. The least traffic is one read of gy,
-// p, r, d and one write of da (2*CO + 3*CI bf16 per pixel) plus the BN
-// sums' read of gy and p; the two GEMMs are 4*CI*CO operations per pixel
-// at 989 TFLOP/s, below the bytes at every Xception geometry.
+// What bounds it on the H100: bytes. The least traffic is the BN sums'
+// read of gy and p, then one more read of gy, p, r, d and one write of da
+// (2*CO + 3*CI bf16 per pixel); the two GEMMs are 4*CI*CO operations per
+// pixel at 989 TFLOP/s, below the bytes at every Xception geometry but the
+// exit tail's 1536 -> 2048.
 //
-// Design. The TPU kernels stream whole planes (or strips) through VMEM
-// and do everything in one pass. 227 KB of shared memory holds neither a
-// plane nor a strip at 147x147x128, and Hopper's blocks run in parallel
-// and in no order, so the work is split into passes over HBM, each simple
-// and each with a fixed order of summation (deterministic, no atomics):
-//   1. BN sums: per-block column sums of g and g*p, then a fixed-order
-//      reduction and a per-channel finalize (A, B, C, dgamma, dbeta);
-//   2. gp pass: bf16(gp) written once (M x CO);
-//   3. dgrad GEMM gd = gp . Wpw^T on mma.sync tensor cores (common.cuh's
-//      main loop), gd written in f32 (M x CI);
-//   4. wgrad GEMM dWpw = d^T . gp, the pixel dimension split over blocks
-//      (split-K), per-split partials summed in a fixed order;
-//   5. depthwise backward: a thread owns two channels of one image
-//      column and walks down its rows with rolling 3x3 windows of gd and
-//      r, writing da and accumulating dWdw; per-block partials summed in
-//      a fixed order.
+// Design. 227 KB of shared memory holds neither a plane nor a strip at
+// 147x147x128, and Hopper's blocks run in parallel and in no order, so
+// the work is six launches, each with a fixed order of summation
+// (deterministic, no atomics):
+//   1. ub_bn_sums_kernel: per-block column sums of g and g*p;
+//   2. ub_bn_finalize_kernel: the partials summed in a fixed order, then
+//      the five per-channel coefficients (vec) and dgamma, dbeta;
+//   3. ub_dgrad_kernel, gd = bf16(gp) . Wpw^T on wgmma: gy and p tiles
+//      arrive by TMA, the consumer warpgroups form bf16(gp) in place in
+//      the swizzled A stage (fence.proxy.async, then wgmma reads it), and
+//      B is Wpw (CI, CO) read K-major in place; gd is written in f32. The
+//      blocks of the first column tile also write bf16(gp) (M x CO) for
+//      the weight gradient; nothing reads it back here;
+//   4. ub_wgrad_kernel, dWpw = d^T . bf16(gp) on wgmma with both operands
+//      MN-major (d and gp as they lie, pixels as the contraction), the
+//      pixels split over work items, one f32 partial per split;
+//   5. ub_dw_bwd_kernel: the depthwise backward on rows staged in shared
+//      memory by bulk copies (gd f32 and r bf16, with their halo columns,
+//      onto an mbarrier ring filled by one producer thread), a persistent
+//      grid walking (rows, column range) items; each consumer thread owns
+//      two channels of one column (of two where CI is wide), keeps a
+//      window of three rows of gd and r in registers, writes da in bf16
+//      and sums dWdw; one partial per block, reduced over the block's
+//      columns in order;
+//   6. ub_reduce_kernel: the dWpw and dWdw partials summed in a fixed
+//      order.
+// The GEMMs (3, 4) are one persistent kernel shape: a producer warpgroup
+// of which one thread issues the TMA copies of a ring of stages with full
+// and empty mbarriers, and two consumer warpgroups of 64 rows each that
+// issue m64nBNk16 wgmma with one group in flight and release a stage when
+// the group that read it has retired; CTA pairs on neighbouring row tiles
+// share each B tile by multicast (the design of sepconv_gemm.cuh, whose
+// TMA helpers and tensor maps they use). What holds them (PERF.md): the
+// rate at which the ring's stages arrive from L2, not the tensor cores.
+//
 // The two entry points differ in how pass 5 cuts the plane.
-// `unit_bwd_plane_launch` gives each block all H rows of a tile of wt
-// columns (no halo rows); `unit_bwd_strips_launch` gives each block a
-// strip of hs rows across the width, reading the strip's two halo rows
-// of gd and r from HBM. Out-of-image rows and columns contribute exact
-// zeros (bounds checks, never padded reads), and a ragged last strip or
-// tile stops at the image's edge.
-#include "common.cuh"
+// `unit_bwd_plane_launch` gives each block all H rows of its images (no
+// halo rows); `unit_bwd_strips_launch` gives each block strips of hs
+// rows, each strip with its two halo rows. In both a work item is a range
+// of columns (with its two halo columns) and a block keeps a slice of at
+// most 1024 channels. Out-of-image rows and columns contribute exact
+// zeros (never copied, read as zeros), and a ragged last strip or column
+// range stops at the image's edge.
+//
+// The launch plan (tiles, splits, ring depths, grids) is computed by the
+// wrapper, biscuit_torch/ops/fused_unit_bwd.py `launch_plan`, and passed
+// in as PLAN_FIELDS ints.
+#include "sepconv_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-// ------------------------------------------------------------ reductions
-// out[l] = sum_p part[p * L + l], p in a fixed order: threadIdx.y sums a
-// contiguous range of p, the 8 ranges are added in order.
-constexpr int RED_Y = 8;
-
-__global__ void reduce_partials_kernel(const float* __restrict__ part,
-                                       float* __restrict__ out, int P,
-                                       size_t L) {
-  __shared__ float red[RED_Y][32];
-  const size_t l = (size_t)blockIdx.x * 32 + threadIdx.x;
-  const int chunk = (P + RED_Y - 1) / RED_Y;
-  const int p0 = threadIdx.y * chunk, p1 = min(P, p0 + chunk);
-  float s = 0.f;
-  if (l < L)
-    for (int p = p0; p < p1; ++p) s += part[(size_t)p * L + l];
-  red[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && l < L) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < RED_Y; ++i) t += red[i][threadIdx.x];
-    out[l] = t;
-  }
-}
-
-cudaError_t reduce_partials(const float* part, float* out, int P, size_t L,
-                            cudaStream_t s) {
-  reduce_partials_kernel<<<(unsigned)((L + 31) / 32), dim3(32, RED_Y), 0,
-                           s>>>(part, out, P, L);
-  return cudaGetLastError();
-}
-
-__device__ __forceinline__ void load4(const bf16* p, float v[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  v[0] = __low2float(a);
-  v[1] = __high2float(a);
-  v[2] = __low2float(b);
-  v[3] = __high2float(b);
-}
+using bt::smem_u32;
 
 // ------------------------------------------------------------- 1. BN sums
-// Block (32, 8): threadIdx.x owns channels c..c+3, threadIdx.y strides the
-// block's rows. part[blockIdx.y][0][c] = sum g, [1][c] = sum g*p.
-__global__ void bn_sums_kernel(const bf16* __restrict__ gy,
-                               const bf16* __restrict__ p,
-                               float* __restrict__ part, int M, int CO,
-                               int rows) {
-  __shared__ float red[8][32][8];
-  const int c = (blockIdx.x * 32 + threadIdx.x) * 4;
+// Block (tx, ty), tx * ty = 256: threadIdx.x owns channels c..c+7 (16-byte
+// loads), threadIdx.y strides the block's rows, two rows a step.
+// part[blockIdx.y][0][c] = sum g, [1][c] = sum g*p, the ty partial sums
+// added in order.
+constexpr int BN_THREADS = 256;
+
+__global__ void __launch_bounds__(BN_THREADS)
+    ub_bn_sums_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ p,
+                      float* __restrict__ part, int M, int CO, int rows) {
+  __shared__ float red[BN_THREADS][17];
+  const int tx = blockDim.x, ty = blockDim.y;
+  const int c = (blockIdx.x * tx + threadIdx.x) * 8;
   const int m0 = blockIdx.y * rows, m1 = min(M, m0 + rows);
-  float sg[4] = {0.f, 0.f, 0.f, 0.f}, sgp[4] = {0.f, 0.f, 0.f, 0.f};
-  if (c < CO) {
-    for (int m = m0 + threadIdx.y; m < m1; m += 8) {
-      float g[4], pv[4];
-      load4(gy + (size_t)m * CO + c, g);
-      load4(p + (size_t)m * CO + c, pv);
+  float sg[8], sgp[8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sg[j] += g[j];
-        sgp[j] += g[j] * pv[j];
+  for (int j = 0; j < 8; ++j) sg[j] = sgp[j] = 0.f;
+  if (c < CO) {
+    for (int m = m0 + threadIdx.y; m < m1; m += 2 * ty) {
+      const bool two = m + ty < m1;
+      const size_t o = (size_t)m * CO + c, o2 = o + (size_t)ty * CO;
+      float g[2][8], pv[2][8];
+      bt::load8(gy + o, g[0]);
+      bt::load8(p + o, pv[0]);
+      if (two) {
+        bt::load8(gy + o2, g[1]);
+        bt::load8(p + o2, pv[1]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sg[j] += g[0][j];
+        sgp[j] += g[0][j] * pv[0][j];
+      }
+      if (two) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sg[j] += g[1][j];
+          sgp[j] += g[1][j] * pv[1][j];
+        }
       }
     }
   }
+  const int tid = threadIdx.y * tx + threadIdx.x;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[threadIdx.y][threadIdx.x][j] = sg[j];
-    red[threadIdx.y][threadIdx.x][4 + j] = sgp[j];
+  for (int j = 0; j < 8; ++j) {
+    red[tid][j] = sg[j];
+    red[tid][8 + j] = sgp[j];
   }
   __syncthreads();
   if (threadIdx.y == 0 && c < CO) {
-    float t[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int i = 0; i < 8; ++i)
+    float t[16];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) t[j] += red[i][threadIdx.x][j];
+    for (int j = 0; j < 16; ++j) t[j] = 0.f;
+    for (int i = 0; i < ty; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) t[j] += red[i * tx + threadIdx.x][j];
     float* out = part + (size_t)blockIdx.y * 2 * CO;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < 8; ++j) {
       out[c + j] = t[j];
-      out[CO + c + j] = t[4 + j];
+      out[CO + c + j] = t[8 + j];
     }
   }
 }
 
+// ------------------------------------------------------- 2. BN finalize
+// Block (32, 8): threadIdx.x owns channel c; threadIdx.y sums a contiguous
+// range of the P partials, and the 8 ranges are added in order. Then
 // vec rows: A = gamma*inv, B = A*sum(g)/m, C = A*sum(g*xh)/m, inv, mu*inv.
-__global__ void bn_finalize_kernel(const float* __restrict__ sums,
-                                   const float* __restrict__ gamma,
-                                   const float* __restrict__ mu,
-                                   const float* __restrict__ var, float eps,
-                                   float m, int CO, float* __restrict__ vec,
-                                   float* __restrict__ dgamma,
-                                   float* __restrict__ dbeta) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= CO) return;
+constexpr int RED_Y = 8;
+
+__global__ void ub_bn_finalize_kernel(const float* __restrict__ part, int P,
+                                      const float* __restrict__ gamma,
+                                      const float* __restrict__ mu,
+                                      const float* __restrict__ var,
+                                      float eps, float m, int CO,
+                                      float* __restrict__ vec,
+                                      float* __restrict__ dgamma,
+                                      float* __restrict__ dbeta) {
+  __shared__ float red[RED_Y][2][32];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  const int chunk = (P + RED_Y - 1) / RED_Y;
+  const int p0 = threadIdx.y * chunk, p1 = min(P, p0 + chunk);
+  float sg = 0.f, sgp = 0.f;
+  if (c < CO)
+    for (int q = p0; q < p1; ++q) {
+      sg += part[(size_t)q * 2 * CO + c];
+      sgp += part[(size_t)q * 2 * CO + CO + c];
+    }
+  red[threadIdx.y][0][threadIdx.x] = sg;
+  red[threadIdx.y][1][threadIdx.x] = sgp;
+  __syncthreads();
+  if (threadIdx.y != 0 || c >= CO) return;
+  float sum_g = 0.f, sum_gp = 0.f;
+#pragma unroll
+  for (int i = 0; i < RED_Y; ++i) {
+    sum_g += red[i][0][threadIdx.x];
+    sum_gp += red[i][1][threadIdx.x];
+  }
   const float inv = 1.f / sqrtf(var[c] + eps);
-  const float sum_g = sums[c], sum_gp = sums[CO + c];
   const float sum_gx = (sum_gp - mu[c] * sum_g) * inv;
   const float a = gamma[c] * inv;
   vec[c] = a;
@@ -159,427 +189,844 @@ __global__ void bn_finalize_kernel(const float* __restrict__ sums,
   dbeta[c] = sum_g;
 }
 
-// ----------------------------------------------------------- 2. gp pass
-// Block (bx, by): threadIdx.x owns eight channels (CO % 8 == 0), whose
-// five BN coefficients it keeps in registers; threadIdx.y strides the
-// block's `rows` pixel rows.
-constexpr int GP_THREADS = 256;
+// ------------------------------------------------- 3, 4. the two GEMMs
+constexpr int UG_BM = 128;              // rows a tile: 2 warpgroups x 64
+constexpr int UG_BK = 64;               // k a stage: one 128-byte row
+constexpr int UG_CONSUMERS = 256;
+constexpr int UG_WARPS = UG_CONSUMERS / 32;
+constexpr int UG_THREADS = UG_CONSUMERS + 128;   // and a producer warpgroup
+constexpr int UG_MAX_STAGES = 16;
+constexpr int UG_FIXED = 1024 + 256;    // alignment slack, the barriers
 
-__global__ void __launch_bounds__(GP_THREADS)
-    gp_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ p,
-              const float* __restrict__ vec, bf16* __restrict__ gpb, int M,
-              int CO, int rows) {
-  const int c = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
-  if (c >= CO) return;
-  float k[5][8];
-#pragma unroll
-  for (int r = 0; r < 5; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) k[r][j] = vec[r * CO + c + j];
-  const int m1 = min(M, (int)(blockIdx.y + 1) * rows);
-  for (int m = blockIdx.y * rows + threadIdx.y; m < m1; m += blockDim.y) {
-    const size_t o = (size_t)m * CO + c;
-    const uint4 ug = *reinterpret_cast<const uint4*>(gy + o);
-    const uint4 up = *reinterpret_cast<const uint4*>(p + o);
-    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&ug);
-    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&up);
-    uint4 uo;
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&uo);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 g = __bfloat1622float2(g2[j]);
-      const float2 pf = __bfloat1622float2(p2[j]);
-      const int a = 2 * j, b = 2 * j + 1;
-      const float xa = pf.x * k[3][a] - k[4][a];
-      const float xb = pf.y * k[3][b] - k[4][b];
-      o2[j] = __floats2bfloat162_rn(g.x * k[0][a] - k[1][a] - xa * k[2][a],
-                                    g.y * k[0][b] - k[1][b] - xb * k[2][b]);
-    }
-    *reinterpret_cast<uint4*>(gpb + o) = uo;
-  }
-}
+enum Mode { DGRAD = 0, WGRAD = 1 };
 
-// ------------------------------------------------------ 3. dgrad GEMM
-// gd (M x CI, f32) = gpb (M x CO) . wpwt (CO x CI). Block b covers column
-// block b % ncol and row block b / ncol: the blocks that share a row
-// block of gpb run together and read it from L2.
-constexpr int DG_BM = 128;
-
-__global__ void __launch_bounds__(bt::GEMM_THREADS)
-    dgrad_kernel(const bf16* __restrict__ gpb, const bf16* __restrict__ wpwt,
-                 float* __restrict__ gd, int M, int CI, int CO, int ncol) {
-  extern __shared__ unsigned char smem_raw[];
-  auto& s = bt::gemm_smem<DG_BM>(smem_raw);
-  bt::Acc<DG_BM> acc;
-  const int n0 = (blockIdx.x % ncol) * bt::GEMM_BN;
-  const int m0 = (blockIdx.x / ncol) * DG_BM;
-  bt::gemm_mainloop<DG_BM>(s, acc, gpb, CO, wpwt, CI, M, CI, CO, m0, n0);
-  bt::for_each_acc<DG_BM>(
-      acc, m0, n0, [&](int, int, int, int row, int col, float v0, float v1) {
-        if (row < M && col < CI)
-          *reinterpret_cast<float2*>(gd + (size_t)row * CI + col) =
-              make_float2(v0, v1);
-      });
-}
-
-// ------------------------------------------------------ 4. wgrad GEMM
-// part[s] (CI x CO) = d[k0:k1]^T . gpb[k0:k1] over the split's pixel rows.
-// Both operands are stored with the pixel (contraction) index as the row,
-// so A = d^T is staged k-major and read with ldmatrix.trans.
-constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64, WG_STAGES = 3;
-constexpr int WG_LD = WG_BM + 8;
-
-struct WgSmem {
-  bf16 a[WG_STAGES][WG_BK][WG_LD];
-  bf16 b[WG_STAGES][WG_BK][WG_LD];
+// A stage. DGRAD: gy and p tiles (128 pixels x 64 channels of CO each,
+// K-major) and Wpw's BN x 64 tile (K-major). WGRAD: d's two 64-channel x
+// 64-pixel boxes (MN-major, one a warpgroup) and gp's NB 64-channel x
+// 64-pixel boxes (MN-major).
+template <int BN, int MODE>
+struct UgCfg {
+  static constexpr int NB = (BN + 63) / 64;
+  static constexpr int A_BYTES =
+      MODE == DGRAD ? 2 * UG_BM * UG_BK * 2 : UG_BM * UG_BK * 2;
+  static constexpr int B_BYTES =
+      MODE == DGRAD ? BN * UG_BK * 2 : NB * UG_BK * 128;
+  static constexpr int STAGE = A_BYTES + B_BYTES;   // a multiple of 1024
 };
 
-__device__ __forceinline__ void wg_load_tile(WgSmem& s, int st,
-                                             const bf16* __restrict__ d,
-                                             const bf16* __restrict__ gpb,
-                                             int CI, int CO, int k_end,
-                                             int i0, int j0, int k0) {
-  constexpr int CH = WG_BM / 8;   // 16-byte chunks per staged row
-  for (int t = threadIdx.x; t < WG_BK * CH; t += bt::GEMM_THREADS) {
-    const int r = t / CH, c = (t % CH) * 8;
-    const int gk = k0 + r;
-    const int gi = i0 + c, gj = j0 + c;
-    const bool oka = gk < k_end && gi < CI;
-    const bool okb = gk < k_end && gj < CO;
-    bt::cp_async16(&s.a[st][r][c], oka ? d + (size_t)gk * CI + gi : d,
-                   oka ? 16 : 0);
-    bt::cp_async16(&s.b[st][r][c], okb ? gpb + (size_t)gk * CO + gj : gpb,
-                   okb ? 16 : 0);
+template <int BN, int MODE>
+constexpr int ug_smem(int stages) {
+  return UG_FIXED + stages * UgCfg<BN, MODE>::STAGE;
+}
+
+struct UgArgs {
+  const float* vec;   // (5, CO) BN coefficients (DGRAD)
+  bf16* gpb;          // (M, CO) bf16(gp), written by DGRAD's column tile 0
+  float* out;         // DGRAD: gd (M, CI); WGRAD: partials (splits, CI, CO)
+  int M, CI, CO;
+  int mt, nt;         // row and column tiles
+  int splits, chunk;  // WGRAD: pixel splits and pixels a split
+  int stages;
+  int cm;             // CTAs of a cluster, on neighbouring row tiles
+};
+
+// bf16(gp) of 8 channels from gy, p and their coefficients k (rows of
+// vec), in the TPU kernels' order of operations.
+__device__ __forceinline__ uint4 gp8(uint4 ug, uint4 up, const float (&k)[5][8]) {
+  const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&ug);
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&up);
+  uint4 uo;
+  __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&uo);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 g = __bfloat1622float2(g2[j]);
+    const float2 pf = __bfloat1622float2(p2[j]);
+    const int a = 2 * j, b = 2 * j + 1;
+    const float xa = pf.x * k[3][a] - k[4][a];
+    const float xb = pf.y * k[3][b] - k[4][b];
+    o2[j] = __floats2bfloat162_rn(g.x * k[0][a] - k[1][a] - xa * k[2][a],
+                                  g.y * k[0][b] - k[1][b] - xb * k[2][b]);
+  }
+  return uo;
+}
+
+// Cluster work item `item` as CTA cx of the cluster takes it: its output
+// rows (DGRAD: pixels; WGRAD: CI channels), columns, and k range. The
+// cm CTAs of a cluster take neighbouring row tiles of one column tile
+// (and split); a CTA whose row tile lies past the last (an odd count)
+// multiplies the last one for its partner and stores nothing (real).
+struct UgItem {
+  int row0, col0, k0, nk, split;
+  bool real;
+};
+
+template <int BN, int MODE>
+__device__ __forceinline__ UgItem ug_item(const UgArgs& a, int item, int cx) {
+  UgItem t;
+  const int pairs = (a.mt + a.cm - 1) / a.cm;
+  int tile = item;
+  t.split = 0;
+  t.k0 = 0;
+  t.nk = (a.CO + UG_BK - 1) / UG_BK;
+  if (MODE == WGRAD) {
+    t.split = item / (pairs * a.nt);
+    tile = item % (pairs * a.nt);
+    t.k0 = t.split * a.chunk;
+    t.nk = (min(a.M, t.k0 + a.chunk) - t.k0 + UG_BK - 1) / UG_BK;
+  }
+  const int rt = (tile / a.nt) * a.cm + cx;
+  t.real = rt < a.mt;
+  t.row0 = min(rt, a.mt - 1) * UG_BM;
+  t.col0 = (tile % a.nt) * BN;
+  return t;
+}
+
+// The same, multicast to the CTAs of the cluster in mask.
+__device__ __forceinline__ void tma_load_2d_mc(void* dst, const CUtensorMap* map,
+                                               int c0, int c1, uint64_t* bar,
+                                               uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// The persistent GEMM body. DGRAD maps: m0 gy, m1 p ({CO, M}, box {64,
+// 128}), m2 Wpw ({CO, CI}, box {64, BN / cm}). WGRAD maps: m0 d ({CI, M},
+// box {64, 64}), m1 gp ({CO, M}, box {64, 64 / cm}). In a cluster of cm =
+// 2 the two CTAs share B: each loads half of every B box (DGRAD: half its
+// rows of Wpw; WGRAD: half its k-rows of gp) and multicasts it to both,
+// and each consumer warp releases a stage to both CTAs; the producer
+// stays until the pair has released every stage.
+template <int BN, int MODE>
+__device__ __forceinline__ void ug_body(const CUtensorMap* m0,
+                                        const CUtensorMap* m1,
+                                        const CUtensorMap* m2,
+                                        const UgArgs& a) {
+  using C = UgCfg<BN, MODE>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int S = a.stages, cm = a.cm;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S * C::STAGE);
+  uint64_t* empty = full + S;
+  const int items = (a.mt + cm - 1) / cm * a.nt *
+                    (MODE == WGRAD ? a.splits : 1);
+  const int cx = cm > 1 ? (int)bt::cluster_ctarank() : 0;
+  const int cid = blockIdx.x / cm, clusters = gridDim.x / cm;
+  const uint16_t peers = (uint16_t)((1u << cm) - 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      bt::mbar_init(&full[s], 1);
+      bt::mbar_init(&empty[s], UG_WARPS * cm);
+    }
+    bt::mbar_init_fence();
+  }
+  bt::cluster_sync();
+
+  if (threadIdx.x >= UG_CONSUMERS) {
+    // Producer: one thread keeps the ring full across items.
+    bt::setmaxnreg_dec<bt::SG_PRODUCER_REGS>();
+    if (threadIdx.x != UG_CONSUMERS) return;
+    bt::prefetch_tensor_map(m0);
+    bt::prefetch_tensor_map(m1);
+    if constexpr (MODE == DGRAD) bt::prefetch_tensor_map(m2);
+    int it = 0;
+    for (int item = cid; item < items; item += clusters) {
+      const UgItem t = ug_item<BN, MODE>(a, item, cx);
+      // WGRAD: boxes wholly past CI or CO are not fetched; their rows and
+      // columns are never stored.
+      const int na = MODE == WGRAD ? min(2, (a.CI - t.row0 + 63) / 64) : 0;
+      const int nb = MODE == WGRAD ? min(C::NB, (a.CO - t.col0 + 63) / 64) : 0;
+      for (int kt = 0; kt < t.nk; ++kt, ++it) {
+        const int st = it % S;
+        bt::mbar_wait(&empty[st], ((it / S) & 1) ^ 1);
+        unsigned char* sa = base + st * C::STAGE;
+        const int k = t.k0 + kt * UG_BK;
+        // All of the stage's bytes land here, whoever loads them.
+        if constexpr (MODE == DGRAD) {
+          bt::mbar_arrive_expect_tx(&full[st], C::STAGE);
+          bt::tma_load_2d(sa, m0, k, t.row0, &full[st]);
+          bt::tma_load_2d(sa + UG_BM * UG_BK * 2, m1, k, t.row0, &full[st]);
+          const int nr = BN / cm;   // Wpw rows this CTA loads
+          if (cm == 1)
+            bt::tma_load_2d(sa + C::A_BYTES, m2, k, t.col0, &full[st]);
+          else
+            tma_load_2d_mc(sa + C::A_BYTES + cx * nr * 128, m2, k,
+                           t.col0 + cx * nr, &full[st], peers);
+        } else {
+          bt::mbar_arrive_expect_tx(&full[st], (na + nb) * UG_BK * 128);
+          for (int h = 0; h < na; ++h)
+            bt::tma_load_2d(sa + h * UG_BK * 128, m0, t.row0 + 64 * h, k,
+                            &full[st]);
+          const int kr = UG_BK / cm;   // gp k-rows this CTA loads
+          for (int b = 0; b < nb; ++b) {
+            unsigned char* sb = sa + C::A_BYTES + b * UG_BK * 128;
+            if (cm == 1)
+              bt::tma_load_2d(sb, m1, t.col0 + 64 * b, k, &full[st]);
+            else
+              tma_load_2d_mc(sb + cx * kr * 128, m1, t.col0 + 64 * b,
+                             k + cx * kr, &full[st], peers);
+          }
+        }
+      }
+    }
+    // Stay until every stage has been released by the whole cluster, so
+    // that no partner arrives on this CTA's barriers after it has left.
+    if (cm > 1)
+      for (int i = 0; i < S; ++i, ++it)
+        bt::mbar_wait(&empty[it % S], ((it / S) & 1) ^ 1);
+    return;
+  }
+
+  // Consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of each tile.
+  bt::setmaxnreg_inc<bt::SG_CONSUMER_REGS>();
+  const int cw = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31, w4 = tid >> 5;
+  auto release = [&](int st) {
+    if (lane == 0)
+      for (int r = 0; r < cm; ++r) bt::mbar_arrive_cta(&empty[st], (uint32_t)r);
+  };
+  // DGRAD's gp slot of this thread: physical 16-byte chunk pc of the rows
+  // rb + 16 i of the A stage, which holds channels 8 ch .. 8 ch + 7 of
+  // the stage's 64 (128-byte swizzle: chunk ch of row r sits at ch ^ (r &
+  // 7), and (rb + 16 i) & 7 == rb & 7).
+  const int pc = tid & 7, rb = cw * 64 + (tid >> 3);
+  const int ch = pc ^ (rb & 7);
+  int it = 0;
+  for (int item = cid; item < items; item += clusters) {
+    const UgItem t = ug_item<BN, MODE>(a, item, cx);
+    float d[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+    int prev = -1;
+    for (int kt = 0; kt < t.nk; ++kt, ++it) {
+      const int st = it % S;
+      bt::mbar_wait(&full[st], (it / S) & 1);
+      unsigned char* sa = base + st * C::STAGE;
+      const uint32_t sa32 = smem_u32(sa);
+      if constexpr (MODE == DGRAD) {
+        // bf16(gp) in place of gy, rows of this warpgroup only; zero past
+        // CO (the copy engine's zeros of gy and p would not give zero gp).
+        const int co0 = kt * UG_BK + 8 * ch;
+        const bool in = co0 < a.CO;
+        float k[5][8];
+        if (in) {
+#pragma unroll
+          for (int q = 0; q < 5; ++q) {
+            const float4 lo =
+                __ldg(reinterpret_cast<const float4*>(a.vec + q * a.CO + co0));
+            const float4 hi =
+                __ldg(reinterpret_cast<const float4*>(a.vec + q * a.CO + co0 + 4));
+            k[q][0] = lo.x, k[q][1] = lo.y, k[q][2] = lo.z, k[q][3] = lo.w;
+            k[q][4] = hi.x, k[q][5] = hi.y, k[q][6] = hi.z, k[q][7] = hi.w;
+          }
+        }
+        const bool write = in && t.col0 == 0 && t.real;
+        // All four rows' loads first: the stores below may not be moved
+        // above them.
+        uint4 gv[4], pv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int off = (rb + 16 * i) * 128 + pc * 16;
+          gv[i] = *reinterpret_cast<const uint4*>(sa + off);
+          pv[i] = *reinterpret_cast<const uint4*>(sa + UG_BM * 128 + off);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rb + 16 * i;
+          const uint4 o = in ? gp8(gv[i], pv[i], k) : make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(sa + r * 128 + pc * 16) = o;
+          if (write && t.row0 + r < a.M)
+            *reinterpret_cast<uint4*>(a.gpb + (size_t)(t.row0 + r) * a.CO +
+                                      co0) = o;
+        }
+        // The generic-proxy writes made visible to wgmma, then every
+        // thread of the warpgroup past them.
+        bt::fence_proxy_async();
+        bt::named_bar_sync(1 + cw, 128);
+        const uint64_t da = bt::smem_desc(sa32 + cw * 64 * 128);
+        const uint64_t db = bt::smem_desc(sa32 + C::A_BYTES);
+        bt::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < UG_BK / 16; ++kk)   // 32 bytes of each row
+          bt::Wgmma<BN, 0, 0>::run(d, da + 2 * kk, db + 2 * kk);
+      } else {
+        const uint64_t da = bt::smem_desc(sa32 + cw * UG_BK * 128);
+        // B: 64-column groups of 64 k-rows each, 8 KB apart.
+        const uint64_t db =
+            bt::smem_desc(sa32 + C::A_BYTES, UG_BK * 128 / 16);
+        bt::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < UG_BK / 16; ++kk)   // 16 k-rows: 2048 bytes
+          bt::Wgmma<BN, 1, 1>::run(d, da + 128 * kk, db + 128 * kk);
+      }
+      bt::wgmma_commit();
+      if (prev >= 0) {
+        bt::wgmma_wait<1>();
+        release(prev);
+      }
+      prev = st;
+    }
+    bt::wgmma_wait<0>();
+    if (prev >= 0) release(prev);
+    if (!t.real) continue;
+
+    // Epilogue from the accumulators: warp w4 holds rows 16 w4 ..
+    // 16 w4 + 15; d[4j .. 4j + 3] are the m16n8 fragment of columns
+    // 8j .. 8j + 7. Each quad of lanes stores 32 contiguous bytes.
+    const int nrows = MODE == DGRAD ? a.M : a.CI;
+    const int ncols = MODE == DGRAD ? a.CI : a.CO;
+    float* out = a.out + (MODE == WGRAD ? (size_t)t.split * a.CI * a.CO : 0);
+    const int row = t.row0 + cw * 64 + w4 * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = t.col0 + 8 * j + 2 * (lane & 3);
+      if (col >= ncols) continue;
+      if (row < nrows)
+        *reinterpret_cast<float2*>(out + (size_t)row * ncols + col) =
+            make_float2(d[4 * j], d[4 * j + 1]);
+      if (row + 8 < nrows)
+        *reinterpret_cast<float2*>(out + (size_t)(row + 8) * ncols + col) =
+            make_float2(d[4 * j + 2], d[4 * j + 3]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(bt::GEMM_THREADS)
-    wgrad_kernel(const bf16* __restrict__ d, const bf16* __restrict__ gpb,
-                 float* __restrict__ part, int M, int CI, int CO, int chunk,
-                 int ti, int tj) {
-  extern __shared__ unsigned char smem_raw[];
-  WgSmem& s = *reinterpret_cast<WgSmem*>(smem_raw);
-  const int tile = blockIdx.x % (ti * tj), split = blockIdx.x / (ti * tj);
-  const int i0 = (tile / tj) * WG_BM, j0 = (tile % tj) * WG_BN;
-  const int k_begin = split * chunk, k_end = min(M, k_begin + chunk);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  constexpr int MT = 4, NT = 4;   // warp tile 64 x 32
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int f = 0; f < 4; ++f) acc[i][j][f] = 0.f;
+template <int BN>
+__global__ void __launch_bounds__(UG_THREADS, 1)
+    ub_dgrad_kernel(const __grid_constant__ CUtensorMap gymap,
+                    const __grid_constant__ CUtensorMap pmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const UgArgs a) {
+  ug_body<BN, DGRAD>(&gymap, &pmap, &wmap, a);
+}
 
-  const int nk = (k_end - k_begin + WG_BK - 1) / WG_BK;
-#pragma unroll
-  for (int t = 0; t < WG_STAGES - 1; ++t) {
-    if (t < nk)
-      wg_load_tile(s, t, d, gpb, CI, CO, k_end, i0, j0, k_begin + t * WG_BK);
-    bt::cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt % WG_STAGES;
-    bt::cp_async_wait<WG_STAGES - 2>();
-    __syncthreads();
-    const int next = kt + WG_STAGES - 1;
-    if (next < nk)
-      wg_load_tile(s, next % WG_STAGES, d, gpb, CI, CO, k_end, i0, j0,
-                   k_begin + next * WG_BK);
-    bt::cp_async_commit();
-#pragma unroll
-    for (int kk = 0; kk < WG_BK; kk += 16) {
-      // A fragment (rows i, cols k) from the k-major stage: matrices
-      // (i 0-7, k 0-7), (i 8-15, k 0-7), (i 0-7, k 8-15), (i 8-15, k 8-15).
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int k = kk + (lane & 7) + (lane >> 4) * 8;
-        const int c = wm * 64 + i * 16 + ((lane >> 3) & 1) * 8;
-        bt::ldmatrix_x4_trans(af[i], &s.a[st][k][c]);
-      }
-      uint32_t bfr[NT / 2][4];
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        const int k = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = wn * 32 + j * 16 + (lane >> 4) * 8;
-        bt::ldmatrix_x4_trans(bfr[j], &s.b[st][k][c]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          bt::mma_bf16(acc[i][j], af[i], bfr[j >> 1][(j & 1) * 2],
-                       bfr[j >> 1][(j & 1) * 2 + 1]);
-    }
-  }
-  bt::cp_async_wait<0>();
+template <int BN>
+__global__ void __launch_bounds__(UG_THREADS, 1)
+    ub_wgrad_kernel(const __grid_constant__ CUtensorMap dmap,
+                    const __grid_constant__ CUtensorMap gpmap,
+                    const UgArgs a) {
+  ug_body<BN, WGRAD>(&dmap, &gpmap, nullptr, a);
+}
 
-  float* out = part + (size_t)split * CI * CO;
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = j0 + wn * 32 + j * 8 + 2 * t4;
-      if (col >= CO) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = i0 + wm * 64 + i * 16 + g + h * 8;
-        if (row < CI)
-          *reinterpret_cast<float2*>(out + (size_t)row * CO + col) =
-              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
+// A 2-D bf16 tensor map of rows x cols (row-major), boxes of bc columns x
+// br rows, 128-byte swizzle.
+cudaError_t map2d(CUtensorMap* map, const void* base, long long rows,
+                  int cols, int bc, int br) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)bc, (cuuint32_t)br};
+  const cuuint32_t es[2] = {1, 1};
+  return bt::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base,
+                             dims, strides, box, es,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// Launch `kernel` on a persistent grid of at most `grid` CTAs in clusters
+// of a.cm, no more clusters than fit on the card at once.
+template <class K, class... Args>
+cudaError_t ug_launch(K kernel, int smem, const UgArgs& a, int items,
+                      int grid, cudaStream_t s, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.cm;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(a.cm);
+  cfg.blockDim = dim3(UG_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  if ((e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg)) != cudaSuccess)
+    return e;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  int clusters = grid / a.cm;
+  if (clusters > fit) clusters = fit;
+  if (clusters > items) clusters = items;
+  if (clusters < 1) clusters = 1;
+  cfg.gridDim = dim3(clusters * a.cm);
+  cfg.stream = s;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int BN>
+cudaError_t dgrad(const bf16* gy, const bf16* p, const bf16* wpw,
+                  const UgArgs& a, int grid, cudaStream_t s) {
+  CUtensorMap gm, pm, wm;
+  cudaError_t e;
+  if ((e = map2d(&gm, gy, a.M, a.CO, UG_BK, UG_BM)) != cudaSuccess ||
+      (e = map2d(&pm, p, a.M, a.CO, UG_BK, UG_BM)) != cudaSuccess ||
+      (e = map2d(&wm, wpw, a.CI, a.CO, UG_BK, BN / a.cm)) != cudaSuccess)
+    return e;
+  const int items = (a.mt + a.cm - 1) / a.cm * a.nt;
+  return ug_launch(ub_dgrad_kernel<BN>, ug_smem<BN, DGRAD>(a.stages), a,
+                   items, grid, s, gm, pm, wm, a);
+}
+
+template <int BN>
+cudaError_t wgrad(const bf16* d, const UgArgs& a, int grid, cudaStream_t s) {
+  CUtensorMap dm, gm;
+  cudaError_t e;
+  if ((e = map2d(&dm, d, a.M, a.CI, 64, UG_BK)) != cudaSuccess ||
+      (e = map2d(&gm, a.gpb, a.M, a.CO, 64, UG_BK / a.cm)) != cudaSuccess)
+    return e;
+  const int items = (a.mt + a.cm - 1) / a.cm * a.nt * a.splits;
+  return ug_launch(ub_wgrad_kernel<BN>, ug_smem<BN, WGRAD>(a.stages), a,
+                   items, grid, s, dm, gm, a);
 }
 
 // ---------------------------------------------- 5. depthwise backward
-// Block (bx, by), bx * by <= 256: threadIdx.x owns channels c, c+1,
-// threadIdx.y strides the block's columns; blockIdx.y is the image, and
-// blockIdx.z = strip * tiles + tile picks the rows [strip*hs, +hs) and
-// the columns [tile*wt, +wt), each cut at the image's edge. Each thread
-// walks its columns top to bottom with rolling windows of gd (f32) and r
-// (packed bf16) over rows h-1..h+1 and columns w-1..w+1, so every value
-// is loaded three times, not nine. Two channels a thread keep it under
-// 85 registers, for three blocks per SM. The block's dWdw sums are added
-// over threadIdx.y in order and written as one partial per (image,
-// strip, column tile).
-constexpr int DW_THREADS = 256;
+// A persistent grid of ncs * G blocks. Block b takes channel slice b % ncs
+// (channels c0 .. c0 + cb - 1) and walks work items j = b / ncs, + G, ...
+// of the nwr * N * nstrips items: item j is column range j % nwr (columns
+// w0 .. w0 + wt - 1) of unit j / nwr (image u / nstrips, rows s * rows ..
+// of strip s = u % nstrips). For each item a producer thread copies the
+// input rows h0 - 1 .. h1 that lie in the image, each row's gd (f32) and r
+// (bf16) at the in-image columns of w0 - 1 .. w0 + wt, onto a ring of
+// `ring` slots (a slot: wt + 2 columns of gd, then of r, channel pitch
+// cb). Consumer thread tid owns channels c, c + 1 (c = c0 + 2 (tid %
+// (cb / 2))) of the CPT columns from w0 + CPT (tid / (cb / 2)) on (two
+// where CI passes 256, which fewer loads a column serve); it reads
+// the columns and rows outside the image as zeros, never from the slot.
+// Its dWdw sums run over all of the block's items, one partial a block.
+// At most 512 computing threads a block with one column a thread, 384
+// with two (whose windows take more registers: 13 warps keep 128 a
+// thread, as the SM's four register partitions split them).
+template <int CPT>
+constexpr int db_max_consumers() {
+  return CPT == 1 ? 512 : 384;
+}
+constexpr int DB_BARRIERS = 256;   // bytes of barriers before the ring
 
-__global__ void __launch_bounds__(DW_THREADS, 3)
-    dw_bwd_kernel(const float* __restrict__ gd, const bf16* __restrict__ r,
-                  const float* __restrict__ wflip, bf16* __restrict__ da,
-                  float* __restrict__ part, int H, int W, int CI, int hs,
-                  int wt, int relu_first) {
-  __shared__ float2 red[DW_THREADS * 9];
-  const int bx = blockDim.x, by = blockDim.y;
-  const int c = (blockIdx.x * bx + threadIdx.x) * 2;
-  const int n = blockIdx.y;
-  const int tiles = (W + wt - 1) / wt;
-  const int h0 = (blockIdx.z / tiles) * hs, h1 = min(H, h0 + hs);
-  const int w0 = (blockIdx.z % tiles) * wt, w1 = min(W, w0 + wt);
-  const float2 zero = make_float2(0.f, 0.f);
-  const __nv_bfloat162 zero_r = __floats2bfloat162_rn(0.f, 0.f);
-  float2 acc[9];
-#pragma unroll
-  for (int t = 0; t < 9; ++t) acc[t] = zero;
+struct DbArgs {
+  const float* gd;
+  const bf16* r;
+  const float* taps;   // (9, CI), unflipped
+  bf16* da;
+  float* part;         // (G, 9, CI)
+  int N, H, W, CI;
+  int cb, ncs, wt, nwr, rows, nstrips, G, ring, consumers;
+  int relu_first;
+};
 
-  if (c < CI) {
-    float2 tap[9];
-#pragma unroll
-    for (int t = 0; t < 9; ++t)
-      tap[t] = *reinterpret_cast<const float2*>(wflip + t * CI + c);
-    const size_t img = (size_t)n * H;
-    for (int w = w0 + threadIdx.y; w < w1; w += by) {
-      // Row hh of gd and r at columns w-1, w, w+1; zeros outside.
-      auto load_row = [&](int hh, float2 g[3], __nv_bfloat162 rr[3]) {
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const int ww = w + dx - 1;
-          if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-            const size_t o = ((img + hh) * W + ww) * CI + c;
-            g[dx] = *reinterpret_cast<const float2*>(gd + o);
-            rr[dx] = *reinterpret_cast<const __nv_bfloat162*>(r + o);
-          } else {
-            g[dx] = zero;
-            rr[dx] = zero_r;
-          }
-        }
-      };
-      float2 g[3][3];
-      __nv_bfloat162 rw[3][3];
-      load_row(h0 - 1, g[0], rw[0]);
-      load_row(h0, g[1], rw[1]);
-      for (int h = h0; h < h1; ++h) {
-        load_row(h + 1, g[2], rw[2]);
-        float2 gr = zero;
-#pragma unroll
-        for (int u = 0; u < 3; ++u)
-#pragma unroll
-          for (int v = 0; v < 3; ++v) {
-            gr.x += g[u][v].x * tap[u * 3 + v].x;
-            gr.y += g[u][v].y * tap[u * 3 + v].y;
-          }
-        const float2 gc = g[1][1];
-#pragma unroll
-        for (int u = 0; u < 3; ++u)
-#pragma unroll
-          for (int v = 0; v < 3; ++v) {
-            const float2 x = __bfloat1622float2(rw[u][v]);
-            acc[u * 3 + v].x += x.x * gc.x;
-            acc[u * 3 + v].y += x.y * gc.y;
-          }
-        if (relu_first) {
-          const float2 rc = __bfloat1622float2(rw[1][1]);
-          gr.x = rc.x > 0.f ? gr.x : 0.f;
-          gr.y = rc.y > 0.f ? gr.y : 0.f;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(da + ((img + h) * W + w) * CI +
-                                           c) =
-            __floats2bfloat162_rn(gr.x, gr.y);
-#pragma unroll
-        for (int v = 0; v < 3; ++v) {
-          g[0][v] = g[1][v];
-          g[1][v] = g[2][v];
-          rw[0][v] = rw[1][v];
-          rw[1][v] = rw[2][v];
+// Work item j: its image, rows h0 .. h1 - 1 and first column w0.
+struct DbItem {
+  int n, h0, h1, w0;
+};
+
+__device__ __forceinline__ DbItem db_item(const DbArgs& a, int j) {
+  const int u = j / a.nwr;
+  const int h0 = (u % a.nstrips) * a.rows;
+  return {u / a.nstrips, h0, min(a.H, h0 + a.rows), (j % a.nwr) * a.wt};
+}
+
+template <int CPT>
+__global__ void __launch_bounds__(db_max_consumers<CPT>() + 32, 1)
+    ub_dw_bwd_kernel(const DbArgs a) {
+  extern __shared__ __align__(128) unsigned char db_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(db_smem);
+  uint64_t* empty = full + a.ring;
+  unsigned char* ring = db_smem + DB_BARRIERS;
+  const int slice = blockIdx.x % a.ncs, gb = blockIdx.x / a.ncs;
+  const int c0 = slice * a.cb, cbh = min(a.cb, a.CI - c0);
+  const int items = a.nwr * a.N * a.nstrips;
+  const int gd_bytes = (a.wt + 2) * a.cb * 4;
+  const int slot_bytes = (a.wt + 2) * a.cb * 6;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < a.ring; ++s) {
+      bt::mbar_init(&full[s], 1);
+      bt::mbar_init(&empty[s], a.consumers / 32);
+    }
+    bt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= a.consumers) {
+    if (tid != a.consumers) return;
+    // Producer.
+    const bool whole = a.ncs == 1;   // a pixel's channels are contiguous
+    int ev = 0;
+    for (int j = gb; j < items; j += a.G) {
+      const DbItem t = db_item(a, j);
+      const int cs = max(t.w0 - 1, 0), ce = min(t.w0 + a.wt, a.W - 1);
+      const int dst_col = cs - (t.w0 - 1);
+      const uint32_t row_gd = whole ? (uint32_t)((ce - cs + 1) * a.CI * 4)
+                                    : (uint32_t)(cbh * 4);
+      const uint32_t row_r = row_gd / 2;
+      const int copies = whole ? 1 : ce - cs + 1;
+      for (int hh = t.h0 - 1; hh <= t.h1; ++hh, ++ev) {
+        const int st = ev % a.ring;
+        bt::mbar_wait(&empty[st], ((ev / a.ring) & 1) ^ 1);
+        const bool inside = hh >= 0 && hh < a.H;
+        bt::mbar_arrive_expect_tx(&full[st],
+                                  inside ? copies * (row_gd + row_r) : 0u);
+        if (!inside) continue;
+        unsigned char* slot = ring + (size_t)st * slot_bytes;
+        const size_t pix = ((size_t)t.n * a.H + hh) * a.W + cs;
+        for (int q = 0; q < copies; ++q) {
+          const size_t src = (pix + q) * a.CI + c0;
+          const int col = dst_col + q;
+          bt::bulk_copy_g2s(slot + col * a.cb * 4, a.gd + src, row_gd,
+                            &full[st]);
+          bt::bulk_copy_g2s(slot + gd_bytes + col * a.cb * 2, a.r + src,
+                            row_r, &full[st]);
         }
       }
     }
+    return;
   }
-  const int tid = threadIdx.y * bx + threadIdx.x;
+
+  const int half = a.cb / 2;
+  const int wl = tid / half, cp = tid % half;   // column group, channels
+  const int c = c0 + 2 * cp;
+  const bool lane_on = wl * CPT < a.wt && 2 * cp < cbh;
+  const float2 zero = make_float2(0.f, 0.f);
+  float2 tap[9], acc[9];
 #pragma unroll
-  for (int t = 0; t < 9; ++t) red[tid * 9 + t] = acc[t];
-  __syncthreads();
-  if (threadIdx.y == 0 && c < CI) {
-    float* out = part + ((size_t)n * gridDim.z + blockIdx.z) * 9 * CI;
+  for (int k = 0; k < 9; ++k) {
+    // Flipped taps: gr[h, w] = sum gd[h+u-1, w+v-1] * taps[8 - (3u+v)].
+    tap[k] = lane_on ? *reinterpret_cast<const float2*>(a.taps +
+                                                        (8 - k) * a.CI + c)
+                     : zero;
+    acc[k] = zero;
+  }
+  // This thread's values in a slot: columns CPT wl + v (slot column 0 is
+  // image column w0 - 1), channels c, c + 1.
+  const int my_g = (wl * CPT * a.cb + 2 * cp) * 4, my_r = gd_bytes + my_g / 2;
+  const int col_g = a.cb * 4, col_r = a.cb * 2;
+  const size_t row_stride = (size_t)a.W * a.CI;
+  // A window row: gd and r (as f32) at columns w - 1 .. w + CPT.
+  struct Row {
+    float2 g[CPT + 2], r[CPT + 2];
+  };
+  int ev = 0;
+  // Event of input row hh: wait for its slot, load it into nw, release
+  // the slot, and (from the third row of the item on) compute output row
+  // hh - 1 at columns w .. w + CPT - 1 from the window rows (r0, r1, nw) =
+  // (hh - 2, hh - 1, hh). in[v]: column w + v - 1 lies in the image and
+  // the thread has work.
+  auto event = [&](int hh, int h0, const bool (&in)[CPT + 2], const Row& r0,
+                   const Row& r1, Row& nw, bf16* dp) {
+    const int st = ev % a.ring;
+    bt::mbar_wait(&full[st], (ev / a.ring) & 1);
+    ++ev;
+    const unsigned char* slot = ring + st * slot_bytes;
+    const bool row_in = hh >= 0 && hh < a.H;
 #pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      float2 sum = zero;
-      for (int y = 0; y < by; ++y) {
-        const float2 v = red[(y * bx + threadIdx.x) * 9 + t];
-        sum.x += v.x;
-        sum.y += v.y;
+    for (int v = 0; v < CPT + 2; ++v) {
+      const bool load = row_in && in[v];
+      nw.g[v] = load ? *reinterpret_cast<const float2*>(slot + my_g +
+                                                        v * col_g)
+                     : zero;
+      nw.r[v] = load ? __bfloat1622float2(
+                           *reinterpret_cast<const __nv_bfloat162*>(
+                               slot + my_r + v * col_r))
+                     : zero;
+    }
+    // The warp has read the slot: one arrival a warp releases it.
+    __syncwarp();
+    if ((tid & 31) == 0) bt::mbar_arrive(&empty[st]);
+    if (hh < h0 + 1) return;
+#pragma unroll
+    for (int o = 0; o < CPT; ++o) {
+      if (!in[o + 1]) continue;
+      float2 part[3];
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const Row& R = u == 0 ? r0 : u == 1 ? r1 : nw;
+        part[u] = zero;
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          part[u].x += R.g[o + v].x * tap[3 * u + v].x;
+          part[u].y += R.g[o + v].y * tap[3 * u + v].y;
+        }
       }
-      *reinterpret_cast<float2*>(out + t * CI + c) = sum;
+      float2 gr = make_float2(part[0].x + part[1].x + part[2].x,
+                              part[0].y + part[1].y + part[2].y);
+      const float2 gc = r1.g[o + 1];
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const Row& R = u == 0 ? r0 : u == 1 ? r1 : nw;
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          acc[3 * u + v].x += R.r[o + v].x * gc.x;
+          acc[3 * u + v].y += R.r[o + v].y * gc.y;
+        }
+      }
+      if (a.relu_first) {
+        gr.x = r1.r[o + 1].x > 0.f ? gr.x : 0.f;
+        gr.y = r1.r[o + 1].y > 0.f ? gr.y : 0.f;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(
+          dp + (size_t)(hh - 1 - h0) * row_stride + o * a.CI) =
+          __floats2bfloat162_rn(gr.x, gr.y);
+    }
+  };
+  for (int j = gb; j < items; j += a.G) {
+    const DbItem t = db_item(a, j);
+    const int w = t.w0 + wl * CPT;
+    bool in[CPT + 2];
+#pragma unroll
+    for (int v = 0; v < CPT + 2; ++v)
+      in[v] = lane_on && w + v - 1 >= 0 && w + v - 1 < a.W &&
+              w + v - 1 <= t.w0 + a.wt;
+    bf16* dp = a.da + (((size_t)t.n * a.H + t.h0) * a.W + w) * a.CI + c;
+    Row x, y, z;
+#pragma unroll
+    for (int v = 0; v < CPT + 2; ++v)
+      x.g[v] = x.r[v] = y.g[v] = y.r[v] = zero;
+    // Three events a step, the window rows rotating roles (no moves).
+    for (int hh = t.h0 - 1; hh <= t.h1; hh += 3) {
+      event(hh, t.h0, in, x, y, z, dp);
+      if (hh + 1 <= t.h1) event(hh + 1, t.h0, in, y, z, x, dp);
+      if (hh + 2 <= t.h1) event(hh + 2, t.h0, in, z, x, y, dp);
+    }
+  }
+
+  // dWdw: the block's columns added in order, through the (now idle) ring.
+  bt::named_bar_sync(1, a.consumers);
+  float2* red = reinterpret_cast<float2*>(ring);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) red[tid * 9 + k] = acc[k];
+  bt::named_bar_sync(1, a.consumers);
+  if (wl != 0 || 2 * cp >= cbh) return;
+  float* out = a.part + (size_t)gb * 9 * a.CI;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    float2 s = zero;
+    for (int j = 0; j < a.wt / CPT; ++j) {
+      const float2 v = red[(j * half + cp) * 9 + k];
+      s.x += v.x;
+      s.y += v.y;
+    }
+    *reinterpret_cast<float2*>(out + k * a.CI + c) = s;
+  }
+}
+
+// ------------------------------------------------------- 6. reductions
+// out[l] = sum_p part[p * L + l] for the two lists (dWpw, then dWdw), p in
+// a fixed order: threadIdx.y sums a contiguous range of p, the 8 ranges
+// are added in order. A thread owns 4 consecutive columns (L % 4 == 0);
+// column group q (128 columns) of the two lists laid end to end goes to
+// block q % gridDim.x.
+constexpr int RED_BLOCKS = 2048;
+
+__device__ __forceinline__ void add4(float4& s, const float4 v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+__global__ void ub_reduce_kernel(const float* __restrict__ pa,
+                                 float* __restrict__ oa, int Pa, size_t La,
+                                 const float* __restrict__ pb,
+                                 float* __restrict__ ob, int Pb, size_t Lb) {
+  __shared__ float4 red[RED_Y][32];
+  const size_t ga = (La + 127) / 128, groups = ga + (Lb + 127) / 128;
+  for (size_t q = blockIdx.x; q < groups; q += gridDim.x) {
+    const bool first = q < ga;
+    const float* part = first ? pa : pb;
+    float* out = first ? oa : ob;
+    const int P = first ? Pa : Pb;
+    const size_t L = first ? La : Lb;
+    const size_t l = ((first ? q : q - ga) * 32 + threadIdx.x) * 4;
+    const int chunk = (P + RED_Y - 1) / RED_Y;
+    const int p0 = threadIdx.y * chunk, p1 = min(P, p0 + chunk);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (l < L)
+      for (int p = p0; p < p1; ++p)
+        add4(s, __ldg(reinterpret_cast<const float4*>(part + (size_t)p * L +
+                                                       l)));
+    __syncthreads();   // the last group's sums have been read
+    red[threadIdx.y][threadIdx.x] = s;
+    __syncthreads();
+    if (threadIdx.y == 0 && l < L) {
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < RED_Y; ++i) add4(t, red[i][threadIdx.x]);
+      *reinterpret_cast<float4*>(out + l) = t;
     }
   }
 }
 
 // ------------------------------------------------------------ the passes
+// The launch plan, in the order of `PLAN_FIELDS` in
+// biscuit_torch/ops/fused_unit_bwd.py.
+enum PlanField {
+  P_BN_ROWS, P_BN_PARTS,
+  P_DG_BN, P_DG_STAGES, P_DG_GRID, P_DG_CLUSTER,
+  P_WG_BN, P_WG_STAGES, P_WG_GRID, P_WG_SPLITS, P_WG_CHUNK, P_WG_CLUSTER,
+  P_DW_CB, P_DW_NCS, P_DW_CPT, P_DW_WT, P_DW_NWR, P_DW_ROWS, P_DW_NSTRIPS,
+  P_DW_G, P_DW_RING, P_DW_CONSUMERS, P_DW_SMEM, P_DW_BLOCKS,
+  P_FIELDS
+};
+
 struct Args {
   const bf16 *gy, *p, *r, *d;
-  const float *wflip;          // (9, CI) flipped taps
-  const bf16* wpwt;            // (CO, CI)
+  const float* taps;           // (9, CI)
+  const bf16* wpw;             // (CI, CO)
   const float *gamma, *mu, *var;
   float eps;
   bf16* da;                    // (N, H, W, CI)
   float *dwdw, *dwpw, *dgamma, *dbeta;   // (9, CI), (CI, CO), (CO,), (CO,)
-  float *bn_part, *sums, *vec;           // (P_bn, 2, CO), (2, CO), (5, CO)
+  float *bn_part, *vec;                  // (P_bn, 2, CO), (5, CO)
   bf16* gpb;                             // (M, CO)
-  float *gd, *wg_part, *dw_part;         // (M, CI), (S_w, CI, CO), (N*S, 9, CI)
+  float *gd, *wg_part, *dw_part;         // (M, CI), (S_w, CI, CO), (P_dw, 9, CI)
   int N, H, W, CI, CO, relu_first;
-  int bn_rows, wg_chunk;
 };
 
-int run(const Args& a, int hs, int wt, int device, void* stream) {
+int run(const Args& a, const int* pl, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int M = a.N * a.H * a.W;
   if (M == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (pl[P_DW_BLOCKS] != pl[P_DW_NCS] * pl[P_DW_G] ||
+      (pl[P_DW_CPT] != 1 && pl[P_DW_CPT] != 2) || pl[P_DW_WT] % pl[P_DW_CPT] ||
+      pl[P_DG_CLUSTER] < 1 || pl[P_DG_CLUSTER] > 2 ||
+      pl[P_WG_CLUSTER] < 1 || pl[P_WG_CLUSTER] > 2 ||
+      pl[P_DG_STAGES] < 1 || pl[P_DG_STAGES] > UG_MAX_STAGES ||
+      pl[P_WG_STAGES] < 1 || pl[P_WG_STAGES] > UG_MAX_STAGES ||
+      pl[P_DW_RING] < 1 || pl[P_DW_RING] > DB_BARRIERS / 16 ||
+      pl[P_DW_CONSUMERS] > (pl[P_DW_CPT] == 2 ? db_max_consumers<2>()
+                                              : db_max_consumers<1>()) ||
+      pl[P_DW_CONSUMERS] % 32)
+    return (int)cudaErrorInvalidValue;
 
-  // 1. BN sums.
-  const int p_bn = (M + a.bn_rows - 1) / a.bn_rows;
-  bn_sums_kernel<<<dim3((a.CO / 4 + 31) / 32, p_bn), dim3(32, 8), 0, s>>>(
-      a.gy, a.p, a.bn_part, M, a.CO, a.bn_rows);
+  // 1, 2. BN sums and coefficients.
+  const int bn_tx = min(32, a.CO / 8);
+  ub_bn_sums_kernel<<<dim3((a.CO / 8 + bn_tx - 1) / bn_tx, pl[P_BN_PARTS]),
+                      dim3(bn_tx, BN_THREADS / bn_tx), 0, s>>>(
+      a.gy, a.p, a.bn_part, M, a.CO, pl[P_BN_ROWS]);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = reduce_partials(a.bn_part, a.sums, p_bn, (size_t)2 * a.CO, s)) !=
-      cudaSuccess)
-    return (int)e;
-  bn_finalize_kernel<<<(a.CO + 127) / 128, 128, 0, s>>>(
-      a.sums, a.gamma, a.mu, a.var, a.eps, (float)M, a.CO, a.vec, a.dgamma,
-      a.dbeta);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  // 2. bf16(gp).
-  // Eight rows per thread, more where the grid would pass 65535 rows.
-  const int gx = min(32, a.CO / 8), gyy = GP_THREADS / gx;
-  const int gp_rows = gyy * max(8, (M + 65535 * gyy - 1) / (65535 * gyy));
-  const dim3 gp_grid((a.CO / 8 + gx - 1) / gx, (M + gp_rows - 1) / gp_rows);
-  gp_kernel<<<gp_grid, dim3(gx, gyy), 0, s>>>(a.gy, a.p, a.vec, a.gpb, M,
-                                              a.CO, gp_rows);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  // 3. dgrad.
-  if ((e = bt::set_gemm_smem<DG_BM>(dgrad_kernel)) != cudaSuccess)
-    return (int)e;
-  const int ncol = (a.CI + bt::GEMM_BN - 1) / bt::GEMM_BN;
-  const size_t dg_blocks = (size_t)ncol * ((M + DG_BM - 1) / DG_BM);
-  dgrad_kernel<<<(unsigned)dg_blocks, bt::GEMM_THREADS,
-                 sizeof(bt::GemmSmem<DG_BM>), s>>>(a.gpb, a.wpwt, a.gd, M,
-                                                   a.CI, a.CO, ncol);
+  ub_bn_finalize_kernel<<<(a.CO + 31) / 32, dim3(32, RED_Y), 0, s>>>(
+      a.bn_part, pl[P_BN_PARTS], a.gamma, a.mu, a.var, a.eps, (float)M, a.CO,
+      a.vec, a.dgamma, a.dbeta);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  // 4. wgrad, split over the pixel rows.
-  if ((e = cudaFuncSetAttribute(wgrad_kernel,
+  // 3. dgrad (and bf16(gp)).
+  UgArgs g{a.vec, a.gpb, a.gd, M, a.CI, a.CO, 0, 0, 1, 0, pl[P_DG_STAGES],
+           pl[P_DG_CLUSTER]};
+  const int dbn = pl[P_DG_BN];
+  g.mt = (M + UG_BM - 1) / UG_BM;
+  g.nt = (a.CI + dbn - 1) / dbn;
+  switch (dbn) {
+    case 64: e = dgrad<64>(a.gy, a.p, a.wpw, g, pl[P_DG_GRID], s); break;
+    case 128: e = dgrad<128>(a.gy, a.p, a.wpw, g, pl[P_DG_GRID], s); break;
+    case 256: e = dgrad<256>(a.gy, a.p, a.wpw, g, pl[P_DG_GRID], s); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return (int)e;
+
+  // 4. wgrad, split over the pixels.
+  const int wbn = pl[P_WG_BN];
+  UgArgs w{nullptr, a.gpb, a.wg_part, M, a.CI, a.CO,
+           (a.CI + UG_BM - 1) / UG_BM, (a.CO + wbn - 1) / wbn,
+           pl[P_WG_SPLITS], pl[P_WG_CHUNK], pl[P_WG_STAGES],
+           pl[P_WG_CLUSTER]};
+  if (pl[P_WG_CHUNK] % UG_BK ||
+      (long long)pl[P_WG_SPLITS] * pl[P_WG_CHUNK] < M)
+    return (int)cudaErrorInvalidValue;
+  switch (wbn) {
+    case 64: e = wgrad<64>(a.d, w, pl[P_WG_GRID], s); break;
+    case 128: e = wgrad<128>(a.d, w, pl[P_WG_GRID], s); break;
+    case 256: e = wgrad<256>(a.d, w, pl[P_WG_GRID], s); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return (int)e;
+
+  // 5. depthwise backward, da and dWdw partials.
+  const DbArgs b{a.gd, a.r, a.taps, a.da, a.dw_part, a.N, a.H, a.W, a.CI,
+                 pl[P_DW_CB], pl[P_DW_NCS], pl[P_DW_WT], pl[P_DW_NWR],
+                 pl[P_DW_ROWS], pl[P_DW_NSTRIPS], pl[P_DW_G], pl[P_DW_RING],
+                 pl[P_DW_CONSUMERS], a.relu_first};
+  auto* dw_kernel = pl[P_DW_CPT] == 2 ? ub_dw_bwd_kernel<2>
+                                     : ub_dw_bwd_kernel<1>;
+  if ((e = cudaFuncSetAttribute(dw_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)sizeof(WgSmem))) != cudaSuccess)
+                                pl[P_DW_SMEM])) != cudaSuccess)
     return (int)e;
-  const int ti = (a.CI + WG_BM - 1) / WG_BM, tj = (a.CO + WG_BN - 1) / WG_BN;
-  const int splits = (M + a.wg_chunk - 1) / a.wg_chunk;
-  wgrad_kernel<<<(unsigned)(ti * tj * splits), bt::GEMM_THREADS,
-                 sizeof(WgSmem), s>>>(a.d, a.gpb, a.wg_part, M, a.CI, a.CO,
-                                      a.wg_chunk, ti, tj);
+  dw_kernel<<<pl[P_DW_BLOCKS], pl[P_DW_CONSUMERS] + 32, pl[P_DW_SMEM], s>>>(b);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = reduce_partials(a.wg_part, a.dwpw, splits,
-                           (size_t)a.CI * a.CO, s)) != cudaSuccess)
-    return (int)e;
 
-  // 5. depthwise backward, da and dWdw.
-  const int tiles = ((a.H + hs - 1) / hs) * ((a.W + wt - 1) / wt);
-  const int bx = min(32, a.CI / 2), by = min(DW_THREADS / bx, wt);
-  const dim3 grid((a.CI / 2 + bx - 1) / bx, a.N, tiles);
-  dw_bwd_kernel<<<grid, dim3(bx, by), 0, s>>>(a.gd, a.r, a.wflip, a.da,
-                                              a.dw_part, a.H, a.W, a.CI, hs,
-                                              wt, a.relu_first);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return (int)reduce_partials(a.dw_part, a.dwdw, a.N * tiles,
-                              (size_t)9 * a.CI, s);
+  // 6. the weight gradients' partials, summed in order.
+  const size_t la = (size_t)a.CI * a.CO, lb = (size_t)9 * a.CI;
+  const size_t groups = (la + 127) / 128 + (lb + 127) / 128;
+  ub_reduce_kernel<<<(unsigned)(groups < RED_BLOCKS ? groups : RED_BLOCKS),
+                     dim3(32, RED_Y), 0, s>>>(
+      a.wg_part, a.dwpw, pl[P_WG_SPLITS], la, a.dw_part, a.dwdw,
+      pl[P_DW_G], lb);
+  return (int)cudaGetLastError();
 }
 
 Args make_args(const void* gy, const void* p, const void* r, const void* d,
-               const void* wflip, const void* wpwt, const void* gamma,
+               const void* taps, const void* wpw, const void* gamma,
                const void* mu, const void* var, float eps, void* da,
                void* dwdw, void* dwpw, void* dgamma, void* dbeta,
-               void* bn_part, void* sums, void* vec, void* gpb, void* gd,
-               void* wg_part, void* dw_part, int N, int H, int W, int CI,
-               int CO, int relu_first, int bn_rows, int wg_chunk) {
+               void* bn_part, void* vec, void* gpb, void* gd, void* wg_part,
+               void* dw_part, int N, int H, int W, int CI, int CO,
+               int relu_first) {
   return Args{(const bf16*)gy,     (const bf16*)p,     (const bf16*)r,
-              (const bf16*)d,      (const float*)wflip, (const bf16*)wpwt,
+              (const bf16*)d,      (const float*)taps, (const bf16*)wpw,
               (const float*)gamma, (const float*)mu,   (const float*)var,
               eps,                 (bf16*)da,          (float*)dwdw,
               (float*)dwpw,        (float*)dgamma,     (float*)dbeta,
-              (float*)bn_part,     (float*)sums,       (float*)vec,
-              (bf16*)gpb,          (float*)gd,         (float*)wg_part,
-              (float*)dw_part,     N,                  H,
-              W,                   CI,                 CO,
-              relu_first,          bn_rows,            wg_chunk};
+              (float*)bn_part,     (float*)vec,        (bf16*)gpb,
+              (float*)gd,          (float*)wg_part,    (float*)dw_part,
+              N,                   H,                  W,
+              CI,                  CO,                 relu_first};
 }
 
 }  // namespace
 
-// gy, p: (N, H, W, CO) bf16; r, d: (N, H, W, CI) bf16; wflip (9, CI) f32;
-// wpwt (CO, CI) bf16; gamma, mu, var (CO,) f32. Outputs da (N, H, W, CI)
-// bf16, dwdw (9, CI), dwpw (CI, CO), dgamma, dbeta (CO,) f32. Scratch
-// sizes as in biscuit_torch/ops/fused_unit_bwd.py `_scratch`. CI, CO % 8.
+// gy, p: (N, H, W, CO) bf16; r, d: (N, H, W, CI) bf16; taps (9, CI) f32;
+// wpw (CI, CO) bf16; gamma, mu, var (CO,) f32. Outputs da (N, H, W, CI)
+// bf16, dwdw (9, CI), dwpw (CI, CO), dgamma, dbeta (CO,) f32. Scratch and
+// plan (P_FIELDS ints) from biscuit_torch/ops/fused_unit_bwd.py
+// `launch_plan`. CI, CO % 8 == 0, 16-byte aligned bases.
 #define UNIT_BWD_PARAMS                                                     \
   const void *gy, const void *p, const void *r, const void *d,              \
-      const void *wflip, const void *wpwt, const void *gamma,               \
-      const void *mu, const void *var, float eps, void *da, void *dwdw,     \
-      void *dwpw, void *dgamma, void *dbeta, void *bn_part, void *sums,     \
-      void *vec, void *gpb, void *gd, void *wg_part, void *dw_part, int N,  \
-      int H, int W, int CI, int CO, int relu_first, int bn_rows,            \
-      int wg_chunk
+      const void *taps, const void *wpw, const void *gamma, const void *mu, \
+      const void *var, float eps, void *da, void *dwdw, void *dwpw,         \
+      void *dgamma, void *dbeta, void *bn_part, void *vec, void *gpb,       \
+      void *gd, void *wg_part, void *dw_part, int N, int H, int W, int CI,  \
+      int CO, int relu_first, const int *plan
 #define UNIT_BWD_ARGS                                                       \
-  make_args(gy, p, r, d, wflip, wpwt, gamma, mu, var, eps, da, dwdw, dwpw,  \
-            dgamma, dbeta, bn_part, sums, vec, gpb, gd, wg_part, dw_part, N, \
-            H, W, CI, CO, relu_first, bn_rows, wg_chunk)
+  make_args(gy, p, r, d, taps, wpw, gamma, mu, var, eps, da, dwdw, dwpw,    \
+            dgamma, dbeta, bn_part, vec, gpb, gd, wg_part, dw_part, N, H, W, \
+            CI, CO, relu_first)
 
-// Whole planes: each depthwise-backward block walks all H rows of a tile
-// of wt columns, with no halo rows.
-extern "C" int unit_bwd_plane_launch(UNIT_BWD_PARAMS, int wt, int device,
+// Whole planes: each depthwise-backward block walks all H rows of its
+// images, with no halo rows.
+extern "C" int unit_bwd_plane_launch(UNIT_BWD_PARAMS, int device,
                                      void* stream) {
-  if (wt < 1) return (int)cudaErrorInvalidValue;
-  return run(UNIT_BWD_ARGS, H, wt, device, stream);
+  if (plan[P_DW_ROWS] != H || plan[P_DW_NSTRIPS] != 1)
+    return (int)cudaErrorInvalidValue;
+  return run(UNIT_BWD_ARGS, plan, device, stream);
 }
 
-// Strips of hs rows across the whole width, each with its two halo rows
-// read from HBM.
-extern "C" int unit_bwd_strips_launch(UNIT_BWD_PARAMS, int hs, int device,
+// Strips of plan[P_DW_ROWS] rows, each with its two halo rows.
+extern "C" int unit_bwd_strips_launch(UNIT_BWD_PARAMS, int device,
                                       void* stream) {
-  if (hs < 1) return (int)cudaErrorInvalidValue;
-  return run(UNIT_BWD_ARGS, hs, W, device, stream);
+  if (plan[P_DW_ROWS] < 1 ||
+      plan[P_DW_NSTRIPS] != (H + plan[P_DW_ROWS] - 1) / plan[P_DW_ROWS])
+    return (int)cudaErrorInvalidValue;
+  return run(UNIT_BWD_ARGS, plan, device, stream);
 }
+
+// The plan's field count, for the wrapper to check against its own.
+extern "C" int unit_bwd_plan_fields() { return P_FIELDS; }

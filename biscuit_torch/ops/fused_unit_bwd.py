@@ -51,7 +51,6 @@ STRIPS = "unit_bwd_strips"
 SOURCE = "fused_unit_bwd"
 BACKENDS = ("auto", "plane", "reference")
 DEFAULT_HS = 24       # strip height (rows), as the JAX strip kernel's default
-PLANE_COLS = 8        # columns per block of the plane kernel's depthwise pass
 
 
 # ---------------------------------------------------------------- forward
@@ -116,15 +115,135 @@ def unit_bwd_reference(gy, r, d, p, taps, wpw, gamma, mu, var, eps: float,
 
 # ---------------------------------------------------------------- kernels
 
-def _scratch(m: int, ci: int, co: int):
-    """(bn_rows, bn_partials, wg_chunk, wg_splits) of one launch: at most
-    1024 row blocks for the BN sums, and enough pixel splits of the
-    weight-gradient GEMM for about four blocks per SM of 132."""
-    bn_rows = max(64, -(-m // 1024))
-    tiles = -(-ci // 128) * -(-co // 128)
-    splits = max(1, min(-(-528 // tiles), -(-m // 256)))
-    wg_chunk = -(-(-(-m // splits)) // 64) * 64
-    return bn_rows, -(-m // bn_rows), wg_chunk, -(-m // wg_chunk)
+# The launch plan's fields, in the order csrc/fused_unit_bwd.cu reads them.
+PLAN_FIELDS = ("bn_rows", "bn_parts",
+               "dg_bn", "dg_stages", "dg_grid", "dg_cluster",
+               "wg_bn", "wg_stages", "wg_grid", "wg_splits", "wg_chunk",
+               "wg_cluster",
+               "dw_cb", "dw_ncs", "dw_cpt", "dw_wt", "dw_nwr", "dw_rows",
+               "dw_nstrips",
+               "dw_grid", "dw_ring", "dw_consumers", "dw_smem", "dw_blocks")
+SMEM_LIMIT = 232448          # dynamic shared memory a block, sm_90
+GEMM_FIXED = 1024 + 256      # a GEMM block's alignment slack and barriers
+GEMM_MAX_STAGES = 6
+# Computing threads of a depthwise block, by columns a thread: with two,
+# 13 warps keep the 128 registers a thread that its windows take.
+DW_MAX_CONSUMERS = {1: 512, 2: 384}
+DW_WIDE = 256                # channels past which a thread takes two columns
+DW_BARRIERS = 256            # bytes of barriers before its ring
+DW_RING_BYTES = 180 * 1024   # at most, its ring of row slots
+DW_RING = 16                 # at most, row slots
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _column_tile(n: int) -> int:
+    """A GEMM's column tile for n output columns: the widest of 256, 128
+    and 64 that pads at most a tenth of n (728: 3 x 256), else the one
+    that pads least. The wider the tile, the fewer bytes a block's ring
+    reads from L2 for each product."""
+    tiles = (256, 128, 64)
+    for t in tiles:
+        if _cdiv(n, t) * t - n <= n // 10:
+            return t
+    return min(tiles, key=lambda t: (_cdiv(n, t) * t - n, -t))
+
+
+def launch_plan(n: int, h: int, w: int, ci: int, co: int, hs=None,
+                sms: int = 132) -> dict:
+    """How one unit backward runs on a card of ``sms`` SMs: the PLAN_FIELDS
+    that the kernels read, each pass's grid and shared memory, and the
+    scratch tensors' shapes. ``hs`` None is the plane kernel (a
+    depthwise block walks all H rows), else the strip height.
+
+    BN sums: at most 1024 row blocks of at least 256 rows. GEMMs (dgrad: M pixels x CI, k = CO;
+    wgrad: CI x CO, k = M pixels): 128-row tiles, the column tile of
+    ``_column_tile``, a ring of as many stages as fit (at most 6), a
+    persistent grid of at most one block an SM, in clusters of two on
+    neighbouring row tiles that share each B tile (multicast) wherever
+    there are two row tiles; the wgrad's pixels split for about four work
+    items an SM, at least 512 pixels a split.
+    Depthwise backward: two channels of one column a thread, or of two
+    columns where CI passes 256 (at most 512 threads a block, or 384
+    with two columns a thread, and at most twice as many channels: wider
+    CI in equal slices of a multiple of 8), as many columns as the
+    threads hold, a ring of at most 16 rows in 180 KB, and a
+    persistent grid of one block an SM walking (strip or image, column
+    range) items."""
+    m = n * h * w
+    p = {"bn_rows": max(256, _cdiv(m, 1024))}
+    p["bn_parts"] = _cdiv(m, p["bn_rows"])
+
+    # dgrad: a stage is gy's and p's 128 x 64 tiles and Wpw's BN x 64.
+    bn = _column_tile(ci)
+    stage = 2 * 128 * 64 * 2 + bn * 128
+    p["dg_bn"] = bn
+    p["dg_stages"] = min(GEMM_MAX_STAGES, (SMEM_LIMIT - GEMM_FIXED) // stage)
+    dg_smem = GEMM_FIXED + p["dg_stages"] * stage
+    p["dg_grid"] = max(1, min(_cdiv(m, 128) * _cdiv(ci, bn), sms))
+    p["dg_cluster"] = 2 if m > 128 else 1
+
+    # wgrad: a stage is d's two 64 x 64 boxes and gp's BN/64 boxes.
+    bn = _column_tile(co)
+    stage = 128 * 64 * 2 + _cdiv(bn, 64) * 64 * 128
+    tiles = _cdiv(ci, 128) * _cdiv(co, bn)
+    splits = max(1, min(_cdiv(4 * sms, tiles), _cdiv(m, 512)))
+    chunk = _cdiv(_cdiv(m, splits), 64) * 64
+    splits = _cdiv(m, chunk)
+    p["wg_bn"] = bn
+    p["wg_stages"] = min(GEMM_MAX_STAGES, (SMEM_LIMIT - GEMM_FIXED) // stage)
+    wg_smem = GEMM_FIXED + p["wg_stages"] * stage
+    p["wg_grid"] = max(1, min(tiles * splits, sms))
+    p["wg_splits"], p["wg_chunk"] = splits, chunk
+    p["wg_cluster"] = 2 if ci > 128 else 1
+
+    # Depthwise backward.
+    cpt = 2 if ci > DW_WIDE else 1
+    ncs = _cdiv(ci, 2 * DW_MAX_CONSUMERS[cpt])
+    cb = _cdiv(_cdiv(ci, ncs), 8) * 8
+    groups = max(1, min(_cdiv(w, cpt), DW_MAX_CONSUMERS[cpt] // (cb // 2)))
+    nwr = _cdiv(w, groups * cpt)
+    wt = _cdiv(_cdiv(w, nwr), cpt) * cpt
+    consumers = _cdiv(wt // cpt * cb // 2, 32) * 32
+    rows = h if hs is None else int(hs)
+    nstrips = _cdiv(h, rows)
+    items = nwr * n * nstrips
+    grid = max(1, min(items, sms // ncs))
+    slot = (wt + 2) * cb * 6
+    ring = max(2, min(DW_RING, DW_RING_BYTES // slot))
+    p.update(dw_cb=cb, dw_ncs=ncs, dw_cpt=cpt, dw_wt=wt, dw_nwr=nwr,
+             dw_rows=rows,
+             dw_nstrips=nstrips, dw_grid=grid, dw_ring=ring,
+             dw_consumers=consumers,
+             dw_smem=DW_BARRIERS + max(ring * slot, consumers * 72),
+             dw_blocks=ncs * grid)
+    assert tuple(p) == PLAN_FIELDS
+    p["ints"] = [p[k] for k in PLAN_FIELDS]
+    p["smem"] = {"dgrad": dg_smem, "wgrad": wg_smem, "dw_bwd": p["dw_smem"]}
+    p["grids"] = {"bn_sums": (_cdiv(co // 8, min(32, co // 8)),
+                              p["bn_parts"]),
+                  "bn_finalize": (_cdiv(co, 32),),
+                  "dgrad": (p["dg_grid"],), "wgrad": (p["wg_grid"],),
+                  "dw_bwd": (p["dw_blocks"],),
+                  "reduce": (min(2048, _cdiv(ci * co, 128)
+                                 + _cdiv(9 * ci, 128)),)}
+    p["scratch"] = {"bn_part": (p["bn_parts"], 2, co), "vec": (5, co),
+                    "gpb": (m, co), "gd": (m, ci),
+                    "wg_part": (splits, ci, co),
+                    "dw_part": (grid, 9, ci)}
+    return p
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
 
 
 def _launch(name, gy, r, d, p, taps, wpw, gamma, mu, var, eps, relu_first,
@@ -148,43 +267,43 @@ def _launch(name, gy, r, d, p, taps, wpw, gamma, mu, var, eps, relu_first,
         if tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"{name}: {t_name} must be {shape} on {dev}, got "
                              f"{tuple(t.shape)} on {t.device}")
-    m = n * h * w
-    wflip = taps.detach().float().flip(0).contiguous()
-    wpwt = wpw.detach().t().to(torch.bfloat16).contiguous()      # (CO, CI)
+    # Casts only where the dtype differs; the kernels read the weights as
+    # they lie (Wpw as the dgrad's K-major B, the taps unflipped).
+    taps32 = taps.detach().float().contiguous()
+    wpw16 = wpw.detach().to(torch.bfloat16).contiguous()
     gamma32, mu32, var32 = (t.detach().float().contiguous()
                             for t in (gamma, mu, var))
-    # The kernels read the activations in 16-byte vectors.
+    # The kernels read the activations in 16-byte vectors and by TMA.
     for t_name, t in (("gy", gy), ("p", p), ("r", r), ("d", d),
-                      ("gamma", gamma32), ("mu", mu32), ("var", var32)):
+                      ("taps", taps32), ("wpw", wpw16), ("gamma", gamma32),
+                      ("mu", mu32), ("var", var32)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {t_name} must start on a 16-byte "
                              f"boundary (a view at an offset does not)")
-    bn_rows, p_bn, wg_chunk, splits = _scratch(m, ci, co)
-    # Depthwise-backward blocks per image: column tiles of the plane
-    # kernel, or row strips of the strip kernel.
-    tiles = -(-w // PLANE_COLS) if hs is None else -(-h // hs)
+    plan = launch_plan(n, h, w, ci, co, hs, _sm_count(dev))
+    sc = plan["scratch"]
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     da = torch.empty_like(r)
     dwdw, dwpw, dgamma, dbeta = f32(9, ci), f32(ci, co), f32(co), f32(co)
-    bn_part, sums, vec = f32(p_bn, 2, co), f32(2, co), f32(5, co)
-    gpb = torch.empty((m, co), dtype=torch.bfloat16, device=dev)
-    gd = f32(m, ci)
-    wg_part, dw_part = f32(splits, ci, co), f32(n * tiles, 9, ci)
-    fn = getattr(_build.load(SOURCE), f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
-    rc = fn(*(_build.ptr(t) for t in (gy, p, r, d, wflip, wpwt, gamma32,
+    bn_part, vec = f32(*sc["bn_part"]), f32(*sc["vec"])
+    gpb = torch.empty(sc["gpb"], dtype=torch.bfloat16, device=dev)
+    gd, wg_part, dw_part = f32(*sc["gd"]), f32(*sc["wg_part"]), f32(
+        *sc["dw_part"])
+    ints = (ctypes.c_int * len(PLAN_FIELDS))(*plan["ints"])
+    fn = _build.bound(SOURCE, f"{name}_launch",
+                      [ctypes.c_void_p] * 9 + [ctypes.c_float]
+                      + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                      + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                         ctypes.c_void_p])
+    rc = fn(*(_build.ptr(t) for t in (gy, p, r, d, taps32, wpw16, gamma32,
                                       mu32, var32)),
             float(eps),
             *(_build.ptr(t) for t in (da, dwdw, dwpw, dgamma, dbeta, bn_part,
-                                      sums, vec, gpb, gd, wg_part, dw_part)),
-            n, h, w, ci, co, int(bool(relu_first)), bn_rows, wg_chunk,
-            PLANE_COLS if hs is None else int(hs),
+                                      vec, gpb, gd, wg_part, dw_part)),
+            n, h, w, ci, co, int(bool(relu_first)), ints,
             dev.index or 0, _build.stream_ptr(gy))
     _build.check(rc, name)
     _build.count_launch(name)

@@ -2,8 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (``biscuit_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --unit-bwd-passes [--root CHECKOUT]
 
-Phases, each printing one JSON line:
+The second form only profiles the unit backward pass by pass at
+UNIT_PASS_GEOMETRIES (one line a geometry), importing ``biscuit_torch``
+from CHECKOUT when given (to time another checkout's kernels in the same
+call). The first form runs these phases, each printing one JSON line:
 
 1. env: torch/CUDA versions and ``nvidia-smi`` name and power limit (also
    printed raw on a line of its own); TF32 off for the f32 comparisons.
@@ -11,7 +15,8 @@ Phases, each printing one JSON line:
    ptxas: the registers, spills and shared memory of the sepconv GEMM
    (``csrc/sepconv_gemm.cuh``) in the two sources that run it (the middle
    flow and fused block rows add the GEMM's plan: column tile, cluster
-   size, stages, dynamic shared memory, registers).
+   size, stages, dynamic shared memory, registers) and of the unit
+   backward's GEMMs and depthwise pass.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (256 tiles of 299 px, K=30), with its error and
    tolerance, its median time over fresh inputs (CUDA events), the plain
@@ -25,7 +30,9 @@ Phases, each printing one JSON line:
    time a call (``host_us``, 50 calls enqueued without a synchronize).
    The two unit-backward kernels are held at the 147x147 64->128 and the
    19x19 728->728 geometries at batch 128; their ms, plain ms, library
-   ms and bound are the two geometries' added. The fused strided block
+   ms and bound are the two geometries' added; each repeats its outputs
+   bit for bit, and its profile must hold only UNIT_BWD_KERNELS (so that
+   the train phase's ``unit_bwd_kernels_ms`` covers the unit backward). The fused strided block
    is held at the four serving geometries (entry0 147^2 64->128, entry1
    74^2 128->256, entry2 37^2 256->728, exit 19^2 728->728->1024) at 256
    tiles, its library yardstick the port's eval-mode ``XceptionBlock``;
@@ -92,10 +99,15 @@ BLOCK_GEOMETRIES = ((147, 64, 128, 128, False), (74, 128, 256, 256, True),
 # middle flow's.
 DW_GEOMETRIES = ((147, 128), (19, 728))
 # The device kernels of csrc/fused_unit_bwd.cu, by the names the profiler
-# shows.
-UNIT_BWD_KERNELS = ("bn_sums_kernel", "bn_finalize_kernel", "gp_kernel",
-                    "dgrad_kernel", "wgrad_kernel", "dw_bwd_kernel",
-                    "reduce_partials_kernel")
+# shows (its two GEMMs apart from the serving path's sepconv_gemm_kernel).
+UNIT_BWD_KERNELS = ("ub_bn_sums_kernel", "ub_bn_finalize_kernel",
+                    "ub_dgrad_kernel", "ub_wgrad_kernel", "ub_dw_bwd_kernel",
+                    "ub_reduce_kernel")
+# (H = W, CI, CO, relu_first) of the per-pass profile of the unit
+# backward (``--unit-bwd-passes``): UNIT_GEOMETRIES, entry2's first unit
+# and the exit tail's last, whose bound is operations.
+UNIT_PASS_GEOMETRIES = UNIT_GEOMETRIES + ((37, 256, 728, True),
+                                          (10, 1536, 2048, True))
 
 
 def emit(obj) -> None:
@@ -367,15 +379,46 @@ def library_unit_bwd(torch, a, taps, wpw, gamma, beta, relu_first):
     return lambda gy: torch.autograd.grad(y, leaves, gy, retain_graph=True)
 
 
+def unit_bwd_inputs(torch, gen, n, hw, ci, co, relu_first):
+    """Seeded inputs of one unit backward on the card: (a, the forward's
+    weights, the backward's arguments). Wpw is given in bf16, as the
+    kernel reads it, so a call launches no cast."""
+    from biscuit_torch.ops.fused_unit_bwd import unit_fwd
+
+    def normal(shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    a = normal((n, hw, hw, ci)).to(torch.bfloat16)
+    taps = normal((9, ci), 0.2)
+    wpw = normal((ci, co), ci ** -0.5).to(torch.bfloat16)
+    gamma, beta = 1 + normal((co,), 0.1), normal((co,), 0.1)
+    gy = normal((n, hw, hw, co)).to(torch.bfloat16)
+    _, mu, var, (r, d, p) = unit_fwd(a, taps, wpw, gamma, beta, 1e-5,
+                                     relu_first)
+    args = (gy, r, d, p, taps, wpw, gamma, mu, var, 1e-5, relu_first)
+    return a, (taps, wpw, gamma, beta), args
+
+
+def unit_bwd_bound(n, hw, ci, co):
+    """(bound ms, by) of one unit backward: one read of gy, p, r, d, one
+    write of da, and the BN sums' read of gy and p; 4 CI CO bf16
+    operations and the depthwise's f32 work a pixel."""
+    m = n * hw * hw
+    n_bytes = m * (2 * co + 3 * ci) * 2 + 2 * m * co * 2
+    return bound_ms(n_bytes, {"bf16": 2.0 * m * 2 * ci * co,
+                              "f32": 2.0 * m * (18 * ci + 6 * co)})
+
+
 def kernel_unit_bwd(torch, gen):
     """Both unit-backward kernels against the plain version at each of
     UNIT_GEOMETRIES, batch TRAIN_BATCH; one row per kernel, its times and
-    bound added over the geometries."""
+    bound added over the geometries. Each kernel also repeats its outputs
+    bit for bit, and its profile holds only the kernels of
+    UNIT_BWD_KERNELS, so that ``unit_bwd_kernels_ms`` covers it all."""
     from biscuit_torch.ops.fused_unit_bwd import (
         unit_bwd_plane,
         unit_bwd_reference,
         unit_bwd_strips,
-        unit_fwd,
     )
 
     kernels = {"unit_bwd_plane": unit_bwd_plane,
@@ -390,31 +433,23 @@ def kernel_unit_bwd(torch, gen):
             "dbeta": 5e-3}
     for hw, ci, co, relu_first in UNIT_GEOMETRIES:
         n = TRAIN_BATCH
-
-        def normal(shape, std=1.0):
-            return torch.randn(shape, generator=gen, device="cuda") * std
-
-        a = normal((n, hw, hw, ci)).to(torch.bfloat16)
-        taps, wpw = normal((9, ci), 0.2), normal((ci, co), ci ** -0.5)
-        gamma, beta = 1 + normal((co,), 0.1), normal((co,), 0.1)
-        gy = normal((n, hw, hw, co)).to(torch.bfloat16)
-        _, mu, var, (r, d, p) = unit_fwd(a, taps, wpw, gamma, beta, 1e-5,
-                                         relu_first)
-        args = (gy, r, d, p, taps, wpw, gamma, mu, var, 1e-5, relu_first)
+        a, (taps, wpw, gamma, beta), args = unit_bwd_inputs(
+            torch, gen, n, hw, ci, co, relu_first)
         want = unit_bwd_reference(*args)
         plain = cuda_ms(torch, lambda x: unit_bwd_reference(*x),
                         [args] * N_PLAIN, warmup=1)
         lib_fn = library_unit_bwd(torch, a, taps, wpw, gamma, beta,
                                   relu_first)
-        lib = cuda_ms(torch, lib_fn, [gy] * N_TIMED)
+        lib = cuda_ms(torch, lib_fn, [args[0]] * N_TIMED)
         del lib_fn
-        m = n * hw * hw
-        n_bytes = m * (2 * co + 3 * ci) * 2 + 2 * m * co * 2
-        b, by = bound_ms(n_bytes, {"bf16": 2.0 * m * 2 * ci * co,
-                                   "f32": 2.0 * m * (18 * ci + 6 * co)})
+        b, by = unit_bwd_bound(n, hw, ci, co)
         for name, fn in kernels.items():
             got = fn(*args)
+            again = fn(*args)
             torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"{name}: the same inputs repeat bit for bit")
+            del again
             errs, abs_errs = {}, {}
             for key, g, w in zip(tols, got, want):
                 g, w = g.float(), w.float()
@@ -425,7 +460,8 @@ def kernel_unit_bwd(torch, gen):
                       f"{name} {hw}x{hw} {ci}->{co} {key}: relative error "
                       f"{errs[key]} > {tols[key]}")
             ms = cuda_ms(torch, lambda x: fn(*x), [args] * N_TIMED)
-            prof = kernel_profile(torch, lambda: fn(*args), top=8)
+            prof = kernel_profile(torch, lambda: fn(*args), top=8,
+                                  only=UNIT_BWD_KERNELS)
             row = rows[name]
             row["geometries"].append({
                 "hw": hw, "ci": ci, "co": co, "batch": n,
@@ -439,12 +475,45 @@ def kernel_unit_bwd(torch, gen):
             row["bound_ms"] += b
             row["max_abs_err"] = max(row["max_abs_err"],
                                      max(abs_errs.values()))
-        del a, gy, r, d, p, want, args
+        del a, want, args
         torch.cuda.empty_cache()
     for row in rows.values():
         row["bound_by"] = max(row["geometries"],
                               key=lambda g: g["bound_ms"])["bound_by"]
     return list(rows.values())
+
+
+def unit_bwd_passes(torch, gen):
+    """Per-pass device time of both unit-backward kernels at each of
+    UNIT_PASS_GEOMETRIES, batch TRAIN_BATCH (``--unit-bwd-passes``): one
+    line a geometry with each kernel's ms (CUDA events, N_TIMED calls),
+    its profile, the autograd yardstick's ms and the bound. It names no
+    kernel, so that it profiles another checkout's kernels too
+    (``--root``)."""
+    from biscuit_torch.ops.fused_unit_bwd import (
+        unit_bwd_plane,
+        unit_bwd_strips,
+    )
+
+    for hw, ci, co, relu_first in UNIT_PASS_GEOMETRIES:
+        n = TRAIN_BATCH
+        a, (taps, wpw, gamma, beta), args = unit_bwd_inputs(
+            torch, gen, n, hw, ci, co, relu_first)
+        lib_fn = library_unit_bwd(torch, a, taps, wpw, gamma, beta,
+                                  relu_first)
+        out = {"phase": "unit_bwd_passes", "hw": hw, "ci": ci, "co": co,
+               "batch": n, "library_ms": cuda_ms(torch, lib_fn,
+                                                  [args[0]] * N_TIMED)}
+        del lib_fn
+        out["bound_ms"], out["bound_by"] = unit_bwd_bound(n, hw, ci, co)
+        for name, fn in (("unit_bwd_strips", unit_bwd_strips),
+                         ("unit_bwd_plane", unit_bwd_plane)):
+            out[name] = {
+                "ms": cuda_ms(torch, lambda x: fn(*x), [args] * N_TIMED),
+                "profile": kernel_profile(torch, lambda: fn(*args), top=12)}
+        emit(out)
+        del a, args
+        torch.cuda.empty_cache()
 
 
 def kernel_fused_block(torch, gen):
@@ -676,10 +745,11 @@ def stage_breakdown(torch, ui, tiles, repeats: int = 3):
     return {name: statistics.median(v) for name, v in runs.items()}
 
 
-def kernel_profile(torch, run, top: int = 12):
+def kernel_profile(torch, run, top: int = 12, only=None):
     """Device time by kernel name over one call of ``run``
     (torch.profiler); the CPU-side operator events, which repeat their
-    kernels' time, are left out."""
+    kernels' time, are left out. With ``only`` (names), fails if a device
+    kernel's name holds none of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -693,6 +763,9 @@ def kernel_profile(torch, run, top: int = 12):
     total = sum(us for us, _, _ in rows)
     unit_bwd = sum(us for us, key, _ in rows
                    if any(k in key for k in UNIT_BWD_KERNELS))
+    if only is not None:
+        stray = [key for _, key, _ in rows if not any(k in key for k in only)]
+        check(not stray, f"device kernels outside {only}: {stray}")
     return {"device_ms": total / 1e3, "unit_bwd_kernels_ms": unit_bwd / 1e3,
             "top": [{"kernel": key[:90], "ms": us / 1e3, "calls": n}
                     for us, key, n in rows[:top]]}
@@ -1078,7 +1151,19 @@ def train_path(torch, seed: int, card: str):
     }, launches, plane_launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of biscuit_torch "
+                                 "on one CUDA card (see the docstring).")
+    ap.add_argument("--unit-bwd-passes", action="store_true",
+                    help="only the per-pass profile of the unit backward at "
+                         "UNIT_PASS_GEOMETRIES")
+    ap.add_argument("--root", help="import biscuit_torch from this checkout "
+                                   "(with --unit-bwd-passes)")
+    opts = ap.parse_args(argv)
+    if opts.root:
+        sys.path.insert(0, opts.root)
     import torch
 
     if not torch.cuda.is_available():
@@ -1098,6 +1183,13 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card})
+    if opts.unit_bwd_passes:
+        t0 = time.perf_counter()
+        _build.build_all((_build.SOURCE["unit_bwd_strips"],))
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "biscuit_torch": _build.__file__})
+        unit_bwd_passes(torch, torch.Generator(device="cuda").manual_seed(SEED))
+        return 0
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -1108,7 +1200,10 @@ def main() -> int:
     # The sepconv GEMM, instantiation by instantiation.
     emit({"phase": "ptxas", **{
         name: ptxas_entries(_build.build_log(name), ("sepconv_gemm_kernel",))
-        for name in ("fused_middle_flow", "fused_block")}})
+        for name in ("fused_middle_flow", "fused_block")},
+        "fused_unit_bwd": ptxas_entries(
+            _build.build_log("fused_unit_bwd"),
+            ("ub_dgrad_kernel", "ub_wgrad_kernel", "ub_dw_bwd_kernel"))})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []

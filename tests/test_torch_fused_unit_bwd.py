@@ -196,3 +196,59 @@ def test_sep_bn_unit_rejects_unknown_backend():
     with pytest.raises(ValueError):
         tub.sep_bn_unit(*(torch.from_numpy(t) for t in
                           (a, taps, wpw, gamma, beta)), EPS, True, "pallas")
+
+
+# (H = W, CI, CO) of the 34 sep+BN units of Xception-299 in the order the
+# trunk runs them: entry blocks 0-2 at 147, 74 and 37 px, the 24 middle
+# units and the exit block at 19 px, the exit sepconvs at 10 px.
+XCEPTION_299_UNITS = ([(147, 64, 128), (147, 128, 128), (74, 128, 256),
+                       (74, 256, 256), (37, 256, 728), (37, 728, 728)]
+                      + [(19, 728, 728)] * 24
+                      + [(19, 728, 728), (19, 728, 1024), (10, 1024, 1536),
+                         (10, 1536, 2048)])
+
+
+@pytest.mark.parametrize("hs", [None, tub.DEFAULT_HS], ids=["plane", "strips"])
+@pytest.mark.parametrize("batch", [128, 32])
+def test_launch_plan_fits_the_card(batch, hs):
+    """The kernels' launch plan at every Xception-299 unit: grids within
+    65535 a dimension, non-empty scratch, shared memory within a block's
+    227 KB, and the limits the CUDA source checks."""
+    assert len(XCEPTION_299_UNITS) == 34
+    for hw, ci, co in XCEPTION_299_UNITS:
+        plan = tub.launch_plan(batch, hw, hw, ci, co, hs)
+        where = (batch, hw, ci, co, hs)
+        assert len(plan["ints"]) == len(tub.PLAN_FIELDS), where
+        for name, grid in plan["grids"].items():
+            assert all(1 <= g <= 65535 for g in grid), (where, name, grid)
+        for name, shape in plan["scratch"].items():
+            assert all(s >= 1 for s in shape), (where, name, shape)
+        for name, smem in plan["smem"].items():
+            assert 0 < smem <= tub.SMEM_LIMIT, (where, name, smem)
+        m = batch * hw * hw
+        assert plan["wg_chunk"] % 64 == 0, where
+        assert (plan["wg_splits"] - 1) * plan["wg_chunk"] < m, where
+        assert plan["wg_splits"] * plan["wg_chunk"] >= m, where
+        assert 1 <= plan["dg_stages"] <= 16 and 1 <= plan["wg_stages"] <= 16
+        assert plan["dg_cluster"] in (1, 2) and plan["wg_cluster"] in (1, 2)
+        # A cluster's two CTAs load half of each B box: whole swizzle atoms.
+        assert plan["dg_bn"] // plan["dg_cluster"] % 8 == 0, where
+        assert 2 <= plan["dw_ring"] <= 16, where
+        assert plan["dw_consumers"] % 32 == 0, where
+        cpt = plan["dw_cpt"]
+        assert plan["dw_consumers"] <= tub.DW_MAX_CONSUMERS[cpt], where
+        assert plan["dw_cb"] % 8 == 0, where
+        assert plan["dw_cb"] <= 2 * tub.DW_MAX_CONSUMERS[cpt], where
+        assert plan["dw_ncs"] * plan["dw_cb"] >= ci, where
+        assert plan["dw_cpt"] in (1, 2) and plan["dw_wt"] % plan["dw_cpt"] == 0
+        assert (plan["dw_wt"] // plan["dw_cpt"] * plan["dw_cb"] // 2
+                <= plan["dw_consumers"]), where
+        assert plan["dw_nwr"] * plan["dw_wt"] >= hw, where
+        rows = hw if hs is None else hs
+        assert plan["dw_rows"] == rows, where
+        assert plan["dw_nstrips"] == -(-hw // rows), where
+        items = plan["dw_nwr"] * batch * plan["dw_nstrips"]
+        assert 1 <= plan["dw_grid"] <= items, where
+        assert plan["dw_blocks"] == plan["dw_ncs"] * plan["dw_grid"], where
+        # One dWdw partial a block of a channel slice.
+        assert plan["scratch"]["dw_part"] == (plan["dw_grid"], 9, ci), where

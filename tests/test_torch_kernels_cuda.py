@@ -229,15 +229,17 @@ def test_jpeg_products_stay_f32_with_tf32_on(gen):
 
 
 # (N, H, W, CI, CO, hs): a small plane, a ragged last strip (19 = 3*6 + 1)
-# over 16 images, and the 37x37 entry geometry in two strips.
+# over 16 images, the 37x37 entry geometry in two strips, the exit tail
+# (CI over one depthwise block's 1024 channels, both GEMM dimensions over
+# several tiles), a shape whose pixels fill no 128-row GEMM tile and whose
+# CO is no multiple of 64, and one image of the middle flow.
 UNIT_SHAPES = [(4, 9, 7, 8, 16, 3), (16, 19, 13, 8, 16, 6),
-               (2, 37, 37, 256, 728, 24)]
+               (2, 37, 37, 256, 728, 24), (2, 10, 10, 1536, 2048, 4),
+               (3, 11, 11, 24, 40, 4), (1, 19, 19, 728, 728, 6)]
 
 
-@pytest.mark.parametrize("relu_first", [True, False])
-@pytest.mark.parametrize("shape", UNIT_SHAPES)
-def test_unit_bwd(gen, shape, relu_first):
-    n, h, w, ci, co, hs = shape
+def unit_bwd_args(gen, shape, relu_first):
+    n, h, w, ci, co, _ = shape
     a = torch.randn((n, h, w, ci), generator=gen, device="cuda").to(
         torch.bfloat16)
     taps = 0.2 * torch.randn((9, ci), generator=gen, device="cuda")
@@ -248,7 +250,14 @@ def test_unit_bwd(gen, shape, relu_first):
         torch.bfloat16)
     _, mu, var, (r, d, p) = unit_fwd(a, taps, wpw, gamma, beta, 1e-5,
                                      relu_first)
-    args = (gy, r, d, p, taps, wpw, gamma, mu, var, 1e-5, relu_first)
+    return a, (gy, r, d, p, taps, wpw, gamma, mu, var, 1e-5, relu_first)
+
+
+@pytest.mark.parametrize("relu_first", [True, False])
+@pytest.mark.parametrize("shape", UNIT_SHAPES)
+def test_unit_bwd(gen, shape, relu_first):
+    hs = shape[-1]
+    a, args = unit_bwd_args(gen, shape, relu_first)
     want = unit_bwd_reference(*args)
     for name, fn, kw in (("unit_bwd_plane", unit_bwd_plane, {}),
                          ("unit_bwd_strips", unit_bwd_strips, {"hs": hs})):
@@ -262,6 +271,19 @@ def test_unit_bwd(gen, shape, relu_first):
             assert bool(torch.isfinite(g).all()), (name, i)
             err = (g - ref).abs().max().item() / ref.abs().max().item()
             assert err <= (1e-2 if i == 0 else 5e-3), (name, i, err)
+
+
+@pytest.mark.parametrize("shape", [UNIT_SHAPES[1], UNIT_SHAPES[3]])
+def test_unit_bwd_repeats_bit_for_bit(gen, shape):
+    """No atomics, partials summed in a fixed order: the same inputs give
+    the same outputs to the bit, on both entry points."""
+    _, args = unit_bwd_args(gen, shape, True)
+    for fn, kw in ((unit_bwd_plane, {}), (unit_bwd_strips, {"hs": shape[-1]})):
+        first = fn(*args, **kw)
+        second = fn(*args, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
 
 
 def test_unit_bwd_rejects_what_the_kernel_does_not_take(gen):
