@@ -28,18 +28,22 @@
 // 147x147x128, and Hopper's blocks run in parallel and in no order, so
 // the work is six launches, each with a fixed order of summation
 // (deterministic, no atomics):
-//   1. ub_bn_sums_kernel: per-block column sums of g and g*p;
+//   1. ub_bn_sums_kernel: per-block column sums of g and g*p; its blocks
+//      also cast Wpw, which they read as the module holds it (CO, CI) in
+//      f32, to the bf16 copy that the dgrad reads;
 //   2. ub_bn_finalize_kernel: the partials summed in a fixed order, then
 //      the five per-channel coefficients (vec) and dgamma, dbeta;
-//   3. ub_dgrad_kernel, gd = bf16(gp) . Wpw^T on wgmma: gy and p tiles
-//      arrive by TMA, the consumer warpgroups form bf16(gp) in place in
-//      the swizzled A stage (fence.proxy.async, then wgmma reads it), and
-//      B is Wpw (CI, CO) read K-major in place; gd is written in f32. The
-//      blocks of the first column tile also write bf16(gp) (M x CO) for
-//      the weight gradient; nothing reads it back here;
-//   4. ub_wgrad_kernel, dWpw = d^T . bf16(gp) on wgmma with both operands
-//      MN-major (d and gp as they lie, pixels as the contraction), the
-//      pixels split over work items, one f32 partial per split;
+//   3. dgrad, gd = bf16(gp) . Wpw^T, on sepconv_gemm.cuh's kernel with the
+//      A loader UbDgradA: gy and p tiles arrive by TMA, the consumer
+//      warpgroups form bf16(gp) in place in the swizzled A stage
+//      (fence.proxy.async, then wgmma reads it), and B is the (CO, CI) bf16
+//      Wpw read MN-major; gd is written in f32. The blocks of the first
+//      column tile also write bf16(gp) (M x CO) for the weight gradient;
+//      nothing reads it back here;
+//   4. wgrad, dWpw = d^T . bf16(gp), on the same kernel with the A loader
+//      UbWgradA: d and gp MN-major as they lie (pixels as the
+//      contraction), the pixels split over work items, one f32 partial
+//      per split;
 //   5. ub_dw_bwd_kernel: the depthwise backward on rows staged in shared
 //      memory by bulk copies (gd f32 and r bf16, with their halo columns,
 //      onto an mbarrier ring filled by one producer thread), a persistent
@@ -47,17 +51,12 @@
 //      two channels of one column (of two where CI is wide), keeps a
 //      window of three rows of gd and r in registers, writes da in bf16
 //      and sums dWdw; one partial per block, reduced over the block's
-//      columns in order;
+//      columns in order. The taps are read as the module holds them,
+//      (CI, 9) f32;
 //   6. ub_reduce_kernel: the dWpw and dWdw partials summed in a fixed
 //      order.
-// The GEMMs (3, 4) are one persistent kernel shape: a producer warpgroup
-// of which one thread issues the TMA copies of a ring of stages with full
-// and empty mbarriers, and two consumer warpgroups of 64 rows each that
-// issue m64nBNk16 wgmma with one group in flight and release a stage when
-// the group that read it has retired; CTA pairs on neighbouring row tiles
-// share each B tile by multicast (the design of sepconv_gemm.cuh, whose
-// TMA helpers and tensor maps they use). What holds them (PERF.md): the
-// rate at which the ring's stages arrive from L2, not the tensor cores.
+// What holds the GEMMs (PERF.md): the rate at which the ring's stages
+// arrive from L2, not the tensor cores.
 //
 // The two entry points differ in how pass 5 cuts the plane.
 // `unit_bwd_plane_launch` gives each block all H rows of its images (no
@@ -68,9 +67,10 @@
 // zeros (never copied, read as zeros), and a ragged last strip or column
 // range stops at the image's edge.
 //
-// The launch plan (tiles, splits, ring depths, grids) is computed by the
-// wrapper, biscuit_torch/ops/fused_unit_bwd.py `launch_plan`, and passed
-// in as PLAN_FIELDS ints.
+// The launch plan (every grid, tile, split, ring depth and shared-memory
+// size) is computed by the wrapper, biscuit_torch/ops/fused_unit_bwd.py
+// `launch_plan`, and passed in as PLAN_FIELDS ints; this file checks it
+// and launches it as it is.
 #include "sepconv_gemm.cuh"
 
 namespace {
@@ -82,14 +82,26 @@ using bt::smem_u32;
 // Block (tx, ty), tx * ty = 256: threadIdx.x owns channels c..c+7 (16-byte
 // loads), threadIdx.y strides the block's rows, two rows a step.
 // part[blockIdx.y][0][c] = sum g, [1][c] = sum g*p, the ty partial sums
-// added in order.
+// added in order. The blocks also cast w32 (nw values, the module's f32
+// Wpw) to w16 in bf16, 8 values a thread, spread over the whole grid.
 constexpr int BN_THREADS = 256;
 
 __global__ void __launch_bounds__(BN_THREADS)
     ub_bn_sums_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ p,
-                      float* __restrict__ part, int M, int CO, int rows) {
+                      float* __restrict__ part, int M, int CO, int rows,
+                      const float* __restrict__ w32, bf16* __restrict__ w16,
+                      size_t nw) {
   __shared__ float red[BN_THREADS][17];
   const int tx = blockDim.x, ty = blockDim.y;
+  const int tid = threadIdx.y * tx + threadIdx.x;
+  const size_t threads = (size_t)tx * ty * gridDim.x * gridDim.y;
+  for (size_t i = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * tx * ty +
+                  tid;
+       8 * i < nw; i += threads) {
+    float v[8];
+    bt::load8(w32 + 8 * i, v);
+    bt::store8(w16 + 8 * i, v);
+  }
   const int c = (blockIdx.x * tx + threadIdx.x) * 8;
   const int m0 = blockIdx.y * rows, m1 = min(M, m0 + rows);
   float sg[8], sgp[8];
@@ -120,7 +132,6 @@ __global__ void __launch_bounds__(BN_THREADS)
       }
     }
   }
-  const int tid = threadIdx.y * tx + threadIdx.x;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     red[tid][j] = sg[j];
@@ -190,49 +201,16 @@ __global__ void ub_bn_finalize_kernel(const float* __restrict__ part, int P,
 }
 
 // ------------------------------------------------- 3, 4. the two GEMMs
-constexpr int UG_BM = 128;              // rows a tile: 2 warpgroups x 64
-constexpr int UG_BK = 64;               // k a stage: one 128-byte row
-constexpr int UG_CONSUMERS = 256;
-constexpr int UG_WARPS = UG_CONSUMERS / 32;
-constexpr int UG_THREADS = UG_CONSUMERS + 128;   // and a producer warpgroup
-constexpr int UG_MAX_STAGES = 16;
-constexpr int UG_FIXED = 1024 + 256;    // alignment slack, the barriers
+// Both run on sepconv_gemm.cuh's kernel (its ring, producer, consumers and
+// CTA pairs), each with its own A loader and the plain F32Epilogue; B is
+// MN-major in both and read in place: the dgrad's is Wpw (CO, CI), the
+// bf16 copy that pass 1 casts of the module's weight; the wgrad's is
+// bf16(gp), (M, CO), which the dgrad writes.
 
-enum Mode { DGRAD = 0, WGRAD = 1 };
-
-// A stage. DGRAD: gy and p tiles (128 pixels x 64 channels of CO each,
-// K-major) and Wpw's BN x 64 tile (K-major). WGRAD: d's two 64-channel x
-// 64-pixel boxes (MN-major, one a warpgroup) and gp's NB 64-channel x
-// 64-pixel boxes (MN-major).
-template <int BN, int MODE>
-struct UgCfg {
-  static constexpr int NB = (BN + 63) / 64;
-  static constexpr int A_BYTES =
-      MODE == DGRAD ? 2 * UG_BM * UG_BK * 2 : UG_BM * UG_BK * 2;
-  static constexpr int B_BYTES =
-      MODE == DGRAD ? BN * UG_BK * 2 : NB * UG_BK * 128;
-  static constexpr int STAGE = A_BYTES + B_BYTES;   // a multiple of 1024
-};
-
-template <int BN, int MODE>
-constexpr int ug_smem(int stages) {
-  return UG_FIXED + stages * UgCfg<BN, MODE>::STAGE;
-}
-
-struct UgArgs {
-  const float* vec;   // (5, CO) BN coefficients (DGRAD)
-  bf16* gpb;          // (M, CO) bf16(gp), written by DGRAD's column tile 0
-  float* out;         // DGRAD: gd (M, CI); WGRAD: partials (splits, CI, CO)
-  int M, CI, CO;
-  int mt, nt;         // row and column tiles
-  int splits, chunk;  // WGRAD: pixel splits and pixels a split
-  int stages;
-  int cm;             // CTAs of a cluster, on neighbouring row tiles
-};
-
-// bf16(gp) of 8 channels from gy, p and their coefficients k (rows of
+// bf16(gp) of 8 channels from gy, p and their coefficients q (rows of
 // vec), in the TPU kernels' order of operations.
-__device__ __forceinline__ uint4 gp8(uint4 ug, uint4 up, const float (&k)[5][8]) {
+__device__ __forceinline__ uint4 gp8(uint4 ug, uint4 up,
+                                     const float (&q)[5][8]) {
   const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&ug);
   const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&up);
   uint4 uo;
@@ -242,278 +220,118 @@ __device__ __forceinline__ uint4 gp8(uint4 ug, uint4 up, const float (&k)[5][8])
     const float2 g = __bfloat1622float2(g2[j]);
     const float2 pf = __bfloat1622float2(p2[j]);
     const int a = 2 * j, b = 2 * j + 1;
-    const float xa = pf.x * k[3][a] - k[4][a];
-    const float xb = pf.y * k[3][b] - k[4][b];
-    o2[j] = __floats2bfloat162_rn(g.x * k[0][a] - k[1][a] - xa * k[2][a],
-                                  g.y * k[0][b] - k[1][b] - xb * k[2][b]);
+    const float xa = pf.x * q[3][a] - q[4][a];
+    const float xb = pf.y * q[3][b] - q[4][b];
+    o2[j] = __floats2bfloat162_rn(g.x * q[0][a] - q[1][a] - xa * q[2][a],
+                                  g.y * q[0][b] - q[1][b] - xb * q[2][b]);
   }
   return uo;
 }
 
-// Cluster work item `item` as CTA cx of the cluster takes it: its output
-// rows (DGRAD: pixels; WGRAD: CI channels), columns, and k range. The
-// cm CTAs of a cluster take neighbouring row tiles of one column tile
-// (and split); a CTA whose row tile lies past the last (an odd count)
-// multiplies the last one for its partner and stores nothing (real).
-struct UgItem {
-  int row0, col0, k0, nk, split;
-  bool real;
+// dgrad's A, gd = bf16(gp) . Wpw^T: a stage holds gy's and p's tiles (128
+// pixels x 64 channels of CO each, K-major) by TMA, gy's through the
+// kernel's A map and p's through pmap. The consumers form bf16(gp) in
+// place of gy, each warpgroup its own 64 rows, then fence their writes to
+// the async proxy that wgmma reads through. The CTAs of the first column
+// tile also write that bf16(gp) to gpb for the wgrad.
+struct UbDgradA {
+  static constexpr int A_BYTES = 2 * bt::SG_BM * bt::SG_BK * 2;
+  static constexpr int TA = 0;
+  CUtensorMap pmap;   // p: {CO, M}, box {64, 128}
+  const float* vec;   // (5, CO) BN coefficients
+  bf16* gpb;          // (M, CO)
+  int M, CO;
+  __host__ __device__ int tiles() const {
+    return (M + bt::SG_BM - 1) / bt::SG_BM;
+  }
+  __device__ uint32_t bytes(int) const { return A_BYTES; }
+  __device__ bt::TileRows rows(int t) const {
+    const int m0 = t * bt::SG_BM;
+    return {m0, min(bt::SG_BM, M - m0)};
+  }
+  __device__ void prefetch() const { bt::prefetch_tensor_map(&pmap); }
+  __device__ void load(void* dst, const CUtensorMap* map, int t, int k0,
+                       uint64_t* bar) const {
+    bt::tma_load_2d(dst, map, k0, t * bt::SG_BM, bar);
+    bt::tma_load_2d(static_cast<unsigned char*>(dst) + A_BYTES / 2, &pmap, k0,
+                    t * bt::SG_BM, bar);
+  }
+  // This thread's slot: physical 16-byte chunk pc of rows rb + 16 i of the
+  // tile, which holds channels 8 ch .. 8 ch + 7 of the stage's 64
+  // (128-byte swizzle: chunk ch of row r sits at ch ^ (r & 7), and
+  // (rb + 16 i) & 7 == rb & 7). gp is zero past CO (the copy engine's
+  // zeros of gy and p would not give zero gp).
+  __device__ void prepare(unsigned char* sa, int k0, int n0, bool real,
+                          const bt::TileRows& tr, int cw, int tid) const {
+    const int pc = tid & 7, rb = cw * 64 + (tid >> 3);
+    const int co0 = k0 + 8 * (pc ^ (rb & 7));
+    const bool in = co0 < CO;
+    float q[5][8];
+    if (in) {
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        const float4 lo =
+            __ldg(reinterpret_cast<const float4*>(vec + i * CO + co0));
+        const float4 hi =
+            __ldg(reinterpret_cast<const float4*>(vec + i * CO + co0 + 4));
+        q[i][0] = lo.x, q[i][1] = lo.y, q[i][2] = lo.z, q[i][3] = lo.w;
+        q[i][4] = hi.x, q[i][5] = hi.y, q[i][6] = hi.z, q[i][7] = hi.w;
+      }
+    }
+    const bool write = in && n0 == 0 && real;
+    // All four rows' loads first: the stores below may not be moved above
+    // them.
+    uint4 gv[4], pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off = (rb + 16 * i) * 128 + pc * 16;
+      gv[i] = *reinterpret_cast<const uint4*>(sa + off);
+      pv[i] = *reinterpret_cast<const uint4*>(sa + A_BYTES / 2 + off);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rb + 16 * i;
+      const uint4 o = in ? gp8(gv[i], pv[i], q) : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(sa + r * 128 + pc * 16) = o;
+      if (write && r < tr.rows)
+        *reinterpret_cast<uint4*>(gpb + (size_t)(tr.m0 + r) * CO + co0) = o;
+    }
+    // The generic-proxy writes made visible to wgmma, then every thread of
+    // the warpgroup past them.
+    bt::fence_proxy_async();
+    bt::named_bar_sync(1 + cw, 128);
+  }
 };
 
-template <int BN, int MODE>
-__device__ __forceinline__ UgItem ug_item(const UgArgs& a, int item, int cx) {
-  UgItem t;
-  const int pairs = (a.mt + a.cm - 1) / a.cm;
-  int tile = item;
-  t.split = 0;
-  t.k0 = 0;
-  t.nk = (a.CO + UG_BK - 1) / UG_BK;
-  if (MODE == WGRAD) {
-    t.split = item / (pairs * a.nt);
-    tile = item % (pairs * a.nt);
-    t.k0 = t.split * a.chunk;
-    t.nk = (min(a.M, t.k0 + a.chunk) - t.k0 + UG_BK - 1) / UG_BK;
+// wgrad's A, dWpw = d^T . bf16(gp): d (M, CI) as CI rows of M pixels,
+// MN-major as it lies; a stage holds its two 64-channel x 64-pixel boxes
+// (one a warpgroup), through a map {CI, M} with box {64, 64}. Boxes wholly
+// past CI are not fetched: their rows are never stored.
+struct UbWgradA {
+  static constexpr int A_BYTES = bt::SG_BM * bt::SG_BK * 2;
+  static constexpr int TA = 1;
+  int CI;
+  __host__ __device__ int tiles() const {
+    return (CI + bt::SG_BM - 1) / bt::SG_BM;
   }
-  const int rt = (tile / a.nt) * a.cm + cx;
-  t.real = rt < a.mt;
-  t.row0 = min(rt, a.mt - 1) * UG_BM;
-  t.col0 = (tile % a.nt) * BN;
-  return t;
-}
-
-// The same, multicast to the CTAs of the cluster in mask.
-__device__ __forceinline__ void tma_load_2d_mc(void* dst, const CUtensorMap* map,
-                                               int c0, int c1, uint64_t* bar,
-                                               uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "h"(mask)
-      : "memory");
-}
-
-// The persistent GEMM body. DGRAD maps: m0 gy, m1 p ({CO, M}, box {64,
-// 128}), m2 Wpw ({CO, CI}, box {64, BN / cm}). WGRAD maps: m0 d ({CI, M},
-// box {64, 64}), m1 gp ({CO, M}, box {64, 64 / cm}). In a cluster of cm =
-// 2 the two CTAs share B: each loads half of every B box (DGRAD: half its
-// rows of Wpw; WGRAD: half its k-rows of gp) and multicasts it to both,
-// and each consumer warp releases a stage to both CTAs; the producer
-// stays until the pair has released every stage.
-template <int BN, int MODE>
-__device__ __forceinline__ void ug_body(const CUtensorMap* m0,
-                                        const CUtensorMap* m1,
-                                        const CUtensorMap* m2,
-                                        const UgArgs& a) {
-  using C = UgCfg<BN, MODE>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base =
-      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const int S = a.stages, cm = a.cm;
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + S * C::STAGE);
-  uint64_t* empty = full + S;
-  const int items = (a.mt + cm - 1) / cm * a.nt *
-                    (MODE == WGRAD ? a.splits : 1);
-  const int cx = cm > 1 ? (int)bt::cluster_ctarank() : 0;
-  const int cid = blockIdx.x / cm, clusters = gridDim.x / cm;
-  const uint16_t peers = (uint16_t)((1u << cm) - 1);
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      bt::mbar_init(&full[s], 1);
-      bt::mbar_init(&empty[s], UG_WARPS * cm);
-    }
-    bt::mbar_init_fence();
+  __device__ int boxes(int t) const {
+    return min(2, (CI - t * bt::SG_BM + 63) / 64);
   }
-  bt::cluster_sync();
-
-  if (threadIdx.x >= UG_CONSUMERS) {
-    // Producer: one thread keeps the ring full across items.
-    bt::setmaxnreg_dec<bt::SG_PRODUCER_REGS>();
-    if (threadIdx.x != UG_CONSUMERS) return;
-    bt::prefetch_tensor_map(m0);
-    bt::prefetch_tensor_map(m1);
-    if constexpr (MODE == DGRAD) bt::prefetch_tensor_map(m2);
-    int it = 0;
-    for (int item = cid; item < items; item += clusters) {
-      const UgItem t = ug_item<BN, MODE>(a, item, cx);
-      // WGRAD: boxes wholly past CI or CO are not fetched; their rows and
-      // columns are never stored.
-      const int na = MODE == WGRAD ? min(2, (a.CI - t.row0 + 63) / 64) : 0;
-      const int nb = MODE == WGRAD ? min(C::NB, (a.CO - t.col0 + 63) / 64) : 0;
-      for (int kt = 0; kt < t.nk; ++kt, ++it) {
-        const int st = it % S;
-        bt::mbar_wait(&empty[st], ((it / S) & 1) ^ 1);
-        unsigned char* sa = base + st * C::STAGE;
-        const int k = t.k0 + kt * UG_BK;
-        // All of the stage's bytes land here, whoever loads them.
-        if constexpr (MODE == DGRAD) {
-          bt::mbar_arrive_expect_tx(&full[st], C::STAGE);
-          bt::tma_load_2d(sa, m0, k, t.row0, &full[st]);
-          bt::tma_load_2d(sa + UG_BM * UG_BK * 2, m1, k, t.row0, &full[st]);
-          const int nr = BN / cm;   // Wpw rows this CTA loads
-          if (cm == 1)
-            bt::tma_load_2d(sa + C::A_BYTES, m2, k, t.col0, &full[st]);
-          else
-            tma_load_2d_mc(sa + C::A_BYTES + cx * nr * 128, m2, k,
-                           t.col0 + cx * nr, &full[st], peers);
-        } else {
-          bt::mbar_arrive_expect_tx(&full[st], (na + nb) * UG_BK * 128);
-          for (int h = 0; h < na; ++h)
-            bt::tma_load_2d(sa + h * UG_BK * 128, m0, t.row0 + 64 * h, k,
-                            &full[st]);
-          const int kr = UG_BK / cm;   // gp k-rows this CTA loads
-          for (int b = 0; b < nb; ++b) {
-            unsigned char* sb = sa + C::A_BYTES + b * UG_BK * 128;
-            if (cm == 1)
-              bt::tma_load_2d(sb, m1, t.col0 + 64 * b, k, &full[st]);
-            else
-              tma_load_2d_mc(sb + cx * kr * 128, m1, t.col0 + 64 * b,
-                             k + cx * kr, &full[st], peers);
-          }
-        }
-      }
-    }
-    // Stay until every stage has been released by the whole cluster, so
-    // that no partner arrives on this CTA's barriers after it has left.
-    if (cm > 1)
-      for (int i = 0; i < S; ++i, ++it)
-        bt::mbar_wait(&empty[it % S], ((it / S) & 1) ^ 1);
-    return;
+  __device__ uint32_t bytes(int t) const { return boxes(t) * 64 * 128; }
+  __device__ bt::TileRows rows(int t) const {
+    const int m0 = t * bt::SG_BM;
+    return {m0, min(bt::SG_BM, CI - m0)};
   }
-
-  // Consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of each tile.
-  bt::setmaxnreg_inc<bt::SG_CONSUMER_REGS>();
-  const int cw = threadIdx.x >> 7;
-  const int tid = threadIdx.x & 127;
-  const int lane = threadIdx.x & 31, w4 = tid >> 5;
-  auto release = [&](int st) {
-    if (lane == 0)
-      for (int r = 0; r < cm; ++r) bt::mbar_arrive_cta(&empty[st], (uint32_t)r);
-  };
-  // DGRAD's gp slot of this thread: physical 16-byte chunk pc of the rows
-  // rb + 16 i of the A stage, which holds channels 8 ch .. 8 ch + 7 of
-  // the stage's 64 (128-byte swizzle: chunk ch of row r sits at ch ^ (r &
-  // 7), and (rb + 16 i) & 7 == rb & 7).
-  const int pc = tid & 7, rb = cw * 64 + (tid >> 3);
-  const int ch = pc ^ (rb & 7);
-  int it = 0;
-  for (int item = cid; item < items; item += clusters) {
-    const UgItem t = ug_item<BN, MODE>(a, item, cx);
-    float d[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
-    int prev = -1;
-    for (int kt = 0; kt < t.nk; ++kt, ++it) {
-      const int st = it % S;
-      bt::mbar_wait(&full[st], (it / S) & 1);
-      unsigned char* sa = base + st * C::STAGE;
-      const uint32_t sa32 = smem_u32(sa);
-      if constexpr (MODE == DGRAD) {
-        // bf16(gp) in place of gy, rows of this warpgroup only; zero past
-        // CO (the copy engine's zeros of gy and p would not give zero gp).
-        const int co0 = kt * UG_BK + 8 * ch;
-        const bool in = co0 < a.CO;
-        float k[5][8];
-        if (in) {
-#pragma unroll
-          for (int q = 0; q < 5; ++q) {
-            const float4 lo =
-                __ldg(reinterpret_cast<const float4*>(a.vec + q * a.CO + co0));
-            const float4 hi =
-                __ldg(reinterpret_cast<const float4*>(a.vec + q * a.CO + co0 + 4));
-            k[q][0] = lo.x, k[q][1] = lo.y, k[q][2] = lo.z, k[q][3] = lo.w;
-            k[q][4] = hi.x, k[q][5] = hi.y, k[q][6] = hi.z, k[q][7] = hi.w;
-          }
-        }
-        const bool write = in && t.col0 == 0 && t.real;
-        // All four rows' loads first: the stores below may not be moved
-        // above them.
-        uint4 gv[4], pv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int off = (rb + 16 * i) * 128 + pc * 16;
-          gv[i] = *reinterpret_cast<const uint4*>(sa + off);
-          pv[i] = *reinterpret_cast<const uint4*>(sa + UG_BM * 128 + off);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = rb + 16 * i;
-          const uint4 o = in ? gp8(gv[i], pv[i], k) : make_uint4(0u, 0u, 0u, 0u);
-          *reinterpret_cast<uint4*>(sa + r * 128 + pc * 16) = o;
-          if (write && t.row0 + r < a.M)
-            *reinterpret_cast<uint4*>(a.gpb + (size_t)(t.row0 + r) * a.CO +
-                                      co0) = o;
-        }
-        // The generic-proxy writes made visible to wgmma, then every
-        // thread of the warpgroup past them.
-        bt::fence_proxy_async();
-        bt::named_bar_sync(1 + cw, 128);
-        const uint64_t da = bt::smem_desc(sa32 + cw * 64 * 128);
-        const uint64_t db = bt::smem_desc(sa32 + C::A_BYTES);
-        bt::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < UG_BK / 16; ++kk)   // 32 bytes of each row
-          bt::Wgmma<BN, 0, 0>::run(d, da + 2 * kk, db + 2 * kk);
-      } else {
-        const uint64_t da = bt::smem_desc(sa32 + cw * UG_BK * 128);
-        // B: 64-column groups of 64 k-rows each, 8 KB apart.
-        const uint64_t db =
-            bt::smem_desc(sa32 + C::A_BYTES, UG_BK * 128 / 16);
-        bt::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < UG_BK / 16; ++kk)   // 16 k-rows: 2048 bytes
-          bt::Wgmma<BN, 1, 1>::run(d, da + 128 * kk, db + 128 * kk);
-      }
-      bt::wgmma_commit();
-      if (prev >= 0) {
-        bt::wgmma_wait<1>();
-        release(prev);
-      }
-      prev = st;
-    }
-    bt::wgmma_wait<0>();
-    if (prev >= 0) release(prev);
-    if (!t.real) continue;
-
-    // Epilogue from the accumulators: warp w4 holds rows 16 w4 ..
-    // 16 w4 + 15; d[4j .. 4j + 3] are the m16n8 fragment of columns
-    // 8j .. 8j + 7. Each quad of lanes stores 32 contiguous bytes.
-    const int nrows = MODE == DGRAD ? a.M : a.CI;
-    const int ncols = MODE == DGRAD ? a.CI : a.CO;
-    float* out = a.out + (MODE == WGRAD ? (size_t)t.split * a.CI * a.CO : 0);
-    const int row = t.row0 + cw * 64 + w4 * 16 + (lane >> 2);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = t.col0 + 8 * j + 2 * (lane & 3);
-      if (col >= ncols) continue;
-      if (row < nrows)
-        *reinterpret_cast<float2*>(out + (size_t)row * ncols + col) =
-            make_float2(d[4 * j], d[4 * j + 1]);
-      if (row + 8 < nrows)
-        *reinterpret_cast<float2*>(out + (size_t)(row + 8) * ncols + col) =
-            make_float2(d[4 * j + 2], d[4 * j + 3]);
-    }
+  __device__ void prefetch() const {}
+  __device__ void load(void* dst, const CUtensorMap* map, int t, int k0,
+                       uint64_t* bar) const {
+    for (int h = 0; h < boxes(t); ++h)
+      bt::tma_load_2d(static_cast<unsigned char*>(dst) + h * 64 * 128, map,
+                      t * bt::SG_BM + 64 * h, k0, bar);
   }
-}
-
-template <int BN>
-__global__ void __launch_bounds__(UG_THREADS, 1)
-    ub_dgrad_kernel(const __grid_constant__ CUtensorMap gymap,
-                    const __grid_constant__ CUtensorMap pmap,
-                    const __grid_constant__ CUtensorMap wmap,
-                    const UgArgs a) {
-  ug_body<BN, DGRAD>(&gymap, &pmap, &wmap, a);
-}
-
-template <int BN>
-__global__ void __launch_bounds__(UG_THREADS, 1)
-    ub_wgrad_kernel(const __grid_constant__ CUtensorMap dmap,
-                    const __grid_constant__ CUtensorMap gpmap,
-                    const UgArgs a) {
-  ug_body<BN, WGRAD>(&dmap, &gpmap, nullptr, a);
-}
+  __device__ void prepare(unsigned char*, int, int, bool,
+                          const bt::TileRows&, int, int) const {}
+};
 
 // A 2-D bf16 tensor map of rows x cols (row-major), boxes of bc columns x
 // br rows, 128-byte swizzle.
@@ -528,62 +346,40 @@ cudaError_t map2d(CUtensorMap* map, const void* base, long long rows,
                              CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// Launch `kernel` on a persistent grid of at most `grid` CTAs in clusters
-// of a.cm, no more clusters than fit on the card at once.
-template <class K, class... Args>
-cudaError_t ug_launch(K kernel, int smem, const UgArgs& a, int items,
-                      int grid, cudaStream_t s, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = a.cm;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(a.cm);
-  cfg.blockDim = dim3(UG_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int fit = 0;
-  if ((e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg)) != cudaSuccess)
+// The GEMM of column tile BN on the plan's grid and shared memory.
+template <int BN, class ALoad>
+cudaError_t ub_gemm(const void* a, int a_rows, int a_cols, int a_bc,
+                    int a_br, const void* b, int K, const ALoad& al,
+                    const bt::F32Epilogue& epi, const bt::SgShape& sh,
+                    int grid, int smem, cudaStream_t s) {
+  CUtensorMap am, bm;
+  cudaError_t e;
+  if ((e = map2d(&am, a, a_rows, a_cols, a_bc, a_br)) != cudaSuccess ||
+      (e = bt::weight_map(&bm, bt::SgPlan{BN, sh.cm}, b, 1, K, sh.N)) !=
+          cudaSuccess)
     return e;
-  if (fit < 1) return cudaErrorInvalidConfiguration;
-  int clusters = grid / a.cm;
-  if (clusters > fit) clusters = fit;
-  if (clusters > items) clusters = items;
-  if (clusters < 1) clusters = 1;
-  cfg.gridDim = dim3(clusters * a.cm);
-  cfg.stream = s;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
+  return bt::sepconv_gemm_planned<BN>(am, bm, al, epi, sh, grid, smem, s);
 }
 
-template <int BN>
-cudaError_t dgrad(const bf16* gy, const bf16* p, const bf16* wpw,
-                  const UgArgs& a, int grid, cudaStream_t s) {
-  CUtensorMap gm, pm, wm;
-  cudaError_t e;
-  if ((e = map2d(&gm, gy, a.M, a.CO, UG_BK, UG_BM)) != cudaSuccess ||
-      (e = map2d(&pm, p, a.M, a.CO, UG_BK, UG_BM)) != cudaSuccess ||
-      (e = map2d(&wm, wpw, a.CI, a.CO, UG_BK, BN / a.cm)) != cudaSuccess)
-    return e;
-  const int items = (a.mt + a.cm - 1) / a.cm * a.nt;
-  return ug_launch(ub_dgrad_kernel<BN>, ug_smem<BN, DGRAD>(a.stages), a,
-                   items, grid, s, gm, pm, wm, a);
-}
-
-template <int BN>
-cudaError_t wgrad(const bf16* d, const UgArgs& a, int grid, cudaStream_t s) {
-  CUtensorMap dm, gm;
-  cudaError_t e;
-  if ((e = map2d(&dm, d, a.M, a.CI, 64, UG_BK)) != cudaSuccess ||
-      (e = map2d(&gm, a.gpb, a.M, a.CO, 64, UG_BK / a.cm)) != cudaSuccess)
-    return e;
-  const int items = (a.mt + a.cm - 1) / a.cm * a.nt * a.splits;
-  return ug_launch(ub_wgrad_kernel<BN>, ug_smem<BN, WGRAD>(a.stages), a,
-                   items, grid, s, dm, gm, a);
+template <class ALoad>
+cudaError_t ub_gemm_bn(int bn, const void* a, int a_rows, int a_cols,
+                       int a_bc, int a_br, const void* b, int K,
+                       const ALoad& al, const bt::F32Epilogue& epi,
+                       const bt::SgShape& sh, int grid, int smem,
+                       cudaStream_t s) {
+  switch (bn) {
+    case 64:
+      return ub_gemm<64>(a, a_rows, a_cols, a_bc, a_br, b, K, al, epi, sh,
+                         grid, smem, s);
+    case 128:
+      return ub_gemm<128>(a, a_rows, a_cols, a_bc, a_br, b, K, al, epi, sh,
+                          grid, smem, s);
+    case 256:
+      return ub_gemm<256>(a, a_rows, a_cols, a_bc, a_br, b, K, al, epi, sh,
+                          grid, smem, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------- 5. depthwise backward
@@ -612,7 +408,7 @@ constexpr int DB_BARRIERS = 256;   // bytes of barriers before the ring
 struct DbArgs {
   const float* gd;
   const bf16* r;
-  const float* taps;   // (9, CI), unflipped
+  const float* taps;   // (CI, 9), unflipped
   bf16* da;
   float* part;         // (G, 9, CI)
   int N, H, W, CI;
@@ -698,8 +494,8 @@ __global__ void __launch_bounds__(db_max_consumers<CPT>() + 32, 1)
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     // Flipped taps: gr[h, w] = sum gd[h+u-1, w+v-1] * taps[8 - (3u+v)].
-    tap[k] = lane_on ? *reinterpret_cast<const float2*>(a.taps +
-                                                        (8 - k) * a.CI + c)
+    tap[k] = lane_on ? make_float2(a.taps[c * 9 + 8 - k],
+                                   a.taps[(c + 1) * 9 + 8 - k])
                      : zero;
     acc[k] = zero;
   }
@@ -822,7 +618,6 @@ __global__ void __launch_bounds__(db_max_consumers<CPT>() + 32, 1)
 // are added in order. A thread owns 4 consecutive columns (L % 4 == 0);
 // column group q (128 columns) of the two lists laid end to end goes to
 // block q % gridDim.x.
-constexpr int RED_BLOCKS = 2048;
 
 __device__ __forceinline__ void add4(float4& s, const float4 v) {
   s.x += v.x;
@@ -867,24 +662,26 @@ __global__ void ub_reduce_kernel(const float* __restrict__ pa,
 // The launch plan, in the order of `PLAN_FIELDS` in
 // biscuit_torch/ops/fused_unit_bwd.py.
 enum PlanField {
-  P_BN_ROWS, P_BN_PARTS,
-  P_DG_BN, P_DG_STAGES, P_DG_GRID, P_DG_CLUSTER,
-  P_WG_BN, P_WG_STAGES, P_WG_GRID, P_WG_SPLITS, P_WG_CHUNK, P_WG_CLUSTER,
+  P_BN_TX, P_BN_GX, P_BN_ROWS, P_BN_PARTS, P_FIN_GRID,
+  P_DG_BN, P_DG_STAGES, P_DG_SMEM, P_DG_GRID, P_DG_CLUSTER,
+  P_WG_BN, P_WG_STAGES, P_WG_SMEM, P_WG_GRID, P_WG_SPLITS, P_WG_CHUNK,
+  P_WG_CLUSTER,
   P_DW_CB, P_DW_NCS, P_DW_CPT, P_DW_WT, P_DW_NWR, P_DW_ROWS, P_DW_NSTRIPS,
   P_DW_G, P_DW_RING, P_DW_CONSUMERS, P_DW_SMEM, P_DW_BLOCKS,
+  P_RED_GRID,
   P_FIELDS
 };
 
 struct Args {
   const bf16 *gy, *p, *r, *d;
-  const float* taps;           // (9, CI)
-  const bf16* wpw;             // (CI, CO)
+  const float* taps;           // (CI, 9)
+  const float* wpw;            // (CO, CI)
   const float *gamma, *mu, *var;
   float eps;
   bf16* da;                    // (N, H, W, CI)
   float *dwdw, *dwpw, *dgamma, *dbeta;   // (9, CI), (CI, CO), (CO,), (CO,)
   float *bn_part, *vec;                  // (P_bn, 2, CO), (5, CO)
-  bf16* gpb;                             // (M, CO)
+  bf16 *wpw16, *gpb;                     // (CO, CI), (M, CO)
   float *gd, *wg_part, *dw_part;         // (M, CI), (S_w, CI, CO), (P_dw, 9, CI)
   int N, H, W, CI, CO, relu_first;
 };
@@ -895,59 +692,57 @@ int run(const Args& a, const int* pl, int device, void* stream) {
   const int M = a.N * a.H * a.W;
   if (M == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (pl[P_DW_BLOCKS] != pl[P_DW_NCS] * pl[P_DW_G] ||
+  // The plan is launched as it is; these are the limits the kernels hold
+  // it to.
+  if (pl[P_BN_TX] < 1 || pl[P_BN_TX] > 32 ||
+      (long long)pl[P_BN_GX] * pl[P_BN_TX] * 8 < a.CO ||
+      (long long)pl[P_BN_PARTS] * pl[P_BN_ROWS] < M ||
+      pl[P_FIN_GRID] * 32 < a.CO || pl[P_RED_GRID] < 1 ||
+      pl[P_DW_BLOCKS] != pl[P_DW_NCS] * pl[P_DW_G] ||
       (pl[P_DW_CPT] != 1 && pl[P_DW_CPT] != 2) || pl[P_DW_WT] % pl[P_DW_CPT] ||
-      pl[P_DG_CLUSTER] < 1 || pl[P_DG_CLUSTER] > 2 ||
-      pl[P_WG_CLUSTER] < 1 || pl[P_WG_CLUSTER] > 2 ||
-      pl[P_DG_STAGES] < 1 || pl[P_DG_STAGES] > UG_MAX_STAGES ||
-      pl[P_WG_STAGES] < 1 || pl[P_WG_STAGES] > UG_MAX_STAGES ||
       pl[P_DW_RING] < 1 || pl[P_DW_RING] > DB_BARRIERS / 16 ||
       pl[P_DW_CONSUMERS] > (pl[P_DW_CPT] == 2 ? db_max_consumers<2>()
                                               : db_max_consumers<1>()) ||
       pl[P_DW_CONSUMERS] % 32)
     return (int)cudaErrorInvalidValue;
 
-  // 1, 2. BN sums and coefficients.
-  const int bn_tx = min(32, a.CO / 8);
-  ub_bn_sums_kernel<<<dim3((a.CO / 8 + bn_tx - 1) / bn_tx, pl[P_BN_PARTS]),
-                      dim3(bn_tx, BN_THREADS / bn_tx), 0, s>>>(
-      a.gy, a.p, a.bn_part, M, a.CO, pl[P_BN_ROWS]);
+  // 1, 2. BN sums (and Wpw in bf16), then the coefficients.
+  ub_bn_sums_kernel<<<dim3(pl[P_BN_GX], pl[P_BN_PARTS]),
+                      dim3(pl[P_BN_TX], BN_THREADS / pl[P_BN_TX]), 0, s>>>(
+      a.gy, a.p, a.bn_part, M, a.CO, pl[P_BN_ROWS], a.wpw, a.wpw16,
+      (size_t)a.CO * a.CI);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ub_bn_finalize_kernel<<<(a.CO + 31) / 32, dim3(32, RED_Y), 0, s>>>(
+  ub_bn_finalize_kernel<<<pl[P_FIN_GRID], dim3(32, RED_Y), 0, s>>>(
       a.bn_part, pl[P_BN_PARTS], a.gamma, a.mu, a.var, a.eps, (float)M, a.CO,
       a.vec, a.dgamma, a.dbeta);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  // 3. dgrad (and bf16(gp)).
-  UgArgs g{a.vec, a.gpb, a.gd, M, a.CI, a.CO, 0, 0, 1, 0, pl[P_DG_STAGES],
-           pl[P_DG_CLUSTER]};
-  const int dbn = pl[P_DG_BN];
-  g.mt = (M + UG_BM - 1) / UG_BM;
-  g.nt = (a.CI + dbn - 1) / dbn;
-  switch (dbn) {
-    case 64: e = dgrad<64>(a.gy, a.p, a.wpw, g, pl[P_DG_GRID], s); break;
-    case 128: e = dgrad<128>(a.gy, a.p, a.wpw, g, pl[P_DG_GRID], s); break;
-    case 256: e = dgrad<256>(a.gy, a.p, a.wpw, g, pl[P_DG_GRID], s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess) return (int)e;
+  // 3. dgrad (and bf16(gp)): M x CI, k = CO.
+  UbDgradA dg;
+  dg.vec = a.vec;
+  dg.gpb = a.gpb;
+  dg.M = M;
+  dg.CO = a.CO;
+  const int kco = (a.CO + bt::SG_BK - 1) / bt::SG_BK * bt::SG_BK;
+  if ((e = map2d(&dg.pmap, a.p, M, a.CO, bt::SG_BK, bt::SG_BM)) !=
+          cudaSuccess ||
+      (e = ub_gemm_bn(pl[P_DG_BN], a.gy, M, a.CO, bt::SG_BK, bt::SG_BM,
+                      a.wpw16, a.CO, dg, bt::F32Epilogue{a.gd, a.CI, 0},
+                      bt::SgShape{a.CI, a.CO, 0, pl[P_DG_CLUSTER], 1, kco,
+                                  pl[P_DG_STAGES]},
+                      pl[P_DG_GRID], pl[P_DG_SMEM], s)) != cudaSuccess)
+    return (int)e;
 
-  // 4. wgrad, split over the pixels.
-  const int wbn = pl[P_WG_BN];
-  UgArgs w{nullptr, a.gpb, a.wg_part, M, a.CI, a.CO,
-           (a.CI + UG_BM - 1) / UG_BM, (a.CO + wbn - 1) / wbn,
-           pl[P_WG_SPLITS], pl[P_WG_CHUNK], pl[P_WG_STAGES],
-           pl[P_WG_CLUSTER]};
-  if (pl[P_WG_CHUNK] % UG_BK ||
-      (long long)pl[P_WG_SPLITS] * pl[P_WG_CHUNK] < M)
-    return (int)cudaErrorInvalidValue;
-  switch (wbn) {
-    case 64: e = wgrad<64>(a.d, w, pl[P_WG_GRID], s); break;
-    case 128: e = wgrad<128>(a.d, w, pl[P_WG_GRID], s); break;
-    case 256: e = wgrad<256>(a.d, w, pl[P_WG_GRID], s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess) return (int)e;
+  // 4. wgrad: CI x CO, k = M pixels in P_WG_SPLITS ranges.
+  if ((e = ub_gemm_bn(pl[P_WG_BN], a.d, M, a.CI, 64, bt::SG_BK, a.gpb, M,
+                      UbWgradA{a.CI},
+                      bt::F32Epilogue{a.wg_part, a.CO,
+                                      (long long)a.CI * a.CO},
+                      bt::SgShape{a.CO, M, 0, pl[P_WG_CLUSTER],
+                                  pl[P_WG_SPLITS], pl[P_WG_CHUNK],
+                                  pl[P_WG_STAGES]},
+                      pl[P_WG_GRID], pl[P_WG_SMEM], s)) != cudaSuccess)
+    return (int)e;
 
   // 5. depthwise backward, da and dWdw partials.
   const DbArgs b{a.gd, a.r, a.taps, a.da, a.dw_part, a.N, a.H, a.W, a.CI,
@@ -964,12 +759,9 @@ int run(const Args& a, const int* pl, int device, void* stream) {
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   // 6. the weight gradients' partials, summed in order.
-  const size_t la = (size_t)a.CI * a.CO, lb = (size_t)9 * a.CI;
-  const size_t groups = (la + 127) / 128 + (lb + 127) / 128;
-  ub_reduce_kernel<<<(unsigned)(groups < RED_BLOCKS ? groups : RED_BLOCKS),
-                     dim3(32, RED_Y), 0, s>>>(
-      a.wg_part, a.dwpw, pl[P_WG_SPLITS], la, a.dw_part, a.dwdw,
-      pl[P_DW_G], lb);
+  ub_reduce_kernel<<<pl[P_RED_GRID], dim3(32, RED_Y), 0, s>>>(
+      a.wg_part, a.dwpw, pl[P_WG_SPLITS], (size_t)a.CI * a.CO, a.dw_part,
+      a.dwdw, pl[P_DW_G], (size_t)9 * a.CI);
   return (int)cudaGetLastError();
 }
 
@@ -977,38 +769,40 @@ Args make_args(const void* gy, const void* p, const void* r, const void* d,
                const void* taps, const void* wpw, const void* gamma,
                const void* mu, const void* var, float eps, void* da,
                void* dwdw, void* dwpw, void* dgamma, void* dbeta,
-               void* bn_part, void* vec, void* gpb, void* gd, void* wg_part,
-               void* dw_part, int N, int H, int W, int CI, int CO,
-               int relu_first) {
-  return Args{(const bf16*)gy,     (const bf16*)p,     (const bf16*)r,
-              (const bf16*)d,      (const float*)taps, (const bf16*)wpw,
-              (const float*)gamma, (const float*)mu,   (const float*)var,
-              eps,                 (bf16*)da,          (float*)dwdw,
-              (float*)dwpw,        (float*)dgamma,     (float*)dbeta,
-              (float*)bn_part,     (float*)vec,        (bf16*)gpb,
-              (float*)gd,          (float*)wg_part,    (float*)dw_part,
-              N,                   H,                  W,
-              CI,                  CO,                 relu_first};
+               void* bn_part, void* vec, void* wpw16, void* gpb, void* gd,
+               void* wg_part, void* dw_part, int N, int H, int W, int CI,
+               int CO, int relu_first) {
+  return Args{(const bf16*)gy,     (const bf16*)p,      (const bf16*)r,
+              (const bf16*)d,      (const float*)taps,  (const float*)wpw,
+              (const float*)gamma, (const float*)mu,    (const float*)var,
+              eps,                 (bf16*)da,           (float*)dwdw,
+              (float*)dwpw,        (float*)dgamma,      (float*)dbeta,
+              (float*)bn_part,     (float*)vec,         (bf16*)wpw16,
+              (bf16*)gpb,          (float*)gd,          (float*)wg_part,
+              (float*)dw_part,     N,                   H,
+              W,                   CI,                  CO,
+              relu_first};
 }
 
 }  // namespace
 
-// gy, p: (N, H, W, CO) bf16; r, d: (N, H, W, CI) bf16; taps (9, CI) f32;
-// wpw (CI, CO) bf16; gamma, mu, var (CO,) f32. Outputs da (N, H, W, CI)
-// bf16, dwdw (9, CI), dwpw (CI, CO), dgamma, dbeta (CO,) f32. Scratch and
-// plan (P_FIELDS ints) from biscuit_torch/ops/fused_unit_bwd.py
-// `launch_plan`. CI, CO % 8 == 0, 16-byte aligned bases.
+// gy, p: (N, H, W, CO) bf16; r, d: (N, H, W, CI) bf16; taps (CI, 9) f32
+// and wpw (CO, CI) f32, as the modules hold them; gamma, mu, var (CO,)
+// f32. Outputs da (N, H, W, CI) bf16, dwdw (9, CI), dwpw (CI, CO), dgamma,
+// dbeta (CO,) f32. Scratch and plan (P_FIELDS ints) from
+// biscuit_torch/ops/fused_unit_bwd.py `launch_plan`. CI, CO % 8 == 0,
+// 16-byte aligned bases.
 #define UNIT_BWD_PARAMS                                                     \
   const void *gy, const void *p, const void *r, const void *d,              \
       const void *taps, const void *wpw, const void *gamma, const void *mu, \
       const void *var, float eps, void *da, void *dwdw, void *dwpw,         \
-      void *dgamma, void *dbeta, void *bn_part, void *vec, void *gpb,       \
-      void *gd, void *wg_part, void *dw_part, int N, int H, int W, int CI,  \
-      int CO, int relu_first, const int *plan
+      void *dgamma, void *dbeta, void *bn_part, void *vec, void *wpw16,     \
+      void *gpb, void *gd, void *wg_part, void *dw_part, int N, int H,      \
+      int W, int CI, int CO, int relu_first, const int *plan
 #define UNIT_BWD_ARGS                                                       \
   make_args(gy, p, r, d, taps, wpw, gamma, mu, var, eps, da, dwdw, dwpw,    \
-            dgamma, dbeta, bn_part, vec, gpb, gd, wg_part, dw_part, N, H, W, \
-            CI, CO, relu_first)
+            dgamma, dbeta, bn_part, vec, wpw16, gpb, gd, wg_part, dw_part, N, \
+            H, W, CI, CO, relu_first)
 
 // Whole planes: each depthwise-backward block walks all H rows of its
 // images, with no halo rows.

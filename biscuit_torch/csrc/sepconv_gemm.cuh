@@ -1,18 +1,21 @@
-// One Hopper GEMM for the port's pointwise (1x1) convolutions, shared by
-// the middle flow (fused_middle_flow.cu) and the strided block
-// (fused_block.cu):
+// One Hopper GEMM for the port's pointwise (1x1) convolutions and their
+// gradients, shared by the middle flow (fused_middle_flow.cu), the strided
+// block (fused_block.cu) and the unit backward's dgrad and wgrad
+// (fused_unit_bwd.cu):
 //
 //   out[m, n] = epi(sum_k A[m, k] * B[k, n])
 //
-// bf16 operands, f32 accumulation. A is an NHWC activation as M pixel rows
-// x K channels (K-major). B is a pointwise weight exactly as the port
-// stacks it, (in, out) row-major, which wgmma reads as an MN-major operand
-// (its transpose flag), so no transposed copy is made. The epilogue
-// (BnEpilogue) applies a folded BatchNorm as __fadd_rn(__fmul_rn(v, sc),
-// sh), a separate multiply and add as the TPU kernels round, then an
-// optional relu, an optional residual (f32 or bf16) added after BN, and
-// writes f32 or bf16; with add_out it first reads the bf16 value already in
-// the output (the strided block's pooled y1) and adds it.
+// bf16 operands, f32 accumulation. A comes through an A loader (below). B
+// is a (K, N) row-major matrix (a pointwise weight as the port stacks it,
+// (in, out); the unit backward's Wpw as the module holds it, (CO, CI); or
+// its bf16(gp), (pixels, CO)), which wgmma reads as an MN-major operand
+// (its transpose flag), so no transposed copy is made. The epilogue is
+// either BnEpilogue, which applies a folded BatchNorm as
+// __fadd_rn(__fmul_rn(v, sc), sh), a separate multiply and add as the TPU
+// kernels round, then an optional relu, an optional residual (f32 or bf16)
+// added after BN, and writes f32 or bf16 (with add_out it first reads the
+// bf16 value already in the output, the strided block's pooled y1, and
+// adds it); or F32Epilogue, which stores the f32 sums as they are.
 //
 // What bounds it on the H100: bytes, at the port's shapes. A middle-flow
 // unit at N = 256 (M = 92,416, K = N = 728) reads 135 MB of A and writes
@@ -29,19 +32,20 @@
 //    point, so the build needs no -lcuda). The copy engine zero-fills
 //    boxes past the tensor's edge, which covers ragged M, N and K: the
 //    main loop has no masks.
-//  * Ring and warps. SgCfg<BN>::STAGES stages in shared memory with a full
-//    and an empty mbarrier each. Warpgroup 2 is the producer: one thread
-//    issues every copy, and the warpgroup gives its registers to the two
+//  * Ring and warps. A ring of stages in shared memory with a full and an
+//    empty mbarrier each. Warpgroup 2 is the producer: one thread issues
+//    every copy, and the warpgroup gives its registers to the two
 //    consumer warpgroups (setmaxnreg, 40 and 232 a thread), each owning 64
 //    rows of the 128-row tile; each issues m64nBNk16 over the whole column
 //    tile, keeps one group in flight (wgmma_wait<1>) and releases a stage
 //    when the group that read it has retired. The main loop takes no block
 //    barrier.
 //  * Persistent grid. As many blocks as fit at once (one an SM) walk the
-//    tiles; the column tiles of one row block are consecutive, so the
+//    work items; the column tiles of one row block are consecutive, so the
 //    blocks that share an A tile run at the same time and read it from L2.
-//    The producer fills the ring for the next tile while the consumers run
-//    this tile's epilogue.
+//    The producer fills the ring for the next item while the consumers run
+//    this item's epilogue. K may be split into ranges (SgShape), each its
+//    own work items and its own output plane (the wgrad's pixel splits).
 //  * Clusters. Two CTAs on neighbouring row blocks take the same column
 //    tile and share its B: each loads half of every B box and multicasts
 //    it to both (cp.async.bulk.tensor .multicast::cluster), and each
@@ -50,22 +54,26 @@
 //    L2 by a third at the middle flow's 128 x 184 tiles; a 2 x 2 cluster
 //    that also shared A, a second block an SM, and a TMA store of the
 //    staged tile were slower (PERF.md).
-//  * Staged epilogue. Each consumer warpgroup writes its accumulators, 64
-//    columns at a time, into shared memory, then reads them back by rows,
-//    so that each thread applies the epilogue to 8 consecutive outputs of
-//    4 rows and stores each row's as 16 or 32 contiguous bytes beside its
-//    neighbours'. The bf16 values it adds (the pooled y1, a bf16 residual)
-//    are loaded before the tile's main loop.
+//  * Staged epilogue (BnEpilogue). Each consumer warpgroup writes its
+//    accumulators, 64 columns at a time, into shared memory, then reads
+//    them back by rows, so that each thread applies the epilogue to 8
+//    consecutive outputs of 4 rows and stores each row's as 16 or 32
+//    contiguous bytes beside its neighbours'. The bf16 values it adds (the
+//    pooled y1, a bf16 residual) are loaded before the tile's main loop.
+//    F32Epilogue stores from the accumulators and takes no staging room,
+//    which leaves the unit backward's wider stages a deeper ring.
 //  * A loaders. DenseA: the rows of an (M, K) matrix. StridedA: the
 //    strided block's residual 1x1 stride-2 conv, whose A rows are x's even
 //    rows and columns, read in place by a 4-D tensor map with element
 //    strides (1, 2, 2, 1). Its tile is r whole output rows of one image
 //    (or, when an output row is wider than the tile, a run of one row),
-//    so its rows are consecutive in the output.
+//    so its rows are consecutive in the output. The unit backward adds
+//    two in fused_unit_bwd.cu: one whose consumers form the A tile in
+//    shared memory before their MMAs (prepare), and one read MN-major.
 //
 // Shapes: any M, K and N with K % 8 == N % 8 == 0 (a 16-byte row pitch, as
 // TMA needs) and 16-byte aligned bases. The column tile BN is chosen per N
-// (sg_plan).
+// (sg_plan) by the serving GEMMs, by the caller's plan otherwise.
 #pragma once
 
 #include <cuda.h>
@@ -227,21 +235,9 @@ constexpr int SG_CLUSTER = 2;   // CTAs of a cluster, on neighbouring rows
 constexpr int SG_EPI_LD = 72;   // f32 pitch of a staged row: conflict-free
                                 // float2 writes of the accumulator layout
 constexpr int SG_EPI_BYTES = 64 * SG_EPI_LD * 4;   // a warpgroup's chunk
+constexpr int SG_BARRIER_BYTES = 256;             // full and empty barriers
+constexpr int SG_MAX_STAGES = SG_BARRIER_BYTES / 16;
 constexpr int SG_SMEM_LIMIT = 232448;             // per block, sm_90
-
-template <int BN>
-struct SgCfg {
-  static constexpr int NB = (BN + 63) / 64;         // 64-column B boxes
-  static constexpr int A_BYTES = SG_BM * SG_BK * 2;
-  static constexpr int B_BYTES = NB * SG_BK * 128;
-  static constexpr int STAGE = A_BYTES + B_BYTES;   // a multiple of 1024
-  // 1024 bytes of alignment slack, the two staging chunks, the barriers.
-  static constexpr int FIXED = 1024 + 2 * SG_EPI_BYTES + 256;
-  static constexpr int FIT = (SG_SMEM_LIMIT - FIXED) / STAGE;
-  static constexpr int STAGES = FIT < 5 ? FIT : 5;
-  static constexpr int SMEM = FIXED + STAGES * STAGE;
-  static_assert(BN % 8 == 0 && BN <= 256 && STAGES >= 2, "column tile");
-};
 
 // The output rows of one A tile: rows m0 .. m0 + rows - 1, which are the
 // tile's shared-memory rows 0 .. rows - 1.
@@ -250,19 +246,36 @@ struct TileRows {
   int rows;
 };
 
+// ------------------------------------------------------------ A loaders
+// An A loader tells the kernel how a stage's A tile is filled and read:
+//   A_BYTES  the tile's room in a stage (a multiple of 1024);
+//   TA       0: K-major (rows of 64 k-values, 32 bytes a k-step of 16),
+//            1: MN-major (box h of 64 rows holds rows 64 h .. 64 h + 63
+//            as 64 k-rows of 128 bytes, 2048 bytes a k-step of 16);
+//   tiles()  row tiles; rows(t) the output rows of tile t;
+//   bytes(t) the bytes that load(t) brings in;
+//   prefetch() and load(dst, map, t, k0, bar): the producer's part;
+//   prepare(stage, k0, n0, real, rows, cw, tid): what consumer warpgroup
+//            cw does to a full stage before its MMAs read it.
+
 // A as the rows of an (M, K) bf16 matrix; map: 2-D {K, M}, box {64, 128}.
 struct DenseA {
+  static constexpr int A_BYTES = SG_BM * SG_BK * 2;
+  static constexpr int TA = 0;
   int M;
   __host__ __device__ int tiles() const { return (M + SG_BM - 1) / SG_BM; }
-  __device__ uint32_t bytes() const { return SG_BM * SG_BK * 2; }
+  __device__ uint32_t bytes(int) const { return A_BYTES; }
   __device__ TileRows rows(int t) const {
     const int m0 = t * SG_BM;
     return {m0, min(SG_BM, M - m0)};
   }
+  __device__ void prefetch() const {}
   __device__ void load(void* dst, const CUtensorMap* map, int t, int k0,
                        uint64_t* bar) const {
     tma_load_2d(dst, map, k0, t * SG_BM, bar);
   }
+  __device__ void prepare(unsigned char*, int, int, bool, const TileRows&,
+                          int, int) const {}
 };
 
 // A of the 1x1 stride-2 conv over x (n, H, W, C): output pixel (n, i, j)
@@ -272,20 +285,25 @@ struct DenseA {
 // strides {1, 2, 2, 1}, box {64, 2 wc, 2 r, 1}: the copy engine walks
 // every other column and row and writes the tile's rows in output order.
 struct StridedA {
+  static constexpr int A_BYTES = SG_BM * SG_BK * 2;
+  static constexpr int TA = 0;
   int H2, W2, wc, r, ni, nj, n_img;
   __host__ __device__ int tiles() const { return n_img * ni * nj; }
-  __device__ uint32_t bytes() const { return 128u * wc * r; }
+  __device__ uint32_t bytes(int) const { return 128u * wc * r; }
   __device__ TileRows rows(int t) const {
     const int j = t % nj, i = (t / nj) % ni, n = t / (nj * ni);
     const int i0 = i * r, j0 = j * wc;
     const long long m0 = ((long long)n * H2 + i0) * W2 + j0;
     return {m0, nj == 1 ? min(r, H2 - i0) * W2 : min(wc, W2 - j0)};
   }
+  __device__ void prefetch() const {}
   __device__ void load(void* dst, const CUtensorMap* map, int t, int k0,
                        uint64_t* bar) const {
     const int j = t % nj, i = (t / nj) % ni, n = t / (nj * ni);
     tma_load_4d(dst, map, k0, 2 * j * wc, 2 * i * r, n, bar);
   }
+  __device__ void prepare(unsigned char*, int, int, bool, const TileRows&,
+                          int, int) const {}
 };
 
 // ------------------------------------------------------------- epilogue
@@ -333,6 +351,7 @@ __device__ __forceinline__ void store8(bf16* p, const float v[8]) {
 constexpr int SG_EPI_ROWS = 4;
 
 struct BnEpilogue {
+  static constexpr bool STAGED = true;
   const float* sc;
   const float* sh;
   const float* res_f32;
@@ -406,35 +425,126 @@ struct BnEpilogue {
   }
 };
 
+// out[split] = acc in f32, stored from the accumulators (no staging): out
+// holds one plane a k split, `plane` floats apart, of rows ld floats long.
+// Thread rows lr and lr + 8 of the tile (those below tr.rows), columns
+// below N; each quad of lanes stores 32 contiguous bytes of a row.
+struct F32Epilogue {
+  static constexpr bool STAGED = false;
+  float* out;
+  int ld;
+  long long plane;
+  template <int BN>
+  __device__ __forceinline__ void store(const float (&d)[BN / 2],
+                                        const TileRows& tr, int n0, int N,
+                                        int split, int lr, int lane) const {
+    float* o = out + split * plane + tr.m0 * ld;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane & 3);
+      if (col >= N) continue;
+      if (lr < tr.rows)
+        *reinterpret_cast<float2*>(o + (long long)lr * ld + col) =
+            make_float2(d[4 * j], d[4 * j + 1]);
+      if (lr + 8 < tr.rows)
+        *reinterpret_cast<float2*>(o + (long long)(lr + 8) * ld + col) =
+            make_float2(d[4 * j + 2], d[4 * j + 3]);
+    }
+  }
+};
+
+// ------------------------------------------------------------ the ring
+template <int BN, class ALoad = DenseA, class Epi = BnEpilogue>
+struct SgCfg {
+  static constexpr int NB = (BN + 63) / 64;         // 64-column B boxes
+  static constexpr int A_BYTES = ALoad::A_BYTES;
+  static constexpr int B_BYTES = NB * SG_BK * 128;
+  static constexpr int STAGE = A_BYTES + B_BYTES;   // a multiple of 1024
+  // 1024 bytes of alignment slack, a staged epilogue's two chunks, the
+  // barriers.
+  static constexpr int EPI_BYTES = Epi::STAGED ? 2 * SG_EPI_BYTES : 0;
+  static constexpr int FIXED = 1024 + EPI_BYTES + SG_BARRIER_BYTES;
+  static constexpr int FIT = (SG_SMEM_LIMIT - FIXED) / STAGE;
+  // The serving GEMMs' ring: as many stages as fit, at most 5.
+  static constexpr int STAGES = FIT < 5 ? FIT : 5;
+  static constexpr int smem(int stages) { return FIXED + stages * STAGE; }
+  static constexpr int SMEM = FIXED + STAGES * STAGE;
+  static_assert(BN % 8 == 0 && BN <= 256 && STAGES >= 2, "column tile");
+  static_assert(A_BYTES % 1024 == 0, "A tile");
+};
+
+// What a launch computes: N output columns; k from 0 to K in `splits`
+// ranges of `chunk` (a multiple of SG_BK), each its own work items and
+// output plane; B's slice bz; clusters of cm CTAs; a ring of `stages`.
+struct SgShape {
+  int N, K, bz, cm, splits, chunk, stages;
+};
+
+// A work item as CTA cx of its cluster takes it: row tile mt (the last one
+// for a CTA past it, which computes it for its partners and stores
+// nothing: real false), first column n0, and k split `split`, whose k
+// range starts at k0 and takes nk stages.
+struct SgItem {
+  int mt;
+  bool real;
+  int n0, k0, nk, split;
+};
+
+template <int BN>
+__device__ __forceinline__ SgItem sg_item(const SgShape& s, int mtiles,
+                                          int item, int cx) {
+  const int nt = (s.N + BN - 1) / BN;
+  const int ctiles = (mtiles + s.cm - 1) / s.cm * nt;
+  const int split = item / ctiles, ct = item - split * ctiles;
+  const int mt = (ct / nt) * s.cm + cx;
+  const int k0 = split * s.chunk, k1 = min(s.K, k0 + s.chunk);
+  return {min(mt, mtiles - 1), mt < mtiles, (ct % nt) * BN, k0,
+          (k1 - k0 + SG_BK - 1) / SG_BK, split};
+}
+
+// A position in the ring: its stage and the parity of that stage's pass.
+struct RingPos {
+  int st = 0;
+  int ph = 0;
+  __device__ __forceinline__ void next(int stages) {
+    if (++st == stages) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+};
+
 // --------------------------------------------------------------- kernel
-// Clusters of SG_CLUSTER CTAs on neighbouring row blocks share each column
-// tile's B: CTA x of a cluster loads k-rows x * 64 / cm .. of every B box
-// and multicasts them to the others, so a stage of a CTA is written by all
-// of its cluster and each consumer warp releases it to all of them. A CTA
-// whose row block lies past M (the last cluster of an odd grid) loads and
-// multiplies the last row block for its partners and stores nothing.
-template <int BN, class ALoad>
+// Clusters of cm CTAs on neighbouring row blocks share each column tile's
+// B: CTA x of a cluster loads k-rows x * 64 / cm .. of every B box and
+// multicasts them to the others, so a stage of a CTA is written by all of
+// its cluster and each consumer warp releases it to all of them. A CTA
+// whose row block lies past the last (the last cluster of an odd count)
+// loads and multiplies the last row block for its partners and stores
+// nothing.
+template <int BN, class ALoad, class Epi>
 __global__ void __launch_bounds__(SG_THREADS, 1)
     sepconv_gemm_kernel(const __grid_constant__ CUtensorMap amap,
                         const __grid_constant__ CUtensorMap bmap,
-                        const ALoad al, const BnEpilogue epi, int N, int K,
-                        int bz, int cm) {
-  using C = SgCfg<BN>;
+                        const __grid_constant__ ALoad al, const Epi epi,
+                        const SgShape sh) {
+  using C = SgCfg<BN, ALoad, Epi>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  float* stg = reinterpret_cast<float*>(base + C::STAGES * C::STAGE);
-  uint64_t* full = reinterpret_cast<uint64_t*>(stg + 2 * 64 * SG_EPI_LD);
-  uint64_t* empty = full + C::STAGES;
-  const int mtiles = al.tiles(), nt = (N + BN - 1) / BN;
-  const int ctiles = (mtiles + cm - 1) / cm * nt;
+  const int S = sh.stages, cm = sh.cm;
+  float* stg = reinterpret_cast<float*>(base + S * C::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S * C::STAGE +
+                                               C::EPI_BYTES);
+  uint64_t* empty = full + S;
+  const int mtiles = al.tiles(), nt = (sh.N + BN - 1) / BN;
+  const int items = (mtiles + cm - 1) / cm * nt * sh.splits;
   const int cid = blockIdx.x / cm, clusters = gridDim.x / cm;
   const int cx = (int)cluster_ctarank();
-  const int nk = (K + SG_BK - 1) / SG_BK;
   const uint16_t peers = (uint16_t)((1u << cm) - 1);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], SG_WARPS * cm);
     }
@@ -443,40 +553,41 @@ __global__ void __launch_bounds__(SG_THREADS, 1)
   cluster_sync();
 
   if (threadIdx.x >= SG_CONSUMERS) {
-    // Producer: one thread keeps the ring full across tiles.
+    // Producer: one thread keeps the ring full across work items.
     setmaxnreg_dec<SG_PRODUCER_REGS>();
     if (threadIdx.x == SG_CONSUMERS) {
       prefetch_tensor_map(&amap);
       prefetch_tensor_map(&bmap);
+      al.prefetch();
       const int kr = SG_BK / cm;
-      int it = 0;
-      for (int ct = cid; ct < ctiles; ct += clusters) {
-        const int mt = min((ct / nt) * cm + cx, mtiles - 1);
-        const int n0 = (ct % nt) * BN;
+      RingPos rp;
+      for (int item = cid; item < items; item += clusters) {
+        const SgItem t = sg_item<BN>(sh, mtiles, item, cx);
         // B boxes wholly past N are not fetched: their columns are never
         // stored.
-        const int nb = min(C::NB, (N - n0 + 63) / 64);
-        for (int kt = 0; kt < nk; ++kt, ++it) {
-          const int st = it % C::STAGES;
-          mbar_wait(&empty[st], ((it / C::STAGES) & 1) ^ 1);
-          unsigned char* sa = base + st * C::STAGE;
+        const int nb = min(C::NB, (sh.N - t.n0 + 63) / 64);
+        for (int kt = 0; kt < t.nk; ++kt, rp.next(S)) {
+          mbar_wait(&empty[rp.st], rp.ph ^ 1);
+          unsigned char* sa = base + rp.st * C::STAGE;
+          const int k = t.k0 + kt * SG_BK;
           // All of the stage's bytes land here, whoever loads them.
-          mbar_arrive_expect_tx(&full[st], al.bytes() + nb * SG_BK * 128);
-          al.load(sa, &amap, mt, kt * SG_BK, &full[st]);
+          mbar_arrive_expect_tx(&full[rp.st],
+                                al.bytes(t.mt) + nb * SG_BK * 128);
+          al.load(sa, &amap, t.mt, k, &full[rp.st]);
           for (int b = 0; b < nb; ++b) {
             unsigned char* sb = sa + C::A_BYTES + b * SG_BK * 128;
             if (cm == 1)
-              tma_load_3d(sb, &bmap, n0 + 64 * b, kt * SG_BK, bz, &full[st]);
+              tma_load_3d(sb, &bmap, t.n0 + 64 * b, k, sh.bz, &full[rp.st]);
             else
-              tma_load_3d_mc(sb + cx * kr * 128, &bmap, n0 + 64 * b,
-                             kt * SG_BK + cx * kr, bz, &full[st], peers);
+              tma_load_3d_mc(sb + cx * kr * 128, &bmap, t.n0 + 64 * b,
+                             k + cx * kr, sh.bz, &full[rp.st], peers);
           }
         }
       }
       // Stay until every stage has been released by the whole cluster, so
       // that no partner arrives on this CTA's barriers after it has left.
-      for (int i = 0; i < C::STAGES; ++i, ++it)
-        mbar_wait(&empty[it % C::STAGES], ((it / C::STAGES) & 1) ^ 1);
+      for (int i = 0; i < S; ++i, rp.next(S))
+        mbar_wait(&empty[rp.st], rp.ph ^ 1);
     }
   } else {
     // Consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of each tile.
@@ -489,79 +600,141 @@ __global__ void __launch_bounds__(SG_THREADS, 1)
       if (lane == 0)
         for (int r = 0; r < cm; ++r) mbar_arrive_cta(&empty[st], (uint32_t)r);
     };
-    // This thread's epilogue slot: 8-column group tid % 8 of each 64-column
-    // chunk, rows tid / 8 + 16 i of its warpgroup's 64.
+    // A k-step of 16 in the A descriptor (16-byte units): 32 bytes along a
+    // K-major row, 16 rows of 128 bytes MN-major.
+    constexpr int A_STEP = ALoad::TA ? 128 : 2;
+    // This thread's staged-epilogue slot: 8-column group tid % 8 of each
+    // 64-column chunk, rows tid / 8 + 16 i of its warpgroup's 64.
     const int c = 8 * (tid & 7), lr = cw * 64 + (tid >> 3);
-    const bool pf = epi.extra_bf16() != nullptr;
-    int it = 0;
-    for (int ct = cid; ct < ctiles; ct += clusters) {
-      const int mt = (ct / nt) * cm + cx;
-      const int n0 = (ct % nt) * BN;
-      const TileRows tr = al.rows(min(mt, mtiles - 1));
+    bool pf = false;
+    if constexpr (Epi::STAGED) pf = epi.extra_bf16() != nullptr;
+    RingPos rp;
+    for (int item = cid; item < items; item += clusters) {
+      const SgItem t = sg_item<BN>(sh, mtiles, item, cx);
+      const TileRows tr = al.rows(t.mt);
       uint4 pre[C::NB][SG_EPI_ROWS];
-      if (pf && mt < mtiles) {
+      if constexpr (Epi::STAGED) {
+        if (pf && t.real) {
 #pragma unroll
-        for (int q = 0; q < C::NB; ++q) {
-          const int col = n0 + 64 * q + c;
-          if (64 * q + c < BN && col < N) epi.prefetch(tr, lr, col, pre[q]);
+          for (int q = 0; q < C::NB; ++q) {
+            const int col = t.n0 + 64 * q + c;
+            if (64 * q + c < BN && col < sh.N) epi.prefetch(tr, lr, col, pre[q]);
+          }
         }
       }
       float d[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
       int prev = -1;
-      for (int kt = 0; kt < nk; ++kt, ++it) {
-        const int st = it % C::STAGES;
-        mbar_wait(&full[st], (it / C::STAGES) & 1);
-        const uint32_t sa = smem_u32(base + st * C::STAGE);
-        const uint64_t da = smem_desc(sa + cw * 64 * 128);
+      for (int kt = 0; kt < t.nk; ++kt, rp.next(S)) {
+        mbar_wait(&full[rp.st], rp.ph);
+        unsigned char* sa = base + rp.st * C::STAGE;
+        al.prepare(sa, t.k0 + kt * SG_BK, t.n0, t.real, tr, cw, tid);
+        const uint32_t sa32 = smem_u32(sa);
+        const uint64_t da = smem_desc(sa32 + cw * 64 * 128);
         // B: 64-column groups of 64 k-rows each, 8 KB apart.
-        const uint64_t db = smem_desc(sa + C::A_BYTES, SG_BK * 128 / 16);
+        const uint64_t db = smem_desc(sa32 + C::A_BYTES, SG_BK * 128 / 16);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < SG_BK / 16; ++kk)  // 32 bytes of A, 16 B rows
-          wgmma_bmn<BN>(d, da + 2 * kk, db + 128 * kk);
+        for (int kk = 0; kk < SG_BK / 16; ++kk)   // 16 k: 16 B rows
+          Wgmma<BN, ALoad::TA, 1>::run(d, da + A_STEP * kk, db + 128 * kk);
         wgmma_commit();
         if (prev >= 0) {
           wgmma_wait<1>();
           release(prev);
         }
-        prev = st;
+        prev = rp.st;
       }
       wgmma_wait<0>();
       if (prev >= 0) release(prev);
-      if (mt >= mtiles) continue;
+      if (!t.real) continue;
 
-      // Epilogue, 64 columns at a time. Accumulator layout: warp w4 holds
-      // rows 16 w4 .. 16 w4 + 15; d[4j .. 4j + 3] are the m16n8 fragment
-      // of columns 8j .. 8j + 7.
+      // Accumulator layout: warp w4 holds rows 16 w4 .. 16 w4 + 15;
+      // d[4j .. 4j + 3] are the m16n8 fragment of columns 8j .. 8j + 7.
+      if constexpr (!Epi::STAGED) {
+        epi.template store<BN>(d, tr, t.n0, sh.N, t.split,
+                               cw * 64 + w4 * 16 + (lane >> 2), lane);
+      } else {
+        // Staged, 64 columns at a time.
 #pragma unroll
-      for (int q = 0; q < C::NB; ++q) {
-        named_bar_sync(1 + cw, 128);      // the last chunk has been read
+        for (int q = 0; q < C::NB; ++q) {
+          named_bar_sync(1 + cw, 128);    // the last chunk has been read
 #pragma unroll
-        for (int j = 8 * q; j < 8 * q + 8; ++j) {
-          if (j < BN / 8) {
-            const int col = (j - 8 * q) * 8 + 2 * (lane & 3);
-            const int row = w4 * 16 + (lane >> 2);
-            *reinterpret_cast<float2*>(my_stg + row * SG_EPI_LD + col) =
-                make_float2(d[4 * j], d[4 * j + 1]);
-            *reinterpret_cast<float2*>(my_stg + (row + 8) * SG_EPI_LD +
-                                       col) =
-                make_float2(d[4 * j + 2], d[4 * j + 3]);
+          for (int j = 8 * q; j < 8 * q + 8; ++j) {
+            if (j < BN / 8) {
+              const int col = (j - 8 * q) * 8 + 2 * (lane & 3);
+              const int row = w4 * 16 + (lane >> 2);
+              *reinterpret_cast<float2*>(my_stg + row * SG_EPI_LD + col) =
+                  make_float2(d[4 * j], d[4 * j + 1]);
+              *reinterpret_cast<float2*>(my_stg + (row + 8) * SG_EPI_LD +
+                                         col) =
+                  make_float2(d[4 * j + 2], d[4 * j + 3]);
+            }
           }
+          named_bar_sync(1 + cw, 128);
+          const int col = t.n0 + 64 * q + c;
+          if (64 * q + c < BN && col < sh.N)
+            epi(tr, lr, col, my_stg + (lr - cw * 64) * SG_EPI_LD + c, pre[q]);
         }
-        named_bar_sync(1 + cw, 128);
-        const int col = n0 + 64 * q + c;
-        if (64 * q + c < BN && col < N)
-          epi(tr, lr, col, my_stg + (lr - cw * 64) * SG_EPI_LD + c, pre[q]);
       }
     }
   }
 }
 
 // ------------------------------------------------------------- launcher
-// How one GEMM runs: its column tile and cluster size. The column tile
-// for N output channels is the wider one where it pads fewer columns
+// The launch of the kernel with clusters of cm CTAs and smem bytes a
+// block, and how many of its clusters fit on the card at once.
+template <int BN, class ALoad, class Epi>
+inline cudaError_t sg_configure(int cm, int smem, cudaLaunchConfig_t* cfg,
+                                cudaLaunchAttribute* attr, int* fit) {
+  auto* kernel = sepconv_gemm_kernel<BN, ALoad, Epi>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cm;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cm);
+  cfg->blockDim = dim3(SG_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(fit, kernel, cfg);
+}
+
+// The launch of a caller that plans its own: `grid` CTAs, every one
+// resident at once (the grid is persistent; a grid that does not fit is
+// refused, not cut), `smem` bytes a block for sh.stages stages.
+template <int BN, class ALoad, class Epi>
+inline cudaError_t sepconv_gemm_planned(const CUtensorMap& amap,
+                                        const CUtensorMap& bmap,
+                                        const ALoad& al, const Epi& epi,
+                                        const SgShape& sh, int grid, int smem,
+                                        cudaStream_t s) {
+  using C = SgCfg<BN, ALoad, Epi>;
+  if (sh.stages < 2 || sh.stages > SG_MAX_STAGES ||
+      smem != C::smem(sh.stages) || smem > SG_SMEM_LIMIT || sh.cm < 1 ||
+      sh.cm > SG_CLUSTER || grid < sh.cm || grid % sh.cm || sh.splits < 1 ||
+      sh.chunk < SG_BK || sh.chunk % SG_BK ||
+      (long long)sh.splits * sh.chunk < sh.K ||
+      (long long)(sh.splits - 1) * sh.chunk >= sh.K)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int fit = 0;
+  cudaError_t e = sg_configure<BN, ALoad, Epi>(sh.cm, smem, &cfg, &attr, &fit);
+  if (e != cudaSuccess) return e;
+  if (grid / sh.cm > fit) return cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.stream = s;
+  return cudaLaunchKernelEx(&cfg, sepconv_gemm_kernel<BN, ALoad, Epi>, amap,
+                            bmap, al, epi, sh);
+}
+
+// How one serving GEMM runs: its column tile and cluster size. The column
+// tile for N output channels is the wider one where it pads fewer columns
 // (N = 728: 4 x 184 = 736 against 6 x 128 = 768); clusters pair
 // neighbouring row blocks wherever there are two.
 struct SgPlan {
@@ -575,48 +748,30 @@ inline SgPlan sg_plan(const ALoad& al, int N) {
   return {pad184 < pad128 ? 184 : 128, al.tiles() >= 2 ? SG_CLUSTER : 1};
 }
 
-// The launch of the kernel for plan p (its shared memory and cluster
-// size) and how many of its clusters fit on the card at once.
-template <int BN, class ALoad>
-inline cudaError_t sg_configure(const SgPlan& p, cudaLaunchConfig_t* cfg,
-                                cudaLaunchAttribute* attr, int* fit) {
-  auto* kernel = sepconv_gemm_kernel<BN, ALoad>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SgCfg<BN>::SMEM);
-  if (e != cudaSuccess) return e;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = p.cm;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(p.cm);
-  cfg->blockDim = dim3(SG_THREADS);
-  cfg->dynamicSmemBytes = SgCfg<BN>::SMEM;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(fit, kernel, cfg);
-}
-
 template <int BN, class ALoad>
 inline cudaError_t sepconv_gemm_launch(const SgPlan& p,
                                        const CUtensorMap& amap,
                                        const CUtensorMap& bmap,
                                        const ALoad& al, const BnEpilogue& epi,
                                        int N, int K, int bz, cudaStream_t s) {
+  using C = SgCfg<BN, ALoad, BnEpilogue>;
   const long long ctiles =
       (long long)((al.tiles() + p.cm - 1) / p.cm) * ((N + BN - 1) / BN);
   if (ctiles == 0) return cudaSuccess;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int fit = 0;
-  cudaError_t e = sg_configure<BN, ALoad>(p, &cfg, &attr, &fit);
+  cudaError_t e =
+      sg_configure<BN, ALoad, BnEpilogue>(p.cm, C::SMEM, &cfg, &attr, &fit);
   if (e != cudaSuccess) return e;
   if (fit < 1) return cudaErrorInvalidConfiguration;
   // A persistent grid: as many clusters as fit on the card at once.
   cfg.gridDim = dim3((unsigned)((ctiles < fit ? ctiles : fit) * p.cm));
   cfg.stream = s;
-  return cudaLaunchKernelEx(&cfg, sepconv_gemm_kernel<BN, ALoad>, amap, bmap,
-                            al, epi, N, K, bz, p.cm);
+  const SgShape sh{N, K, bz, p.cm, 1, (K + SG_BK - 1) / SG_BK * SG_BK,
+                   C::STAGES};
+  return cudaLaunchKernelEx(&cfg, sepconv_gemm_kernel<BN, ALoad, BnEpilogue>,
+                            amap, bmap, al, epi, sh);
 }
 
 // out = epi(A . B[bz]) for A as `al` reads it through amap and B the
@@ -639,20 +794,27 @@ constexpr int SG_REPORT = 7;
 
 template <class ALoad>
 inline cudaError_t sepconv_gemm_report(const SgPlan& p, int out[SG_REPORT]) {
+  using Wide = SgCfg<184, ALoad, BnEpilogue>;
+  using Narrow = SgCfg<128, ALoad, BnEpilogue>;
   cudaFuncAttributes a;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int fit = 0;
   const bool wide = p.bn == 184;
-  cudaError_t e = wide ? sg_configure<184, ALoad>(p, &cfg, &attr, &fit)
-                       : sg_configure<128, ALoad>(p, &cfg, &attr, &fit);
+  cudaError_t e =
+      wide ? sg_configure<184, ALoad, BnEpilogue>(p.cm, Wide::SMEM, &cfg,
+                                                  &attr, &fit)
+           : sg_configure<128, ALoad, BnEpilogue>(p.cm, Narrow::SMEM, &cfg,
+                                                  &attr, &fit);
   if (e == cudaSuccess)
-    e = wide ? cudaFuncGetAttributes(&a, sepconv_gemm_kernel<184, ALoad>)
-             : cudaFuncGetAttributes(&a, sepconv_gemm_kernel<128, ALoad>);
+    e = wide ? cudaFuncGetAttributes(
+                   &a, sepconv_gemm_kernel<184, ALoad, BnEpilogue>)
+             : cudaFuncGetAttributes(
+                   &a, sepconv_gemm_kernel<128, ALoad, BnEpilogue>);
   out[0] = p.bn;
   out[1] = p.cm;
-  out[2] = wide ? SgCfg<184>::STAGES : SgCfg<128>::STAGES;
-  out[3] = wide ? SgCfg<184>::SMEM : SgCfg<128>::SMEM;
+  out[2] = wide ? Wide::STAGES : Narrow::STAGES;
+  out[3] = wide ? Wide::SMEM : Narrow::SMEM;
   out[4] = a.numRegs;
   out[5] = (int)a.localSizeBytes;
   out[6] = fit * p.cm;

@@ -116,16 +116,26 @@ def unit_bwd_reference(gy, r, d, p, taps, wpw, gamma, mu, var, eps: float,
 # ---------------------------------------------------------------- kernels
 
 # The launch plan's fields, in the order csrc/fused_unit_bwd.cu reads them.
-PLAN_FIELDS = ("bn_rows", "bn_parts",
-               "dg_bn", "dg_stages", "dg_grid", "dg_cluster",
-               "wg_bn", "wg_stages", "wg_grid", "wg_splits", "wg_chunk",
-               "wg_cluster",
+PLAN_FIELDS = ("bn_tx", "bn_gx", "bn_rows", "bn_parts", "fin_grid",
+               "dg_bn", "dg_stages", "dg_smem", "dg_grid", "dg_cluster",
+               "wg_bn", "wg_stages", "wg_smem", "wg_grid", "wg_splits",
+               "wg_chunk", "wg_cluster",
                "dw_cb", "dw_ncs", "dw_cpt", "dw_wt", "dw_nwr", "dw_rows",
                "dw_nstrips",
-               "dw_grid", "dw_ring", "dw_consumers", "dw_smem", "dw_blocks")
+               "dw_grid", "dw_ring", "dw_consumers", "dw_smem", "dw_blocks",
+               "red_grid")
+# The plan's launch grids (each dimension at most 65535) and shared memory.
+GRID_FIELDS = ("bn_gx", "bn_parts", "fin_grid", "dg_grid", "wg_grid",
+               "dw_blocks", "red_grid")
+SMEM_FIELDS = ("dg_smem", "wg_smem", "dw_smem")
 SMEM_LIMIT = 232448          # dynamic shared memory a block, sm_90
-GEMM_FIXED = 1024 + 256      # a GEMM block's alignment slack and barriers
+# A GEMM block (csrc/sepconv_gemm.cuh with F32Epilogue): alignment slack
+# and barriers, then the ring; a 128 x 64 A tile of bf16 is 16 KB, a
+# 64-column B box of 64 k-rows 8 KB.
+GEMM_FIXED = 1024 + 256
 GEMM_MAX_STAGES = 6
+GEMM_TILE = 128 * 64 * 2
+GEMM_BOX = 64 * 64 * 2
 # Computing threads of a depthwise block, by columns a thread: with two,
 # 13 warps keep the 128 registers a thread that its windows take.
 DW_MAX_CONSUMERS = {1: 512, 2: 384}
@@ -133,6 +143,7 @@ DW_WIDE = 256                # channels past which a thread takes two columns
 DW_BARRIERS = 256            # bytes of barriers before its ring
 DW_RING_BYTES = 180 * 1024   # at most, its ring of row slots
 DW_RING = 16                 # at most, row slots
+RED_BLOCKS = 2048            # at most, blocks of the final reduction
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -151,53 +162,60 @@ def _column_tile(n: int) -> int:
     return min(tiles, key=lambda t: (_cdiv(n, t) * t - n, -t))
 
 
+def _gemm(a_tile: int, rows: int, cols: int, splits: int, sms: int) -> dict:
+    """One GEMM's launch: column tile, ring stages (as many as fit, at
+    most GEMM_MAX_STAGES) and shared memory for an A tile of a_tile bytes
+    a stage; clusters of two on neighbouring row tiles wherever there are
+    two; a persistent grid of whole clusters, at most one block an SM and
+    no more than the work items."""
+    bn = _column_tile(cols)
+    stage = a_tile + _cdiv(bn, 64) * GEMM_BOX
+    stages = min(GEMM_MAX_STAGES, (SMEM_LIMIT - GEMM_FIXED) // stage)
+    cm = 2 if rows > 128 else 1
+    items = _cdiv(_cdiv(rows, 128), cm) * _cdiv(cols, bn) * splits
+    return {"bn": bn, "stages": stages, "smem": GEMM_FIXED + stages * stage,
+            "grid": cm * min(items, sms // cm), "cluster": cm}
+
+
 def launch_plan(n: int, h: int, w: int, ci: int, co: int, hs=None,
                 sms: int = 132) -> dict:
     """How one unit backward runs on a card of ``sms`` SMs: the PLAN_FIELDS
-    that the kernels read, each pass's grid and shared memory, and the
-    scratch tensors' shapes. ``hs`` None is the plane kernel (a
-    depthwise block walks all H rows), else the strip height.
+    that the kernels read and launch as they are (every grid, tile, split,
+    ring depth and shared-memory size), and the scratch tensors' shapes.
+    ``hs`` None is the plane kernel (a depthwise block walks all H rows),
+    else the strip height.
 
-    BN sums: at most 1024 row blocks of at least 256 rows. GEMMs (dgrad: M pixels x CI, k = CO;
-    wgrad: CI x CO, k = M pixels): 128-row tiles, the column tile of
-    ``_column_tile``, a ring of as many stages as fit (at most 6), a
-    persistent grid of at most one block an SM, in clusters of two on
-    neighbouring row tiles that share each B tile (multicast) wherever
-    there are two row tiles; the wgrad's pixels split for about four work
-    items an SM, at least 512 pixels a split.
-    Depthwise backward: two channels of one column a thread, or of two
-    columns where CI passes 256 (at most 512 threads a block, or 384
+    BN sums: blocks of 256 threads, up to 32 groups of 8 channels by
+    rows, at most 1024 row blocks of at least 256 rows. GEMMs (dgrad: M pixels x CI, k = CO;
+    wgrad: CI x CO, k = M pixels; ``_gemm``): 128-row tiles, the wgrad's
+    pixels split for about four work items an SM, at least 512 pixels a
+    split. Depthwise backward: two channels of one column a thread, or of
+    two columns where CI passes 256 (at most 512 threads a block, or 384
     with two columns a thread, and at most twice as many channels: wider
     CI in equal slices of a multiple of 8), as many columns as the
-    threads hold, a ring of at most 16 rows in 180 KB, and a
-    persistent grid of one block an SM walking (strip or image, column
-    range) items."""
+    threads hold, a ring of at most 16 rows in 180 KB, and a persistent
+    grid of one block an SM walking (strip or image, column range)
+    items."""
     m = n * h * w
-    p = {"bn_rows": max(256, _cdiv(m, 1024))}
+    p = {"bn_tx": min(32, co // 8)}
+    p["bn_gx"] = _cdiv(co // 8, p["bn_tx"])
+    p["bn_rows"] = max(256, _cdiv(m, 1024))
     p["bn_parts"] = _cdiv(m, p["bn_rows"])
+    p["fin_grid"] = _cdiv(co, 32)
 
-    # dgrad: a stage is gy's and p's 128 x 64 tiles and Wpw's BN x 64.
-    bn = _column_tile(ci)
-    stage = 2 * 128 * 64 * 2 + bn * 128
-    p["dg_bn"] = bn
-    p["dg_stages"] = min(GEMM_MAX_STAGES, (SMEM_LIMIT - GEMM_FIXED) // stage)
-    dg_smem = GEMM_FIXED + p["dg_stages"] * stage
-    p["dg_grid"] = max(1, min(_cdiv(m, 128) * _cdiv(ci, bn), sms))
-    p["dg_cluster"] = 2 if m > 128 else 1
+    # dgrad: an A stage is gy's and p's 128 x 64 tiles.
+    dg = _gemm(2 * GEMM_TILE, m, ci, 1, sms)
+    p.update({f"dg_{k}": v for k, v in dg.items()})
 
-    # wgrad: a stage is d's two 64 x 64 boxes and gp's BN/64 boxes.
-    bn = _column_tile(co)
-    stage = 128 * 64 * 2 + _cdiv(bn, 64) * 64 * 128
-    tiles = _cdiv(ci, 128) * _cdiv(co, bn)
+    # wgrad: an A stage is d's two 64 x 64 boxes.
+    tiles = _cdiv(ci, 128) * _cdiv(co, _column_tile(co))
     splits = max(1, min(_cdiv(4 * sms, tiles), _cdiv(m, 512)))
     chunk = _cdiv(_cdiv(m, splits), 64) * 64
     splits = _cdiv(m, chunk)
-    p["wg_bn"] = bn
-    p["wg_stages"] = min(GEMM_MAX_STAGES, (SMEM_LIMIT - GEMM_FIXED) // stage)
-    wg_smem = GEMM_FIXED + p["wg_stages"] * stage
-    p["wg_grid"] = max(1, min(tiles * splits, sms))
+    wg = _gemm(GEMM_TILE, ci, co, splits, sms)
+    p.update({f"wg_{k}": v for k, v in wg.items() if k != "cluster"})
     p["wg_splits"], p["wg_chunk"] = splits, chunk
-    p["wg_cluster"] = 2 if ci > 128 else 1
+    p["wg_cluster"] = wg["cluster"]
 
     # Depthwise backward.
     cpt = 2 if ci > DW_WIDE else 1
@@ -219,18 +237,11 @@ def launch_plan(n: int, h: int, w: int, ci: int, co: int, hs=None,
              dw_consumers=consumers,
              dw_smem=DW_BARRIERS + max(ring * slot, consumers * 72),
              dw_blocks=ncs * grid)
+    p["red_grid"] = min(RED_BLOCKS, _cdiv(ci * co, 128) + _cdiv(9 * ci, 128))
     assert tuple(p) == PLAN_FIELDS
     p["ints"] = [p[k] for k in PLAN_FIELDS]
-    p["smem"] = {"dgrad": dg_smem, "wgrad": wg_smem, "dw_bwd": p["dw_smem"]}
-    p["grids"] = {"bn_sums": (_cdiv(co // 8, min(32, co // 8)),
-                              p["bn_parts"]),
-                  "bn_finalize": (_cdiv(co, 32),),
-                  "dgrad": (p["dg_grid"],), "wgrad": (p["wg_grid"],),
-                  "dw_bwd": (p["dw_blocks"],),
-                  "reduce": (min(2048, _cdiv(ci * co, 128)
-                                 + _cdiv(9 * ci, 128)),)}
     p["scratch"] = {"bn_part": (p["bn_parts"], 2, co), "vec": (5, co),
-                    "gpb": (m, co), "gd": (m, ci),
+                    "wpw16": (co, ci), "gpb": (m, co), "gd": (m, ci),
                     "wg_part": (splits, ci, co),
                     "dw_part": (grid, 9, ci)}
     return p
@@ -267,15 +278,17 @@ def _launch(name, gy, r, d, p, taps, wpw, gamma, mu, var, eps, relu_first,
         if tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"{name}: {t_name} must be {shape} on {dev}, got "
                              f"{tuple(t.shape)} on {t.device}")
-    # Casts only where the dtype differs; the kernels read the weights as
-    # they lie (Wpw as the dgrad's K-major B, the taps unflipped).
-    taps32 = taps.detach().float().contiguous()
-    wpw16 = wpw.detach().to(torch.bfloat16).contiguous()
+    # The kernels read both weights in f32 as the modules hold them: the
+    # taps as (CI, 9) and Wpw as (CO, CI), of which the training path's
+    # (9, CI) and (CI, CO) arguments are transposed views, so there these
+    # are views and launch nothing (pass 1 casts Wpw to bf16).
+    taps_m = taps.detach().t().float().contiguous()
+    wpw_m = wpw.detach().t().float().contiguous()
     gamma32, mu32, var32 = (t.detach().float().contiguous()
                             for t in (gamma, mu, var))
     # The kernels read the activations in 16-byte vectors and by TMA.
     for t_name, t in (("gy", gy), ("p", p), ("r", r), ("d", d),
-                      ("taps", taps32), ("wpw", wpw16), ("gamma", gamma32),
+                      ("taps", taps_m), ("wpw", wpw_m), ("gamma", gamma32),
                       ("mu", mu32), ("var", var32)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {t_name} must start on a 16-byte "
@@ -289,20 +302,25 @@ def _launch(name, gy, r, d, p, taps, wpw, gamma, mu, var, eps, relu_first,
     da = torch.empty_like(r)
     dwdw, dwpw, dgamma, dbeta = f32(9, ci), f32(ci, co), f32(co), f32(co)
     bn_part, vec = f32(*sc["bn_part"]), f32(*sc["vec"])
-    gpb = torch.empty(sc["gpb"], dtype=torch.bfloat16, device=dev)
+    wpw16, gpb = (torch.empty(sc[k], dtype=torch.bfloat16, device=dev)
+                  for k in ("wpw16", "gpb"))
     gd, wg_part, dw_part = f32(*sc["gd"]), f32(*sc["wg_part"]), f32(
         *sc["dw_part"])
     ints = (ctypes.c_int * len(PLAN_FIELDS))(*plan["ints"])
+    if _build.bound(SOURCE, "unit_bwd_plan_fields", [],
+                    ctypes.c_int)() != len(PLAN_FIELDS):
+        raise RuntimeError(f"{name}: the kernel reads another plan")
     fn = _build.bound(SOURCE, f"{name}_launch",
                       [ctypes.c_void_p] * 9 + [ctypes.c_float]
-                      + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                          ctypes.c_void_p])
-    rc = fn(*(_build.ptr(t) for t in (gy, p, r, d, taps32, wpw16, gamma32,
+    rc = fn(*(_build.ptr(t) for t in (gy, p, r, d, taps_m, wpw_m, gamma32,
                                       mu32, var32)),
             float(eps),
             *(_build.ptr(t) for t in (da, dwdw, dwpw, dgamma, dbeta, bn_part,
-                                      vec, gpb, gd, wg_part, dw_part)),
+                                      vec, wpw16, gpb, gd, wg_part,
+                                      dw_part)),
             n, h, w, ci, co, int(bool(relu_first)), ints,
             dev.index or 0, _build.stream_ptr(gy))
     _build.check(rc, name)

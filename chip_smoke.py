@@ -29,10 +29,12 @@ call). The first form runs these phases, each printing one JSON line:
    block and depthwise rows do per geometry, and gives its host
    time a call (``host_us``, 50 calls enqueued without a synchronize).
    The two unit-backward kernels are held at the 147x147 64->128 and the
-   19x19 728->728 geometries at batch 128; their ms, plain ms, library
-   ms and bound are the two geometries' added; each repeats its outputs
-   bit for bit, and its profile must hold only UNIT_BWD_KERNELS (so that
-   the train phase's ``unit_bwd_kernels_ms`` covers the unit backward). The fused strided block
+   19x19 728->728 geometries at batch 128, their weights laid out as the
+   training path passes them; their ms, plain ms, library ms and bound
+   are the two geometries' added; each repeats its outputs bit for bit,
+   and its profile must hold only UNIT_BWD_KERNELS (so that the train
+   phase's ``unit_bwd_kernels_ms`` covers the unit backward). The fused
+   strided block
    is held at the four serving geometries (entry0 147^2 64->128, entry1
    74^2 128->256, entry2 37^2 256->728, exit 19^2 728->728->1024) at 256
    tiles, its library yardstick the port's eval-mode ``XceptionBlock``;
@@ -98,10 +100,12 @@ BLOCK_GEOMETRIES = ((147, 64, 128, 128, False), (74, 128, 256, 256, True),
 # (H = W, C) of the depthwise 3x3 rows: entry0's second conv and the
 # middle flow's.
 DW_GEOMETRIES = ((147, 128), (19, 728))
-# The device kernels of csrc/fused_unit_bwd.cu, by the names the profiler
-# shows (its two GEMMs apart from the serving path's sepconv_gemm_kernel).
+# The device kernels of csrc/fused_unit_bwd.cu, by what the profiler's
+# names hold: its two GEMMs are instantiations of sepconv_gemm.cuh's
+# sepconv_gemm_kernel, told apart from the serving path's by their A
+# loaders, UbDgradA and UbWgradA.
 UNIT_BWD_KERNELS = ("ub_bn_sums_kernel", "ub_bn_finalize_kernel",
-                    "ub_dgrad_kernel", "ub_wgrad_kernel", "ub_dw_bwd_kernel",
+                    "UbDgradA", "UbWgradA", "ub_dw_bwd_kernel",
                     "ub_reduce_kernel")
 # (H = W, CI, CO, relu_first) of the per-pass profile of the unit
 # backward (``--unit-bwd-passes``): UNIT_GEOMETRIES, entry2's first unit
@@ -381,16 +385,18 @@ def library_unit_bwd(torch, a, taps, wpw, gamma, beta, relu_first):
 
 def unit_bwd_inputs(torch, gen, n, hw, ci, co, relu_first):
     """Seeded inputs of one unit backward on the card: (a, the forward's
-    weights, the backward's arguments). Wpw is given in bf16, as the
-    kernel reads it, so a call launches no cast."""
+    weights, the backward's arguments). The weights are given as the
+    training path gives them (``train/fused_train.py``): the (9, CI) taps
+    and the (CI, CO) Wpw are transposed views of f32 tensors laid out as
+    the modules hold them, (CI, 9) and (CO, CI)."""
     from biscuit_torch.ops.fused_unit_bwd import unit_fwd
 
     def normal(shape, std=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * std
 
     a = normal((n, hw, hw, ci)).to(torch.bfloat16)
-    taps = normal((9, ci), 0.2)
-    wpw = normal((ci, co), ci ** -0.5).to(torch.bfloat16)
+    taps = normal((ci, 9), 0.2).t()
+    wpw = normal((co, ci), ci ** -0.5).t()
     gamma, beta = 1 + normal((co,), 0.1), normal((co,), 0.1)
     gy = normal((n, hw, hw, co)).to(torch.bfloat16)
     _, mu, var, (r, d, p) = unit_fwd(a, taps, wpw, gamma, beta, 1e-5,
@@ -1203,7 +1209,7 @@ def main(argv=None) -> int:
         for name in ("fused_middle_flow", "fused_block")},
         "fused_unit_bwd": ptxas_entries(
             _build.build_log("fused_unit_bwd"),
-            ("ub_dgrad_kernel", "ub_wgrad_kernel", "ub_dw_bwd_kernel"))})
+            ("UbDgradA", "UbWgradA", "ub_dw_bwd_kernel"))})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []

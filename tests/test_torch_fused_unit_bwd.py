@@ -213,26 +213,44 @@ XCEPTION_299_UNITS = ([(147, 64, 128), (147, 128, 128), (74, 128, 256),
 def test_launch_plan_fits_the_card(batch, hs):
     """The kernels' launch plan at every Xception-299 unit: grids within
     65535 a dimension, non-empty scratch, shared memory within a block's
-    227 KB, and the limits the CUDA source checks."""
+    227 KB, and the limits the CUDA source checks. The kernels launch
+    these fields as they are."""
     assert len(XCEPTION_299_UNITS) == 34
     for hw, ci, co in XCEPTION_299_UNITS:
         plan = tub.launch_plan(batch, hw, hw, ci, co, hs)
         where = (batch, hw, ci, co, hs)
         assert len(plan["ints"]) == len(tub.PLAN_FIELDS), where
-        for name, grid in plan["grids"].items():
-            assert all(1 <= g <= 65535 for g in grid), (where, name, grid)
+        for name in tub.GRID_FIELDS:
+            assert 1 <= plan[name] <= 65535, (where, name, plan[name])
         for name, shape in plan["scratch"].items():
             assert all(s >= 1 for s in shape), (where, name, shape)
-        for name, smem in plan["smem"].items():
-            assert 0 < smem <= tub.SMEM_LIMIT, (where, name, smem)
+        for name in tub.SMEM_FIELDS:
+            assert 0 < plan[name] <= tub.SMEM_LIMIT, (where, name, plan[name])
         m = batch * hw * hw
+        assert 1 <= plan["bn_tx"] <= 32, where
+        assert plan["bn_gx"] * plan["bn_tx"] * 8 >= co, where
+        assert plan["bn_parts"] * plan["bn_rows"] >= m, where
+        assert plan["fin_grid"] * 32 >= co, where
         assert plan["wg_chunk"] % 64 == 0, where
         assert (plan["wg_splits"] - 1) * plan["wg_chunk"] < m, where
         assert plan["wg_splits"] * plan["wg_chunk"] >= m, where
-        assert 1 <= plan["dg_stages"] <= 16 and 1 <= plan["wg_stages"] <= 16
-        assert plan["dg_cluster"] in (1, 2) and plan["wg_cluster"] in (1, 2)
-        # A cluster's two CTAs load half of each B box: whole swizzle atoms.
-        assert plan["dg_bn"] // plan["dg_cluster"] % 8 == 0, where
+        for g, a_tile, rows, cols, splits in (
+                ("dg", 2 * tub.GEMM_TILE, m, ci, 1),
+                ("wg", tub.GEMM_TILE, ci, co, plan["wg_splits"])):
+            bn, cm = plan[f"{g}_bn"], plan[f"{g}_cluster"]
+            stages, grid = plan[f"{g}_stages"], plan[f"{g}_grid"]
+            assert bn in (64, 128, 256) and cm in (1, 2), (where, g)
+            # A ring of at least two stages (16 at most: the barriers'
+            # room), its shared memory as csrc/sepconv_gemm.cuh lays it out.
+            assert 2 <= stages <= 16, (where, g, stages)
+            stage = a_tile + tub._cdiv(bn, 64) * tub.GEMM_BOX
+            assert plan[f"{g}_smem"] == tub.GEMM_FIXED + stages * stage
+            # A persistent grid of whole clusters, one block an SM, no more
+            # clusters than work items.
+            items = (tub._cdiv(tub._cdiv(rows, 128), cm) * tub._cdiv(cols, bn)
+                     * splits)
+            assert grid % cm == 0 and grid <= 132, (where, g, grid)
+            assert 1 <= grid // cm <= items, (where, g, grid, items)
         assert 2 <= plan["dw_ring"] <= 16, where
         assert plan["dw_consumers"] % 32 == 0, where
         cpt = plan["dw_cpt"]

@@ -286,6 +286,24 @@ def test_unit_bwd_repeats_bit_for_bit(gen, shape):
             assert torch.equal(x, y)
 
 
+def test_unit_bwd_reads_the_module_layout(gen):
+    """The weights as the training path passes them, transposed views of
+    f32 tensors laid out as the modules hold them ((CI, 9) taps, (CO, CI)
+    Wpw), give the same outputs to the bit as contiguous (9, CI) and
+    (CI, CO) weights."""
+    _, args = unit_bwd_args(gen, UNIT_SHAPES[2], True)
+    taps, wpw = args[4], args[5]
+    views = args[:4] + (taps.t().contiguous().t(),
+                        wpw.t().contiguous().t()) + args[6:]
+    assert not views[4].is_contiguous() and not views[5].is_contiguous()
+    for fn in (unit_bwd_plane, unit_bwd_strips):
+        want = fn(*args)
+        got = fn(*views)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
 def test_unit_bwd_rejects_what_the_kernel_does_not_take(gen):
     x = torch.zeros((1, 4, 4, 8), device="cuda")
     v = torch.ones(8, device="cuda")
