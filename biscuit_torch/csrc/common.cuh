@@ -1,6 +1,7 @@
 // Shared device code of the port's kernels: cp.async and ldmatrix,
 // the mma.sync bf16 instruction, shared-memory barriers and bulk copies,
-// Philox4x32-10, and block reductions.
+// Philox4x32-10, cluster barriers and shared-memory stores across a
+// cluster, and block reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -137,6 +138,44 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// -------------------------------------------------------------- clusters
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// All threads of every CTA of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+// The two halves of cluster_sync, for work that may run between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// Store v at p's offset in the shared memory of the cluster's CTA `cta`.
+__device__ __forceinline__ void st_cluster_f32(void* p, uint32_t cta,
+                                               float v) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "st.shared::cluster.f32 [remote], %2;\n"
+      "}\n" ::"r"(smem_u32(p)),
+      "r"(cta), "f"(v)
       : "memory");
 }
 

@@ -195,18 +195,6 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // ------------------------------------------------------------- clusters
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// All threads of every CTA of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
 // One arrival on the barrier at bar's offset in the cluster's CTA `cta`,
 // with the default (CTA-scope) release: what it orders is this warp's
 // wgmma reads of the stage, which have retired; a cluster-scope release

@@ -2,19 +2,23 @@
 standardization in one kernel (``csrc/fused_preprocess.cu``).
 
 Counterpart of ``biscuit_tpu/ops/fused_preprocess.py``. The kernel is CUDA
-C++ rather than Triton: it is a per-image two-pass reduction, which one
-block of 1024 threads does with a plain tree reduction, and it builds
-through the same ``nvcc``/``ctypes`` route as the port's other kernels
-(one toolchain, no Triton on the path). The source note says what bounds
-it on the H100 and how it is laid out.
+C++ rather than Triton: it splits each image over a thread-block cluster
+whose CTAs hold the image's lab values in shared memory and exchange their
+partial sums through distributed shared memory, which Triton has no model
+for. The source note says what bounds it on the H100 and how it is laid
+out; ``launch_plan`` says how one batch is launched.
 
 On a CPU tensor ``fused_preprocess`` computes its plain version; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. A call makes no host-to-device
+copy and does not synchronize: the 42 coefficients are made once for each
+(targets, device) and kept (``coefficients``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -31,13 +35,99 @@ from ..data.normalize import (
 from . import _build
 
 NAME = "fused_preprocess"
+CLUSTERS = (1, 2, 4, 8, 16)     # cluster sizes; above 8 non-portable
+SMEM_LIMIT = 232_448            # dynamic shared memory a block can use
+SM_SMEM = 233_472               # shared memory of an SM
+CTA_RESERVE = 1_024 + 512       # the runtime's reserve and the static arrays
+# Threads a CTA: 1,024 alone on an SM (64 registers a thread), 256 where
+# CTAs share one (at 299 px, clusters of 16, against 192 and 320:
+# chip_smoke.py --preprocess, PERF.md).
+MAX_THREADS = 1_024
+SHARED_THREADS = 256
+# The plan takes the smallest cluster whose CTAs fit three to an SM, else
+# the smallest whose CTAs fit at all.
+TARGET_SMEM = SMEM_LIMIT // 3
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def smem_bytes(chunk: int) -> int:
+    """Dynamic shared memory of a CTA of ``chunk`` pixels: 12 bytes a
+    pixel (f32 lab, then rgb', written over the uint8 staging), a float4
+    of shift and the staging's rounding. As ``smem_bytes`` in the
+    source."""
+    return (12 * chunk + 32 + 15) // 16 * 16
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one batch of ``n`` images of ``hw`` pixels launches: one
+    cluster of ``cluster`` CTAs an image (``grid`` CTAs), CTA r owning
+    the image's pixels ``ranges[r]``, each with ``threads`` threads and
+    ``smem`` bytes of dynamic shared memory."""
+
+    n: int
+    hw: int
+    cluster: int
+    chunk: int
+    threads: int
+    smem: int
+
+    @property
+    def grid(self) -> int:
+        return self.n * self.cluster
+
+    @property
+    def ranges(self) -> tuple:
+        return tuple((min(r * self.chunk, self.hw),
+                      min((r + 1) * self.chunk, self.hw))
+                     for r in range(self.cluster))
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(n: int, h: int, w: int, cluster=None) -> Plan:
+    """The launch of ``fused_preprocess`` on ``n`` images of ``h`` x
+    ``w``: the smallest cluster in CLUSTERS whose CTAs (the image's pixels
+    split evenly) take at most TARGET_SMEM, else the smallest that fits
+    SMEM_LIMIT; a tiny image takes a cluster of 1. ``cluster`` forces a
+    size. Threads: MAX_THREADS for a CTA alone on an SM, else
+    SHARED_THREADS, and no more than a pixel each, in warps."""
+    hw = h * w
+    if hw < 1:
+        raise ValueError(f"fused_preprocess: empty {h} x {w} images")
+
+    def chunk_of(c):
+        return -(-hw // c)
+
+    if cluster is None:
+        fits = [c for c in CLUSTERS if smem_bytes(chunk_of(c)) <= SMEM_LIMIT]
+        if not fits:
+            raise ValueError(
+                f"fused_preprocess: a {h} x {w} image does not fit the "
+                f"shared memory of a cluster of {CLUSTERS[-1]} CTAs")
+        cluster = next((c for c in fits
+                        if smem_bytes(chunk_of(c)) <= TARGET_SMEM), fits[0])
+    if cluster not in CLUSTERS:
+        raise ValueError(f"fused_preprocess: cluster size {cluster} not in "
+                         f"{CLUSTERS}")
+    chunk = chunk_of(cluster)
+    smem = smem_bytes(chunk)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_preprocess: {chunk} pixels a CTA need "
+                         f"{smem} bytes of shared memory")
+    alone = SM_SMEM // (smem + CTA_RESERVE) == 1
+    threads = min(MAX_THREADS if alone else SHARED_THREADS,
+                  -(-chunk // 32) * 32)
+    return Plan(n, hw, cluster, chunk, threads, smem)
 
 
 def _targets(normalizer):
+    """The target means and stds as tuples of floats (read on the host:
+    the normalizer keeps them there)."""
     if normalizer is None:
-        return DEFAULT_TARGET_MEANS, DEFAULT_TARGET_STDS
-    return (np.asarray(normalizer.target_means.cpu(), np.float32),
-            np.asarray(normalizer.target_stds.cpu(), np.float32))
+        tm, ts = DEFAULT_TARGET_MEANS, DEFAULT_TARGET_STDS
+    else:
+        tm, ts = normalizer.target_means, normalizer.target_stds
+    return tuple(tm.tolist()), tuple(ts.tolist())
 
 
 def fused_preprocess_reference(x_u8: torch.Tensor, normalizer=None,
@@ -50,11 +140,52 @@ def fused_preprocess_reference(x_u8: torch.Tensor, normalizer=None,
     return per_image_standardization(norm(x_u8.float())).to(out_dtype)
 
 
-def _coefficients(normalizer, device) -> torch.Tensor:
-    tm, ts = _targets(normalizer)
+@functools.lru_cache(maxsize=16)
+def _coefficient_tensor(tm: tuple, ts: tuple,
+                        device: torch.device) -> torch.Tensor:
     flat = np.concatenate([_RGB2LMS.ravel(), _LOGLMS2LAB.ravel(),
-                           _LAB2LOGLMS.ravel(), _LMS2RGB.ravel(), tm, ts])
-    return torch.from_numpy(flat.astype(np.float32)).to(device)
+                           _LAB2LOGLMS.ravel(), _LMS2RGB.ravel(),
+                           np.asarray(tm, np.float32),
+                           np.asarray(ts, np.float32)]).astype(np.float32)
+    host = torch.from_numpy(flat)
+    if device.type == "cuda":
+        # Pinned and asynchronous: even the first call does not wait for
+        # the stream.
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
+def coefficients(normalizer, device) -> torch.Tensor:
+    """The kernel's 42 coefficients (the four colour matrices, the target
+    means and stds) on ``device``: one tensor for each (targets, device),
+    made once and kept, so a normalizer refitted to new targets gets a
+    new one."""
+    tm, ts = _targets(normalizer)
+    return _coefficient_tensor(tm, ts, torch.device(device))
+
+
+def _launch(x: torch.Tensor, out: torch.Tensor, coef: torch.Tensor,
+            plan: Plan) -> None:
+    """Launch the kernel on contiguous uint8 ``x`` into bf16 ``out`` as
+    ``plan`` says, and count the launch."""
+    fn = _build.bound(NAME, "fused_preprocess_launch", _ARGTYPES)
+    rc = fn(_build.ptr(x), _build.ptr(out), _build.ptr(coef), plan.n,
+            plan.hw, plan.cluster, plan.chunk, plan.threads, plan.smem,
+            x.device.index or 0, _build.stream_ptr(x))
+    _build.check(rc, NAME)
+    _build.count_launch(NAME)
+
+
+def max_active_clusters(plan: Plan, device=None) -> int:
+    """How many clusters of ``plan`` the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    fit = ctypes.c_int(0)
+    fn = _build.bound(NAME, "fused_preprocess_max_clusters",
+                      [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
+    _build.check(fn(plan.hw, plan.cluster, plan.chunk, plan.threads,
+                    plan.smem, dev.index or 0, ctypes.byref(fit)), NAME)
+    return fit.value
 
 
 def fused_preprocess(x_u8: torch.Tensor, normalizer=None,
@@ -73,14 +204,7 @@ def fused_preprocess(x_u8: torch.Tensor, normalizer=None,
         raise ValueError("the fused_preprocess kernel writes bf16 only")
     x = x_u8.contiguous()
     n, h, w, _ = x.shape
+    plan = launch_plan(n, h, w)
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    coef = _coefficients(normalizer, x.device)
-    lib = _build.load(NAME)
-    fn = lib.fused_preprocess_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    rc = fn(_build.ptr(x), _build.ptr(out), _build.ptr(coef), n, h * w,
-            x.device.index or 0, _build.stream_ptr(x))
-    _build.check(rc, NAME)
-    _build.count_launch(NAME)
+    _launch(x, out, coefficients(normalizer, x.device), plan)
     return out

@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --unit-bwd-passes [--root CHECKOUT]
+    python3 chip_smoke.py --preprocess [--root CHECKOUT]
 
 The second form only profiles the unit backward pass by pass at
-UNIT_PASS_GEOMETRIES (one line a geometry), importing ``biscuit_torch``
-from CHECKOUT when given (to time another checkout's kernels in the same
-call). The first form runs these phases, each printing one JSON line:
+UNIT_PASS_GEOMETRIES (one line a geometry), the third only times the
+preprocess kernel (row 1) and one request's preprocess stage, and the
+kernel at PREPROCESS_VARIANTS too where the checkout's plan takes a
+cluster size (one line); both import ``biscuit_torch`` from CHECKOUT when given (to
+time another checkout's kernels in the same call). The first form runs
+these phases, each printing one JSON line:
 
 1. env: torch/CUDA versions and ``nvidia-smi`` name and power limit (also
    printed raw on a line of its own); TF32 off for the f32 comparisons.
@@ -22,7 +26,11 @@ call). The first form runs these phases, each printing one JSON line:
    tolerance, its median time over fresh inputs (CUDA events), the plain
    version's time, a library yardstick's time where one exists, and its
    bound (the larger of bytes / HBM rate and operations / peak rate).
-   The MC head also repeats one seed bit for bit, shows its two device
+   The preprocess row repeats its output bit for bit and adds its
+   kernel's device time (``device_ms``, torch.profiler) and its launch
+   plan (cluster size, pixels a CTA, threads, shared memory, grid, and
+   the clusters the card holds at once). The MC head also repeats one
+   seed bit for bit, shows its two device
    kernels in a ``profile`` (torch.profiler device time by kernel), as
    the middle flow (with its GEMM and depthwise time a unit,
    ``unit_ms``, and the byte floor of its two-pass design) and the fused
@@ -112,6 +120,10 @@ UNIT_BWD_KERNELS = ("ub_bn_sums_kernel", "ub_bn_finalize_kernel",
 # and the exit tail's last, whose bound is operations.
 UNIT_PASS_GEOMETRIES = UNIT_GEOMETRIES + ((37, 256, 728, True),
                                           (10, 1536, 2048, True))
+# Launches of the preprocess kernel timed side by side (``--preprocess``),
+# (cluster size, threads a CTA): 8 CTAs of 134 KB, one an SM, and 16 of
+# 67 KB, three an SM, at three thread counts.
+PREPROCESS_VARIANTS = ((8, 1024), (16, 192), (16, 256), (16, 320))
 
 
 def emit(obj) -> None:
@@ -194,11 +206,31 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def preprocess_device_ms(torch, run, calls: int) -> float:
+    """Device time a call of the preprocess kernel (torch.profiler), over
+    ``calls`` calls made by ``run``: every device kernel whose name holds
+    "preprocess", so that it reads another checkout's kernel too."""
+    prof = kernel_profile(torch, run, top=20)
+    return sum(r["ms"] for r in prof["top"]
+               if "preprocess" in r["kernel"]) / calls
+
+
+def preprocess_plan(plan) -> dict:
+    """A launch plan of the preprocess kernel, and how many of its
+    clusters the card holds at once."""
+    from biscuit_torch.ops.fused_preprocess import max_active_clusters
+
+    return {"cluster": plan.cluster, "chunk": plan.chunk,
+            "threads": plan.threads, "smem_bytes": plan.smem,
+            "grid": plan.grid, "max_active_clusters": max_active_clusters(plan)}
+
+
 def kernel_preprocess(torch, gen):
     from biscuit_torch.data.normalize import ReinhardFastNormalizer
     from biscuit_torch.ops.fused_preprocess import (
         fused_preprocess,
         fused_preprocess_reference,
+        launch_plan,
     )
 
     norm = ReinhardFastNormalizer()
@@ -210,14 +242,96 @@ def kernel_preprocess(torch, gen):
     err = (got - ref).abs().max().item()
     tol = 2e-2   # bf16 output: half an ulp is 2**-7 at |x| in [2, 4)
     check(err <= tol, f"fused_preprocess: max abs err {err} > {tol}")
+    del got, ref
+    again = fused_preprocess(xs[0], norm)
+    check(torch.equal(again, fused_preprocess(xs[0], norm)),
+          "fused_preprocess: the same tiles repeat bit for bit")
+    del again
     ms = cuda_ms(torch, lambda x: fused_preprocess(x, norm), xs)
+    device = preprocess_device_ms(
+        torch, lambda: [fused_preprocess(x, norm) for x in xs], len(xs))
     plain = cuda_ms(torch, lambda x: fused_preprocess_reference(
         x, norm, torch.bfloat16), xs[:N_PLAIN], warmup=1)
     px = TILES * TILE_PX * TILE_PX
     b, by = bound_ms(px * 3 * (1 + 2), {"f32": 60.0 * px})
     return {"name": "fused_preprocess", "max_abs_err": err, "tol": tol,
-            "ms": ms, "plain_ms": plain, "library_ms": None,
-            "bound_ms": b, "bound_by": by}
+            "ms": ms, "device_ms": device, "plain_ms": plain,
+            "library_ms": None, "bound_ms": b, "bound_by": by,
+            "plan": preprocess_plan(launch_plan(*shape[:3]))}
+
+
+def preprocess_compare(torch, gen):
+    """Row 1 of this checkout (``--preprocess``, ``--root``): its call
+    time (CUDA events between calls enqueued back to back), its kernel's
+    device time (torch.profiler), its host time a call (50 calls enqueued
+    without a synchronize), one request's preprocess stage as
+    ``stage_breakdown`` times it (CUDA events around
+    ``inference_preprocess`` after a synchronize, median of 5, and the
+    host time of that call), and, where the checkout's launch plan takes
+    a cluster size, each of PREPROCESS_VARIANTS launched as it is. One
+    line."""
+    from biscuit_torch.data.normalize import (
+        ReinhardFastNormalizer,
+        inference_preprocess,
+    )
+    from biscuit_torch.ops import fused_preprocess as fp
+
+    norm = ReinhardFastNormalizer()
+    shape = (TILES, TILE_PX, TILE_PX, 3)
+    xs = [torch.randint(0, 256, shape, generator=gen, device="cuda",
+                        dtype=torch.uint8) for _ in range(N_TIMED)]
+    ref = fp.fused_preprocess_reference(xs[0], norm, torch.float32)
+    out = {"phase": "preprocess", "biscuit_torch": fp.__file__,
+           "max_abs_err": (fp.fused_preprocess(xs[0], norm).float()
+                           - ref).abs().max().item(),
+           "ms": cuda_ms(torch, lambda x: fp.fused_preprocess(x, norm), xs),
+           "device_ms": preprocess_device_ms(
+               torch, lambda: [fp.fused_preprocess(x, norm) for x in xs],
+               len(xs)),
+           "profile": kernel_profile(torch, lambda: fp.fused_preprocess(
+               xs[0], norm), top=6)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fp.fused_preprocess(xs[0], norm)
+    out["host_us"] = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    stage, host = [], []
+    with torch.inference_mode():
+        for i in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            t0 = time.perf_counter()
+            inference_preprocess(xs[i], norm)
+            host.append((time.perf_counter() - t0) * 1e6)
+            ev[1].record()
+            torch.cuda.synchronize()
+            stage.append(ev[0].elapsed_time(ev[1]))
+    out["stage_ms"] = statistics.median(stage)
+    out["stage_ms_runs"] = stage
+    out["stage_host_us"] = statistics.median(host)
+    if hasattr(fp, "_launch"):
+        import dataclasses
+
+        coef = fp.coefficients(norm, xs[0].device)
+        for cluster, threads in PREPROCESS_VARIANTS:
+            plan = dataclasses.replace(
+                fp.launch_plan(*shape[:3], cluster=cluster), threads=threads)
+            dst = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+
+            def run(x, plan=plan, dst=dst):
+                fp._launch(x, dst, coef, plan)
+
+            run(xs[0])
+            err = (dst.float() - ref).abs().max().item()
+            check(err <= 2e-2, f"fused_preprocess, cluster {cluster}, "
+                               f"{threads} threads: max abs err {err}")
+            out[f"cluster_{cluster}_threads_{threads}"] = {
+                **preprocess_plan(plan), "max_abs_err": err,
+                "ms": cuda_ms(torch, run, xs),
+                "device_ms": preprocess_device_ms(
+                    torch, lambda: [run(x) for x in xs], len(xs))}
+    emit(out)
 
 
 def library_middle(torch, x, dw, pw, sc, sh):
@@ -724,18 +838,22 @@ def init_random_(torch, model, seed: int) -> None:
 
 def stage_breakdown(torch, ui, tiles, repeats: int = 3):
     """Median device time of each stage of one request, from CUDA events
-    between the stages (the request's own calls, in its order)."""
+    between the stages (the request's own calls, in its order), and the
+    host time of the preprocess call (``preprocess_host_us``)."""
     from biscuit_torch.data.normalize import inference_preprocess
     from biscuit_torch.ops.fused_sepconv import fused_middle_flow
     from biscuit_torch.ops.mcd_head import mcd_head
 
     names = ("preprocess", "entry_flow", "middle_flow", "exit_flow", "head")
     runs = {name: [] for name in names}
+    host = []
     with torch.inference_mode():
         for _ in range(repeats):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
             ev[0].record()
+            t0 = time.perf_counter()
             x = inference_preprocess(tiles, ui.wsi_normalizer)
+            host.append((time.perf_counter() - t0) * 1e6)
             ev[1].record()
             h = ui.model.trunk_entry(x)
             ev[2].record()
@@ -748,7 +866,8 @@ def stage_breakdown(torch, ui, tiles, repeats: int = 3):
             torch.cuda.synchronize()
             for i, name in enumerate(names):
                 runs[name].append(ev[i].elapsed_time(ev[i + 1]))
-    return {name: statistics.median(v) for name, v in runs.items()}
+    return {**{name: statistics.median(v) for name, v in runs.items()},
+            "preprocess_host_us": statistics.median(host)}
 
 
 def kernel_profile(torch, run, top: int = 12, only=None):
@@ -886,7 +1005,7 @@ def main_path(torch, hp, model, requests, n_requests: int, card: str):
 def stage_breakdown_fused(torch, ui, tiles, repeats: int = 3):
     """Median device time of each stage of one request of the fully fused
     trunk, from CUDA events between the stages (the request's own calls,
-    in its order)."""
+    in its order), and the host time of the preprocess call."""
     from biscuit_torch.data.normalize import inference_preprocess
     from biscuit_torch.ops.fused_block import fused_strided_block, trunk_blocks
     from biscuit_torch.ops.fused_sepconv import fused_middle_flow
@@ -896,11 +1015,14 @@ def stage_breakdown_fused(torch, ui, tiles, repeats: int = 3):
              "exit_block", "exit_tail", "head")
     blocks = trunk_blocks(ui.model.backbone)
     runs = {name: [] for name in names}
+    host = []
     with torch.inference_mode():
         for _ in range(repeats):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
             ev[0].record()
+            t0 = time.perf_counter()
             x = inference_preprocess(tiles, ui.wsi_normalizer)
+            host.append((time.perf_counter() - t0) * 1e6)
             ev[1].record()
             h = ui.model.trunk_stem(x).contiguous()
             ev[2].record()
@@ -918,7 +1040,8 @@ def stage_breakdown_fused(torch, ui, tiles, repeats: int = 3):
             torch.cuda.synchronize()
             for i, name in enumerate(names):
                 runs[name].append(ev[i].elapsed_time(ev[i + 1]))
-    return {name: statistics.median(v) for name, v in runs.items()}
+    return {**{name: statistics.median(v) for name, v in runs.items()},
+            "preprocess_host_us": statistics.median(host)}
 
 
 def main_fused_blocks(torch, hp, model, requests, n_requests: int,
@@ -1165,8 +1288,10 @@ def main(argv=None) -> int:
     ap.add_argument("--unit-bwd-passes", action="store_true",
                     help="only the per-pass profile of the unit backward at "
                          "UNIT_PASS_GEOMETRIES")
+    ap.add_argument("--preprocess", action="store_true",
+                    help="only row 1 and one request's preprocess stage")
     ap.add_argument("--root", help="import biscuit_torch from this checkout "
-                                   "(with --unit-bwd-passes)")
+                                   "(with --unit-bwd-passes or --preprocess)")
     opts = ap.parse_args(argv)
     if opts.root:
         sys.path.insert(0, opts.root)
@@ -1195,6 +1320,17 @@ def main(argv=None) -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "biscuit_torch": _build.__file__})
         unit_bwd_passes(torch, torch.Generator(device="cuda").manual_seed(SEED))
+        return 0
+    if opts.preprocess:
+        t0 = time.perf_counter()
+        _build.build_all((_build.SOURCE["fused_preprocess"],))
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "biscuit_torch": _build.__file__,
+              "ptxas": [ln.strip() for ln in _build.build_log(
+                  "fused_preprocess").splitlines()
+                  if "registers" in ln or "spill" in ln]})
+        preprocess_compare(torch,
+                           torch.Generator(device="cuda").manual_seed(SEED))
         return 0
 
     t0 = time.perf_counter()

@@ -63,16 +63,123 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("shape", [(3, 37, 41, 3), (1, 299, 299, 3)])
+def _preprocess_checked(x, norm):
+    """One kernel call, its launch counted once, within 2e-2 of the plain
+    version; returns the output in f32."""
+    before = _build.launch_counts()["fused_preprocess"]
+    got = fused_preprocess(x, norm)
+    assert _build.launch_counts()["fused_preprocess"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    got = got.float()
+    assert bool(torch.isfinite(got).all())
+    want = fused_preprocess_reference(x, norm)
+    assert (got - want).abs().max().item() <= 2e-2
+    return got
+
+
+# A 299 x 299 image is 268,203 bytes in and 536,406 out, 11 and 6 mod 16,
+# so no image after the first starts on a 16-byte boundary: every CTA of
+# a cluster handles a head and a tail. 37 x 41 and 1 x 1 take a cluster of
+# one CTA, whose image is smaller than a 16-byte chunk at 1 x 1.
+@pytest.mark.parametrize("shape", [(3, 37, 41, 3), (1, 299, 299, 3),
+                                   (2, 299, 299, 3), (256, 299, 299, 3),
+                                   (1, 1, 1, 3)])
 def test_fused_preprocess(gen, shape):
     x = torch.randint(0, 256, shape, generator=gen, device="cuda",
                       dtype=torch.uint8)
+    _preprocess_checked(x, ReinhardFastNormalizer())
+
+
+@pytest.mark.parametrize("cluster,threads", [(8, None), (16, None),
+                                             (16, 64)])
+def test_fused_preprocess_cluster_sizes(gen, cluster, threads):
+    """Both cluster sizes of 299 px images launch (a cluster of 16 is
+    non-portable), fit the card and agree with the plain version; with 64
+    threads a CTA, its pixels above the bottom three quarters of the
+    buffer take several rounds of loads and barriers."""
+    import dataclasses
+
+    from biscuit_torch.ops.fused_preprocess import (
+        _launch,
+        coefficients,
+        launch_plan,
+        max_active_clusters,
+    )
+
+    x = torch.randint(0, 256, (5, 299, 299, 3), generator=gen,
+                      device="cuda", dtype=torch.uint8)
     norm = ReinhardFastNormalizer()
-    before = _build.launch_counts()["fused_preprocess"]
-    got = fused_preprocess(x, norm).float()
-    assert _build.launch_counts()["fused_preprocess"] == before + 1
+    plan = launch_plan(5, 299, 299, cluster=cluster)
+    if threads is not None:
+        plan = dataclasses.replace(plan, threads=threads)
+    assert max_active_clusters(plan) >= 1
+    out = torch.empty(x.shape, dtype=torch.bfloat16, device="cuda")
+    _launch(x, out, coefficients(norm, x.device), plan)
     want = fused_preprocess_reference(x, norm)
-    assert (got - want).abs().max().item() <= 2e-2
+    assert (out.float() - want).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("value", [0, 255])
+def test_fused_preprocess_constant_tile(gen, value):
+    """An all-0 or all-255 tile between two random ones. Its lab std is
+    the rounding noise of its mean, which (lab - m) / max(std, 1e-6)
+    amplifies up to a million times, so the plain version's own output
+    there is set by its summation order: the constant tile is held to
+    finite outputs, the same at every pixel; its neighbours to 2e-2."""
+    x = torch.randint(0, 256, (3, 299, 299, 3), generator=gen,
+                      device="cuda", dtype=torch.uint8)
+    x[1] = value
+    norm = ReinhardFastNormalizer()
+    got = fused_preprocess(x, norm).float()
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[1] == got[1, :1, :1]).all())
+    want = fused_preprocess_reference(x, norm)
+    assert (got[0::2] - want[0::2]).abs().max().item() <= 2e-2
+
+
+def test_fused_preprocess_fitted_normalizer(gen):
+    target = torch.randint(0, 256, (64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(3))
+    norm = ReinhardFastNormalizer().fit(target)
+    x = torch.randint(0, 256, (2, 299, 299, 3), generator=gen,
+                      device="cuda", dtype=torch.uint8)
+    got = _preprocess_checked(x, norm)
+    default = fused_preprocess(x, ReinhardFastNormalizer()).float()
+    assert (got - default).abs().max().item() > 2e-2
+
+
+def test_fused_preprocess_repeats_bit_for_bit(gen):
+    x = torch.randint(0, 256, (8, 299, 299, 3), generator=gen,
+                      device="cuda", dtype=torch.uint8)
+    norm = ReinhardFastNormalizer()
+    assert torch.equal(fused_preprocess(x, norm), fused_preprocess(x, norm))
+
+
+def test_fused_preprocess_makes_no_copy_and_no_sync(gen):
+    """With the library built and bound, a call, through the serving
+    entry too, and the first call with newly fitted targets, make no
+    synchronizing copy: the sync debug mode raises on any."""
+    from biscuit_torch.data.normalize import inference_preprocess
+
+    x = torch.randint(0, 256, (4, 299, 299, 3), generator=gen,
+                      device="cuda", dtype=torch.uint8)
+    norm = ReinhardFastNormalizer()
+    fused_preprocess(x, norm)
+    refit = ReinhardFastNormalizer().fit(torch.randint(
+        0, 256, (32, 32, 3), dtype=torch.uint8,
+        generator=torch.Generator().manual_seed(4)))
+    torch.cuda.synchronize()
+    before = _build.launch_counts()["fused_preprocess"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [fused_preprocess(x, norm), inference_preprocess(x, norm),
+                fused_preprocess(x, refit)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _build.launch_counts()["fused_preprocess"] == before + 3
+    assert torch.equal(outs[0], outs[1])
+    want = fused_preprocess_reference(x, refit)
+    assert (outs[2].float() - want).abs().max().item() <= 2e-2
 
 
 def _middle_inputs(gen, n, hw, c, u):
