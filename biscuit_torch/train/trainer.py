@@ -1,13 +1,16 @@
-"""Training step and checkpoints of the port.
+"""Training step, checkpoints and tile predictions of the port.
 
-Counterpart of the step half of ``biscuit_tpu/train/trainer.py``:
-``lr_schedule`` and ``make_optimizer`` (Adam or SGD with the continuous
-0.98/512 exponential decay), ``preprocess`` (normalizer, then per-image
-standardization), ``make_train_step`` (uint8 batch -> JPEG -> normalize
--> augment -> Xception forward/backward -> masked cross-entropy ->
-optimizer update), and ``save_checkpoint``/``load_checkpoint`` in the
-JAX package's on-disk format. The training loop around the step
-(``train_project``, tfrecord batching, early stopping) is not ported yet.
+Counterpart of ``biscuit_tpu/train/trainer.py`` without its training
+loop: ``lr_schedule`` and ``make_optimizer`` (Adam or SGD with the
+continuous 0.98/512 exponential decay), ``preprocess`` (normalizer, then
+per-image standardization), ``make_train_step`` (uint8 batch -> JPEG ->
+normalize -> augment -> Xception forward/backward -> masked
+cross-entropy -> optimizer update), ``save_checkpoint``/
+``load_checkpoint`` in the JAX package's on-disk format, and the
+prediction writers: ``score_tiles``/``predict_tiles`` over tfrecords
+(the ``tile_predictions`` contract), ``group_predictions_frame`` and
+``_write_predictions``. The training loop around the step
+(``train_project``, early stopping) is not ported yet.
 
 A saved model directory holds ``params.json`` (``{"hp": ..., "outcome":
 ..., "label": ...}``) and ``model.msgpack`` (Flax ``to_bytes`` of
@@ -19,17 +22,20 @@ from __future__ import annotations
 import json
 import os
 from os.path import join
-from typing import Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..data.augment import augment_batch, jpeg_augment_batch
-from ..data.normalize import per_image_standardization
+from ..data.normalize import make_normalizer, per_image_standardization
+from ..data.pipeline import PrefetchBatcher, TileBatcher
 from ..device import resolve_device
 from ..hp import ModelParams
 from ..models.convert import from_flax, read_msgpack, to_flax, write_msgpack
 from ..models.xception import build_model
+from ..stats.roc import auc_score, average_precision
 
 
 def lr_schedule(hp: ModelParams):
@@ -82,6 +88,18 @@ def preprocess(images_u8, normalizer):
     if normalizer is not None:
         x = normalizer(x)
     return per_image_standardization(x)
+
+
+def make_eval_step(model, normalizer):
+    """``images -> softmax`` of the eval-mode forward of a uint8 NHWC
+    batch (the plain preprocess chain, as the JAX ``make_eval_step``)."""
+
+    def eval_step(images):
+        with torch.inference_mode():
+            logits = model(preprocess(images, normalizer))
+            return torch.softmax(logits, dim=-1)
+
+    return eval_step
 
 
 def make_train_step(model, tx: ScheduledOptimizer, hp: ModelParams,
@@ -183,3 +201,135 @@ def load_checkpoint(model_path: str, device=None):
     state = read_msgpack(join(model_path, "model.msgpack"))
     model.load_state_dict(from_flax(state["params"], state["batch_stats"]))
     return model.to(dev).eval(), hp, meta
+
+
+def score_tiles(model, hp: ModelParams, tfrecords: List[str],
+                labels: Dict[str, int], batch_size: Optional[int] = None,
+                max_tiles: Optional[int] = None, device=None, seed: int = 42,
+                fuse_blocks: bool = False):
+    """Score every tile of ``tfrecords`` in order -> ``(rows, probs, unc)``.
+
+    ``rows`` holds numpy columns ``slide``, ``loc_x``, ``loc_y`` and
+    ``y_true`` (the tile's slide label from ``labels``, -1 where absent),
+    ``probs`` is (N, C) f32 and ``unc`` (N, C) f32 or None; the padding
+    rows of the last batch are stripped. Tiles are read and decoded on
+    the host a few batches ahead (``PrefetchBatcher``) and scored on
+    ``device`` (the card unless ``device="cpu"``), where ``model`` is
+    moved. With ``hp.uq`` each batch goes through one
+    ``UncertaintyInterface`` (K = ``hp.uq_samples``; its dropout stream
+    starts from ``seed``; ``fuse_blocks`` as there, the counterpart of
+    the JAX package's ``BISCUIT_FUSED_BLOCKS``), else through
+    ``make_eval_step`` with ``unc`` None. The outputs stay on the card
+    and are copied back once, after the last batch."""
+    dev = resolve_device(device)
+    if hp.uq:
+        from .uq import UncertaintyInterface
+
+        score = UncertaintyInterface.from_model(
+            model, hp, k=hp.uq_samples, device=dev, seed=seed,
+            fuse_blocks=fuse_blocks)
+    else:
+        eval_step = make_eval_step(model.to(dev).eval(),
+                                   make_normalizer(hp.normalizer))
+
+        def score(images):
+            return eval_step(images), None
+
+    batcher = PrefetchBatcher(
+        TileBatcher(tfrecords, labels, batch_size=batch_size or hp.batch_size,
+                    shuffle=False, infinite=False, max_tiles=max_tiles,
+                    tile_px=hp.tile_px),
+        depth=3,
+    )
+    rows = {"slide": [], "loc_x": [], "loc_y": [], "y_true": []}
+    masks, probs, unc = [], [], []
+    try:
+        for batch in batcher:
+            m = batch["mask"]
+            p, u = score(torch.from_numpy(batch["image"]).to(dev))
+            masks.append(m)
+            probs.append(p)
+            if u is not None:
+                unc.append(u)
+            rows["slide"] += [s for s, keep in zip(batch["slide"], m) if keep]
+            rows["loc_x"].append(batch["loc"][m, 0])
+            rows["loc_y"].append(batch["loc"][m, 1])
+            rows["y_true"].append(batch["label"][m])
+    finally:
+        batcher.close()
+    keep = np.concatenate(masks)
+
+    def host(outs):
+        return torch.cat(outs).float().cpu().numpy()[keep]
+
+    rows = {"slide": np.asarray(rows["slide"], dtype=object),
+            **{k: np.concatenate(rows[k]).astype(np.int64)
+               for k in ("loc_x", "loc_y", "y_true")}}
+    return rows, host(probs), host(unc) if unc else None
+
+
+def predict_tiles(model, hp: ModelParams, tfrecords: List[str],
+                  labels: Dict[str, int], batch_size: Optional[int] = None,
+                  max_tiles: Optional[int] = None, device=None,
+                  seed: int = 42, fuse_blocks: bool = False):
+    """``score_tiles`` as the JAX ``predict_tiles`` returns it:
+    ``(rows DataFrame, probs, unc)``, the frame behind the
+    ``tile_predictions`` CSV contract (``utils.tile_predictions_frame``)."""
+    from ..utils import scored_tile_rows
+
+    return scored_tile_rows(*score_tiles(
+        model, hp, tfrecords, labels, batch_size=batch_size,
+        max_tiles=max_tiles, device=device, seed=seed,
+        fuse_blocks=fuse_blocks))
+
+
+def _write_predictions(df, path_base: str, fmt) -> None:
+    """Write a predictions frame in the requested format.
+
+    fmt: 'csv' (default; also for True), 'parquet' (writes
+    ``{base}.parquet.gzip``, the slideflow 1.2 variant the reference reads
+    back), or falsy to skip.
+    """
+    if not fmt:
+        return
+    if fmt == "parquet":
+        df.to_parquet(path_base + ".parquet.gzip", compression="gzip")
+    else:
+        df.to_csv(path_base + ".csv", index=False)
+
+
+def group_predictions_frame(tile_df, probs, patients: Dict[str, str],
+                            level_name: str):
+    """Patient/slide-level predictions: y_true1 + percent_tiles_positive1
+    (the column contract the JAX ``utils.read_group_predictions`` reads),
+    groups in order of first appearance."""
+    import pandas as pd
+
+    df = pd.DataFrame(
+        {
+            "slide": tile_df["slide"],
+            "y_true": tile_df["y_true"],
+            "pos": (probs[:, 1] >= 0.5).astype(np.float64),
+            "y_pred1": probs[:, 1],
+        }
+    )
+    if level_name == "patient":
+        df["group"] = df["slide"].map(patients)
+    else:
+        df["group"] = df["slide"]
+    g = df.groupby("group", sort=False).agg(
+        y_true1=("y_true", "mean"),
+        percent_tiles_positive1=("pos", "mean"),
+        n_tiles=("pos", "size"),
+    ).reset_index().rename(columns={"group": level_name})
+    # uint8 cast of the group mean, as threshold.process_group_predictions
+    # casts it (the reference assumes label purity within a group).
+    g["y_true1"] = g["y_true1"].to_numpy().astype(np.uint8)
+    return g
+
+
+def _level_metrics(y_true, y_score):
+    return (
+        auc_score(np.asarray(y_true), np.asarray(y_score)),
+        average_precision(np.asarray(y_true), np.asarray(y_score)),
+    )

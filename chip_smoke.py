@@ -57,6 +57,24 @@ these phases, each printing one JSON line:
    main_fused_blocks: the same with ``fuse_blocks=True`` (the fully fused
    trunk, 4 fused-block launches a request), its features held against
    the plain-version composition and against phase main's composition.
+   predict: main-path steps 1-6 from disk. PREDICT_TILES smooth random
+   299-px tiles for each of the PREDICT_LABELS slides, written as PNGs
+   (filter 0, ``encode_png``) into tfrecords by the port's writer
+   (seconds and bytes printed), then ``score_tiles`` over them (hp with
+   uq=True, K=30): one warm-up call, then a timed one with the launch
+   counts zeroed just before and read just after (rows 1-3 once a
+   batch); the rows (order, slides, locations, labels) and outputs
+   checked, and at dropout 0 the means against the plain-version path
+   (the f32 preprocess of float tiles, library convs, the module head).
+   It prints tiles/s from disk, the batcher's read + decode seconds
+   alone, after the warm-up (the decoded tiles must equal the written
+   ones bit for bit),
+   the device time of the same batches (CUDA events around the
+   interface calls) and the PNG decode time by row filter.
+   evaluate: where pandas is installed, ``evaluate_project`` over those
+   tfrecords in a Project built in a temporary directory, its four
+   files checked, then ``threshold.apply`` on its tile frame at the
+   median uncertainty; where it is not, one line saying so.
    depthwise_entry: one forward and backward through
    ``depthwise_conv3x3``, the standalone op's own entry point.
 5. train: ``make_train_step`` of ``hp.nature2022`` (Xception-299 bf16,
@@ -77,11 +95,13 @@ line. It needs one CUDA card; without one it exits 1 at once.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 TILES = 256           # tiles per request
@@ -124,6 +144,11 @@ UNIT_PASS_GEOMETRIES = UNIT_GEOMETRIES + ((37, 256, 728, True),
 # (cluster size, threads a CTA): 8 CTAs of 134 KB, one an SM, and 16 of
 # 67 KB, three an SM, at three thread counts.
 PREPROCESS_VARIANTS = ((8, 1024), (16, 192), (16, 256), (16, 320))
+# Phase predict: the labels of the slides written to tfrecords, and the
+# tiles a slide (300 tiles: batches of 128, 128 and 44 real rows).
+PREDICT_LABELS = (0, 1, 0)
+PREDICT_TILES = 100
+OUTCOME = "cohort"
 
 
 def emit(obj) -> None:
@@ -204,6 +229,44 @@ def ptxas_entries(log: str, names) -> list:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def encode_png(img, filters=0) -> bytes:
+    """An 8-bit PNG of a (H, W), (H, W, 1-4) uint8 image, with ``filters``
+    the row filter of every row (0-4) or of each row (a sequence of H):
+    the tiles of phase predict, and test input for ``data/png.py``."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, ch = img.shape
+    kinds = np.broadcast_to(np.asarray(filters, np.uint8), (h,))
+    x = img.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    rows = (x - preds[kinds, np.arange(h)]) & 0xFF
+    data = np.concatenate([kinds[:, None], rows.reshape(h, -1)], axis=1)
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(data.astype(np.uint8).tobytes()))
+            + chunk(b"IEND", b""))
 
 
 def preprocess_device_ms(torch, run, calls: int) -> float:
@@ -1114,6 +1177,233 @@ def main_fused_blocks(torch, hp, model, requests, n_requests: int,
     }, launches
 
 
+def smooth_tiles(n: int, seed: int):
+    """n smooth random colour fields with mild noise, uint8 (n, TILE_PX,
+    TILE_PX, 3): four plane waves a tile mixed into RGB about a random
+    base colour, and noise of +-2 levels. Unlike uniform noise they
+    compress (about 200 KB a PNG with filter 0, so the Python CRC of the
+    tfrecord writer takes seconds, not minutes), and no tile is constant
+    (a constant tile's standardization amplifies rounding noise)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pos = (2 * np.pi / TILE_PX) * np.arange(TILE_PX, dtype=np.float32)
+    out = np.empty((n, TILE_PX, TILE_PX, 3), np.uint8)
+    for i in range(n):
+        fy, fx = rng.uniform(-2, 2, (2, 4, 1)).astype(np.float32) * pos
+        fy += rng.uniform(0, 2 * np.pi, (4, 1)).astype(np.float32)
+        # cos(fy + fx), wave by wave, as products of row and column terms.
+        waves = (np.cos(fy)[:, :, None] * np.cos(fx)[:, None, :]
+                 - np.sin(fy)[:, :, None] * np.sin(fx)[:, None, :])
+        field = waves.reshape(4, -1).T @ rng.uniform(
+            -30, 30, (4, 3)).astype(np.float32)
+        field += rng.uniform(90, 170, 3).astype(np.float32)
+        field += rng.integers(-2, 3, field.shape, dtype=np.int8)
+        out[i] = np.clip(np.rint(field), 0, 255).reshape(TILE_PX, TILE_PX, 3)
+    return out
+
+
+def write_tfrecords(tiles, directory: str):
+    """One tfrecord a slide of PREDICT_LABELS, PREDICT_TILES PNG tiles
+    each (filter 0), by the port's writer; returns the paths, the labels
+    and the bytes written."""
+    import os
+
+    from biscuit_torch.data.tfrecord import TFRecordWriter
+
+    os.makedirs(directory)
+    paths, n_bytes = [], 0
+    for s in range(len(PREDICT_LABELS)):
+        paths.append(os.path.join(directory, f"slide{s}.tfrecords"))
+        with TFRecordWriter(paths[-1]) as w:
+            for t in range(PREDICT_TILES):
+                w.write_tile(f"slide{s}",
+                             encode_png(tiles[s * PREDICT_TILES + t]),
+                             loc_x=TILE_PX * (t % 10),
+                             loc_y=TILE_PX * (t // 10))
+        n_bytes += os.path.getsize(paths[-1])
+    labels = {f"slide{s}": y for s, y in enumerate(PREDICT_LABELS)}
+    return paths, labels, n_bytes
+
+
+def decode_ms_by_filter(tile, repeats: int = 5) -> dict:
+    """Median host ms of ``data/png.decode_png`` on one tile with each row
+    filter forced on every row, and the PNG's size."""
+    from biscuit_torch.data.png import decode_png
+
+    out = {}
+    for name, kind in (("none", 0), ("sub", 1), ("up", 2), ("average", 3),
+                       ("paeth", 4)):
+        raw = encode_png(tile, kind)
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            img = decode_png(raw)
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(img.tobytes() == tile.tobytes(), f"PNG filter {name} decode")
+        out[name] = {"ms": statistics.median(times), "png_kb": len(raw) / 1e3}
+    return out
+
+
+def predict_phase(torch, hp, model, tmp: str, card: str):
+    """Main-path steps 1-6 from disk: PREDICT_TILES tiles of each of the
+    PREDICT_LABELS slides written as PNG tfrecords, then scored by
+    ``score_tiles`` (hp with uq=True at K), its launch counts zeroed just
+    before the timed call and read just after; the rows, outputs and
+    (at dropout 0) the means against the plain-version path checked.
+    Also times the batcher alone (host read + decode), the interface on
+    the same batches already on the card (device time) and the PNG
+    decoder by filter."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from biscuit_torch.data.pipeline import TileBatcher
+    from biscuit_torch.ops import _build
+    from biscuit_torch.train.trainer import score_tiles
+    from biscuit_torch.train.uq import UncertaintyInterface
+
+    hp = dataclasses.replace(hp, uq=True, uq_samples=K)
+    n = len(PREDICT_LABELS) * PREDICT_TILES
+    t0 = time.perf_counter()
+    tiles = smooth_tiles(n, SEED)
+    tiles_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths, labels, n_bytes = write_tfrecords(tiles, os.path.join(tmp, "tfr"))
+    write_s = time.perf_counter() - t0
+
+    score_tiles(model, hp, paths, labels)       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = list(TileBatcher(paths, labels, hp.batch_size, shuffle=False,
+                               tile_px=TILE_PX))
+    host_s = time.perf_counter() - t0
+    masks = [b["mask"] for b in batches]
+    check(np.concatenate([b["image"][m] for b, m in zip(batches, masks)])
+          .tobytes() == tiles.tobytes(), "decoded tiles equal the written")
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows, probs, unc = score_tiles(model, hp, paths, labels)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    for name, count in launches.items():
+        want = len(batches) if name in SERVING else 0
+        check(count == want, f"{name}: {count} launches for {len(batches)} "
+                             f"batches from tfrecords, expected {want}")
+
+    t = np.arange(n) % PREDICT_TILES
+    check(list(rows["slide"]) == [f"slide{i // PREDICT_TILES}"
+                                  for i in range(n)], "rows in tfrecord order")
+    check(np.array_equal(rows["loc_x"], TILE_PX * (t % 10))
+          and np.array_equal(rows["loc_y"], TILE_PX * (t // 10)),
+          "locations as written")
+    check(np.array_equal(rows["y_true"], np.repeat(PREDICT_LABELS,
+                                                   PREDICT_TILES)),
+          "y_true from the labels")
+    check(probs.shape == unc.shape == (n, 2), "output shape")
+    check(bool(np.isfinite(probs).all() and np.isfinite(unc).all()),
+          "finite outputs")
+    check(float(np.abs(probs.sum(1) - 1).max()) <= 1e-3, "rows sum to 1")
+    check(float(unc.min()) >= 0, "std >= 0")
+
+    # Device time of the same batches: the interface score_tiles builds,
+    # called back to back on the batches already on the card.
+    ui = UncertaintyInterface.from_model(model, hp, k=K, device="cuda",
+                                         seed=42)
+    on_card = [torch.from_numpy(b["image"]).cuda() for b in batches]
+    ui(on_card[0])
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(len(on_card) + 1)]
+    ev[0].record()
+    for i, x in enumerate(on_card):
+        ui(x)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    device_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(on_card))]
+    del on_card
+
+    # Dropout 0: score_tiles against the plain-version path (the exact
+    # f32 preprocess of float tiles, library convs, the module head).
+    model.dropout = model.head.dropout = 0.0
+    _, p0, _ = score_tiles(model, hp, paths, labels)
+    plain = UncertaintyInterface.from_model(model, hp, k=K, device="cuda",
+                                            use_kernel=False,
+                                            fused_trunk=False)
+    want0 = np.concatenate([
+        plain(torch.from_numpy(tiles[i:i + hp.batch_size]).cuda().float())[0]
+        .cpu().numpy() for i in range(0, n, hp.batch_size)])
+    model.dropout = model.head.dropout = hp.dropout
+    err0 = float(np.abs(p0 - want0).max())
+    check(err0 <= 2e-2, f"dropout-0 mean from tfrecords: max abs err {err0}")
+    return {
+        "phase": "predict", "model": "xception", "tile_px": TILE_PX, "k": K,
+        "dropout": hp.dropout, "slides": len(PREDICT_LABELS),
+        "tiles": n, "batch": hp.batch_size, "batches": len(batches),
+        "last_batch_rows": int(masks[-1].sum()),
+        "tiles_gen_s": tiles_s, "write_s": write_s, "bytes_written": n_bytes,
+        "host_read_decode_s": host_s, "score_tiles_s": secs,
+        "tiles_per_s_from_disk": n / secs, "device_ms": device_ms,
+        "device_s": sum(device_ms) / 1e3, "launches": launches,
+        "mean_of_mean": probs.mean(0).tolist(),
+        "mean_of_std": unc.mean(0).tolist(),
+        "dropout0_mean_max_abs_err": err0, "dropout0_tol": 2e-2,
+        "decode_by_filter": decode_ms_by_filter(tiles[0]), "card": card,
+    }
+
+
+def evaluate_phase(torch, hp, model, tmp: str, card: str):
+    """``evaluate_project`` over phase predict's tfrecords in a Project
+    built in ``tmp``, then ``threshold.apply`` on its tile frame at a
+    fixed tile threshold (the median uncertainty). Needs pandas."""
+    import dataclasses
+    import os
+
+    import pandas as pd
+
+    from biscuit_torch import threshold, utils
+    from biscuit_torch.project import Project
+    from biscuit_torch.train.evaluate import evaluate_project
+    from biscuit_torch.train.trainer import save_checkpoint
+
+    hp = dataclasses.replace(hp, uq=True, uq_samples=K)
+    model_path = save_checkpoint(os.path.join(tmp, "models"), model, hp, 1,
+                                 OUTCOME, "smoke", None)
+    ann = os.path.join(tmp, "annotations.csv")
+    pd.DataFrame({"patient": [f"patient{s}" for s in range(3)],
+                  "slide": [f"slide{s}" for s in range(3)],
+                  OUTCOME: [f"class{y}" for y in PREDICT_LABELS]}).to_csv(
+                      ann, index=False)
+    project = Project(os.path.join(tmp, "project"), annotations=ann,
+                      name="smoke", create=True)
+    project.add_source("smoke", tfrecords=os.path.join(tmp, "tfr"))
+    t0 = time.perf_counter()
+    res = evaluate_project(project, model_path, OUTCOME)
+    secs = time.perf_counter() - t0
+    files = {"results_log.csv", "tile_predictions_eval.csv",
+             f"slide_predictions_{OUTCOME}_eval.csv",
+             f"patient_predictions_{OUTCOME}_eval.csv"}
+    check(set(os.listdir(res["eval_dir"])) == files, "the eval-dir files")
+    tiles = pd.read_csv(os.path.join(res["eval_dir"],
+                                     "tile_predictions_eval.csv"))
+    check(len(tiles) == len(PREDICT_LABELS) * PREDICT_TILES, "tile rows")
+    utils.rename_cols(tiles, OUTCOME)
+    tile_uq = float(tiles["uncertainty"].median())
+    results, _ = threshold.apply(tiles, tile_uq=tile_uq, slide_uq=None)
+    check(set(results) == {"auc", "percent_incl", "acc", "sensitivity",
+                           "specificity"}, "threshold.apply's keys")
+    check(0 < results["percent_incl"] <= 1, "percent_incl in (0, 1]")
+    return {"phase": "evaluate", "eval_dir": os.path.basename(
+                res["eval_dir"]), "seconds": secs,
+            **{k: list(res[k]) for k in ("tile", "slide", "patient")},
+            "tile_uq": tile_uq,
+            "apply": {k: float(v) for k, v in results.items()},
+            "card": card}
+
+
 def train_batch(torch, gen, n: int):
     """Random uint8 tiles, 0/1 labels and a full mask on the card."""
     tiles = torch.randint(0, 256, (n, TILE_PX, TILE_PX, 3), generator=gen,
@@ -1368,6 +1658,14 @@ def main(argv=None) -> int:
     fused_row, fused_launches = main_fused_blocks(torch, hp, model, requests,
                                                   REQUESTS, card)
     emit(fused_row)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        emit(predict_phase(torch, hp, model, tmp, card))
+        if importlib.util.find_spec("pandas") is None:
+            emit({"phase": "evaluate",
+                  "skipped": "pandas is not installed on this machine"})
+        else:
+            emit(evaluate_phase(torch, hp, model, tmp, card))
     del model, requests
     torch.cuda.empty_cache()
     dw_row, dw_launches = depthwise_entry(torch, gen, card)

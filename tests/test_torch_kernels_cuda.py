@@ -585,3 +585,49 @@ def test_block_and_depthwise_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="16-byte"):
         depthwise_conv3x3(shifted, k)
     torch.cuda.synchronize()           # no launch faulted the context
+
+
+def test_score_tiles_on_the_card_matches_the_cpu(gen, tmp_path):
+    """``score_tiles`` over 3 tfrecords of 12 Paeth-filtered PNG tiles at
+    xception_tiny, batch 16 (three batches, the last padded to 4 rows), at
+    dropout 0: the card's rows equal the CPU's, its probabilities within
+    2e-2 (bf16 trunk and preprocess on the card, the f32 chain and the
+    module path on the CPU) and its std within 1e-3; each batch launches
+    the preprocess, middle flow (the tiny width, 48, takes it) and MC head
+    kernels once."""
+    import numpy as np
+
+    from biscuit_torch.data.tfrecord import TFRecordWriter
+    from biscuit_torch.hp import ModelParams
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.train.trainer import score_tiles
+    from chip_smoke import encode_png, init_random_
+
+    hp = ModelParams(model="xception_tiny", tile_px=32, batch_size=16,
+                     hidden_layer_width=32, dropout=0.0, uq=True, uq_samples=4)
+    model = build_model(hp)
+    init_random_(torch, model, 0)
+    rng = np.random.default_rng(0)
+    paths = []
+    for s in range(3):
+        paths.append(str(tmp_path / f"s{s}.tfrecords"))
+        with TFRecordWriter(paths[-1]) as w:
+            for t in range(12):
+                img = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+                w.write_tile(f"s{s}", encode_png(img, 4), loc_x=t, loc_y=s)
+    labels = {"s0": 0, "s1": 1, "s2": 0}
+    want_rows, want_p, want_u = score_tiles(model, hp, paths, labels,
+                                            device="cpu")
+    before = _build.launch_counts()
+    rows, probs, unc = score_tiles(model, hp, paths, labels)
+    after = _build.launch_counts()
+    for name in after:
+        want = 3 if name in ("fused_preprocess", "fused_middle_flow",
+                             "mcd_head") else 0
+        assert after[name] - before[name] == want, name
+    for key in ("slide", "loc_x", "loc_y", "y_true"):
+        np.testing.assert_array_equal(rows[key], want_rows[key])
+    assert probs.shape == unc.shape == (36, 2)
+    assert np.ptp(want_p[:, 1]) > 1e-3
+    np.testing.assert_allclose(probs, want_p, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(unc, want_u, rtol=0, atol=1e-3)
