@@ -6,11 +6,12 @@ through their index sidecars, decodes each tile on the host and yields
 fixed-shape batches with a mask of the real rows; everything downstream
 (stain normalization, standardization, the model) runs on the card.
 
-Tiles are read and decoded in Python: PNGs of the usual kinds by
-``data/png.py`` (zlib and numpy), anything else by Pillow, imported only
-for such a tile. The JAX package's threaded native loader (``native/``)
-is not ported, nor are its host JPEG augmentation and multi-host
-sharding, which serve training.
+Tiles are read and decoded in Python: by Pillow, imported only when a
+tile is decoded, where it is installed, and otherwise, for PNGs of the
+usual kinds, by ``data/png.py`` (zlib and numpy; on a Pillow-written
+299-px tile about ten times slower than Pillow). The JAX package's
+threaded native loader (``native/``) is not ported, nor are its host
+JPEG augmentation and multi-host sharding, which serve training.
 """
 
 from __future__ import annotations
@@ -30,18 +31,19 @@ from .tfrecord import load_index, read_example_at
 def decode_image(raw: bytes) -> np.ndarray:
     """Decode a tile to HWC uint8 RGB, as Pillow's ``convert("RGB")``.
 
-    8-bit non-interlaced grey/RGB(A) PNGs decode without Pillow; other
-    images need it, and without it raise ImportError naming the format."""
-    img = decode_png(raw)
-    if img is not None:
-        return img
+    Pillow decodes it where it is installed. Without Pillow, 8-bit
+    non-interlaced grey/RGB(A) PNGs decode by ``data/png.py`` and any
+    other image raises ImportError naming its format."""
     try:
         from PIL import Image
     except ImportError:
-        raise ImportError(
-            f"cannot decode a {describe(raw)} tile: data/png.py takes 8-bit "
-            "non-interlaced grey or RGB(A) PNGs, and Pillow, which decodes "
-            "the rest, is not installed") from None
+        img = decode_png(raw)
+        if img is None:
+            raise ImportError(
+                f"cannot decode a {describe(raw)} tile: data/png.py takes "
+                "8-bit non-interlaced grey or RGB(A) PNGs, and Pillow, which "
+                "decodes the rest, is not installed") from None
+        return img
     return np.asarray(Image.open(io.BytesIO(raw)).convert("RGB"))
 
 

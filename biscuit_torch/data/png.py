@@ -7,8 +7,9 @@ takes the PNGs that tile archives hold: 8-bit, non-interlaced, grey (0),
 RGB (2), grey + alpha (4) or RGBA (6), with any of the five row filters,
 and returns what Pillow's ``Image.open(...).convert("RGB")`` gives, bit
 for bit: grey replicated to three channels, alpha dropped. ``decode_png``
-returns None for any other image, which ``data/pipeline.decode_image``
-hands to Pillow.
+returns None for any other image. ``data/pipeline.decode_image`` calls
+it only where Pillow is not installed: Pillow decodes a Pillow-written
+299-px tile about ten times faster.
 
 The None, Sub and Up filters vectorize along a row. Average and Paeth
 predict each byte from the reconstructed byte to its left, so an image

@@ -8,8 +8,8 @@ normalize -> augment -> Xception forward/backward -> masked
 cross-entropy -> optimizer update), ``save_checkpoint``/
 ``load_checkpoint`` in the JAX package's on-disk format, and the
 prediction writers: ``score_tiles``/``predict_tiles`` over tfrecords
-(the ``tile_predictions`` contract), ``group_predictions_frame`` and
-``_write_predictions``. The training loop around the step
+(the ``tile_predictions`` contract) and ``group_predictions_frame``.
+The training loop around the step
 (``train_project``, early stopping) is not ported yet.
 
 A saved model directory holds ``params.json`` (``{"hp": ..., "outcome":
@@ -35,7 +35,6 @@ from ..device import resolve_device
 from ..hp import ModelParams
 from ..models.convert import from_flax, read_msgpack, to_flax, write_msgpack
 from ..models.xception import build_model
-from ..stats.roc import auc_score, average_precision
 
 
 def lr_schedule(hp: ModelParams):
@@ -205,7 +204,7 @@ def load_checkpoint(model_path: str, device=None):
 
 def score_tiles(model, hp: ModelParams, tfrecords: List[str],
                 labels: Dict[str, int], batch_size: Optional[int] = None,
-                max_tiles: Optional[int] = None, device=None, seed: int = 42,
+                max_tiles: Optional[int] = None, device=None,
                 fuse_blocks: bool = False):
     """Score every tile of ``tfrecords`` in order -> ``(rows, probs, unc)``.
 
@@ -217,8 +216,9 @@ def score_tiles(model, hp: ModelParams, tfrecords: List[str],
     ``device`` (the card unless ``device="cpu"``), where ``model`` is
     moved. With ``hp.uq`` each batch goes through one
     ``UncertaintyInterface`` (K = ``hp.uq_samples``; its dropout stream
-    starts from ``seed``; ``fuse_blocks`` as there, the counterpart of
-    the JAX package's ``BISCUIT_FUSED_BLOCKS``), else through
+    starts from seed 42, as the JAX package's from ``PRNGKey(42)``;
+    ``fuse_blocks`` as there, the counterpart of the JAX package's
+    ``BISCUIT_FUSED_BLOCKS``), else through
     ``make_eval_step`` with ``unc`` None. The outputs stay on the card
     and are copied back once, after the last batch."""
     dev = resolve_device(device)
@@ -226,7 +226,7 @@ def score_tiles(model, hp: ModelParams, tfrecords: List[str],
         from .uq import UncertaintyInterface
 
         score = UncertaintyInterface.from_model(
-            model, hp, k=hp.uq_samples, device=dev, seed=seed,
+            model, hp, k=hp.uq_samples, device=dev, seed=42,
             fuse_blocks=fuse_blocks)
     else:
         eval_step = make_eval_step(model.to(dev).eval(),
@@ -271,31 +271,16 @@ def score_tiles(model, hp: ModelParams, tfrecords: List[str],
 def predict_tiles(model, hp: ModelParams, tfrecords: List[str],
                   labels: Dict[str, int], batch_size: Optional[int] = None,
                   max_tiles: Optional[int] = None, device=None,
-                  seed: int = 42, fuse_blocks: bool = False):
+                  fuse_blocks: bool = False):
     """``score_tiles`` as the JAX ``predict_tiles`` returns it:
     ``(rows DataFrame, probs, unc)``, the frame behind the
     ``tile_predictions`` CSV contract (``utils.tile_predictions_frame``)."""
-    from ..utils import scored_tile_rows
+    import pandas as pd
 
-    return scored_tile_rows(*score_tiles(
+    rows, probs, unc = score_tiles(
         model, hp, tfrecords, labels, batch_size=batch_size,
-        max_tiles=max_tiles, device=device, seed=seed,
-        fuse_blocks=fuse_blocks))
-
-
-def _write_predictions(df, path_base: str, fmt) -> None:
-    """Write a predictions frame in the requested format.
-
-    fmt: 'csv' (default; also for True), 'parquet' (writes
-    ``{base}.parquet.gzip``, the slideflow 1.2 variant the reference reads
-    back), or falsy to skip.
-    """
-    if not fmt:
-        return
-    if fmt == "parquet":
-        df.to_parquet(path_base + ".parquet.gzip", compression="gzip")
-    else:
-        df.to_csv(path_base + ".csv", index=False)
+        max_tiles=max_tiles, device=device, fuse_blocks=fuse_blocks)
+    return pd.DataFrame(rows), probs, unc
 
 
 def group_predictions_frame(tile_df, probs, patients: Dict[str, str],
@@ -327,9 +312,3 @@ def group_predictions_frame(tile_df, probs, patients: Dict[str, str],
     g["y_true1"] = g["y_true1"].to_numpy().astype(np.uint8)
     return g
 
-
-def _level_metrics(y_true, y_score):
-    return (
-        auc_score(np.asarray(y_true), np.asarray(y_score)),
-        average_precision(np.asarray(y_true), np.asarray(y_score)),
-    )

@@ -41,13 +41,6 @@ def tile_predictions_frame(outcome, df, probs, unc) -> pd.DataFrame:
     return out
 
 
-def scored_tile_rows(rows, probs, unc):
-    """``(rows DataFrame, probs, unc)`` from ``trainer.score_tiles``'s
-    arrays, the row triple behind :func:`tile_predictions_frame`. Every
-    writer of the seam builds its frame here, so they cannot drift."""
-    return pd.DataFrame(rows), probs, unc
-
-
 def rename_cols(df, outcome, *, y_true=None, y_pred=None, uncertainty=None):
     """Rename outcome-prefixed prediction columns to canonical names, in
     place. Supports both dash and underscore separators (utils.py:31-53)."""

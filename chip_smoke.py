@@ -61,16 +61,22 @@ these phases, each printing one JSON line:
    299-px tiles for each of the PREDICT_LABELS slides, written as PNGs
    (filter 0, ``encode_png``) into tfrecords by the port's writer
    (seconds and bytes printed), then ``score_tiles`` over them (hp with
-   uq=True, K=30): one warm-up call, then a timed one with the launch
-   counts zeroed just before and read just after (rows 1-3 once a
-   batch); the rows (order, slides, locations, labels) and outputs
-   checked, and at dropout 0 the means against the plain-version path
-   (the f32 preprocess of float tiles, library convs, the module head).
+   uq=True, K=30), with the default trunk and with ``fuse_blocks=True``:
+   one warm-up call each, then a timed one with the launch counts zeroed
+   just before and read just after (rows 1-3 once a batch, row 4 four
+   times a batch with ``fuse_blocks``); the rows (order, slides,
+   locations, labels) and outputs checked; the pooled features of each
+   batch the path gives the kernels (128, 128 and 44 real rows) held
+   against the plain versions for both trunks; and, with the logits
+   layer set so the probabilities spread over the tiles
+   (``decisive_logits_``: a random head gives every tile about 0.5), the
+   dropout-0 means of both trunks against the plain-version path (the
+   f32 preprocess of float tiles, library convs, the module head).
    It prints tiles/s from disk, the batcher's read + decode seconds
    alone, after the warm-up (the decoded tiles must equal the written
-   ones bit for bit),
-   the device time of the same batches (CUDA events around the
-   interface calls) and the PNG decode time by row filter.
+   ones bit for bit), the device time of the same batches (CUDA events
+   around the interface calls) and the PNG decode time by row filter,
+   of ``data/png.py`` and of Pillow.
    evaluate: where pandas is installed, ``evaluate_project`` over those
    tfrecords in a Project built in a temporary directory, its four
    files checked, then ``threshold.apply`` on its tile frame at the
@@ -1227,33 +1233,78 @@ def write_tfrecords(tiles, directory: str):
 
 
 def decode_ms_by_filter(tile, repeats: int = 5) -> dict:
-    """Median host ms of ``data/png.decode_png`` on one tile with each row
-    filter forced on every row, and the PNG's size."""
+    """Median host ms to decode one tile by ``data/png.decode_png`` and,
+    where it is installed, by Pillow (``Image.open(...).convert("RGB")``),
+    with each row filter forced on every row and as Pillow writes it (a
+    filter chosen row by row), and the PNG's size."""
+    import io
+
     from biscuit_torch.data.png import decode_png
 
+    decoders = {"ms": decode_png}
+    if importlib.util.find_spec("PIL") is not None:
+        import numpy as np
+        from PIL import Image
+
+        decoders["pillow_ms"] = lambda raw: np.asarray(
+            Image.open(io.BytesIO(raw)).convert("RGB"))
+        buf = io.BytesIO()
+        Image.fromarray(tile).save(buf, format="PNG")
+    encodings = [(name, encode_png(tile, kind)) for name, kind in (
+        ("none", 0), ("sub", 1), ("up", 2), ("average", 3), ("paeth", 4))]
+    if "pillow_ms" in decoders:
+        encodings.append(("pillow_written", buf.getvalue()))
     out = {}
-    for name, kind in (("none", 0), ("sub", 1), ("up", 2), ("average", 3),
-                       ("paeth", 4)):
-        raw = encode_png(tile, kind)
-        times = []
-        for _ in range(repeats):
-            t0 = time.perf_counter()
-            img = decode_png(raw)
-            times.append((time.perf_counter() - t0) * 1e3)
-            check(img.tobytes() == tile.tobytes(), f"PNG filter {name} decode")
-        out[name] = {"ms": statistics.median(times), "png_kb": len(raw) / 1e3}
+    for name, raw in encodings:
+        out[name] = {"png_kb": len(raw) / 1e3}
+        for key, decode in decoders.items():
+            times = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                img = decode(raw)
+                times.append((time.perf_counter() - t0) * 1e3)
+                check(img.tobytes() == tile.tobytes(),
+                      f"PNG {name}: {key} decode")
+            out[name][key] = statistics.median(times)
     return out
+
+
+def decisive_logits_(torch, model, feats, span: float = 2.0) -> None:
+    """Set the logits layer of ``model``'s head so that, at dropout 0,
+    its class-1 probabilities spread over the tiles whose pooled features
+    are the rows of ``feats``: the logit difference is s (h . w - c), w
+    the first principal direction of the last hidden layer h on ``feats``,
+    c the median of h . w and s = span / (its max - min), so with span 2
+    the probabilities run from about 0.27 to 0.73. A random head gives
+    every tile about 0.5, where a wrong kernel, or a tile scored in
+    another's row, stays within a probability tolerance of 2e-2."""
+    head = model.head
+    with torch.no_grad():
+        h = feats.float()
+        for i in range(head.hidden_layers):
+            h = torch.relu(getattr(head, f"hidden{i}")(h))
+        h = h.double()
+        w = torch.linalg.svd(h - h.mean(0), full_matrices=False).Vh[0]
+        score = h @ w
+        s = span / (score.max() - score.min())
+        c = score.median()
+        head.logits.weight.copy_(torch.stack([-w, w]) * s / 2)
+        head.logits.bias.copy_(torch.stack([c, -c]) * s / 2)
 
 
 def predict_phase(torch, hp, model, tmp: str, card: str):
     """Main-path steps 1-6 from disk: PREDICT_TILES tiles of each of the
     PREDICT_LABELS slides written as PNG tfrecords, then scored by
-    ``score_tiles`` (hp with uq=True at K), its launch counts zeroed just
-    before the timed call and read just after; the rows, outputs and
-    (at dropout 0) the means against the plain-version path checked.
+    ``score_tiles`` (hp with uq=True at K), with the default and the
+    ``fuse_blocks`` trunk, each with its launch counts zeroed just before
+    its timed call and read just after; the rows and outputs checked; the
+    pooled features of each batch the path gives the kernels (the last
+    with 44 real rows) held against the plain-version path; and, with the
+    logits layer set so the probabilities spread (``decisive_logits_``),
+    the dropout-0 means of both trunks against the plain-version path.
     Also times the batcher alone (host read + decode), the interface on
     the same batches already on the card (device time) and the PNG
-    decoder by filter."""
+    decoders by filter."""
     import dataclasses
     import os
 
@@ -1261,8 +1312,13 @@ def predict_phase(torch, hp, model, tmp: str, card: str):
 
     from biscuit_torch.data.pipeline import TileBatcher
     from biscuit_torch.ops import _build
+    from biscuit_torch.ops.fused_preprocess import (
+        fused_preprocess,
+        fused_preprocess_reference,
+    )
+    from biscuit_torch.ops.fused_sepconv import fused_middle_flow_reference
     from biscuit_torch.train.trainer import score_tiles
-    from biscuit_torch.train.uq import UncertaintyInterface
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
 
     hp = dataclasses.replace(hp, uq=True, uq_samples=K)
     n = len(PREDICT_LABELS) * PREDICT_TILES
@@ -1273,7 +1329,8 @@ def predict_phase(torch, hp, model, tmp: str, card: str):
     paths, labels, n_bytes = write_tfrecords(tiles, os.path.join(tmp, "tfr"))
     write_s = time.perf_counter() - t0
 
-    score_tiles(model, hp, paths, labels)       # warm-up
+    for fuse in (False, True):                  # warm-up
+        score_tiles(model, hp, paths, labels, fuse_blocks=fuse)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     batches = list(TileBatcher(paths, labels, hp.batch_size, shuffle=False,
@@ -1283,74 +1340,120 @@ def predict_phase(torch, hp, model, tmp: str, card: str):
     check(np.concatenate([b["image"][m] for b, m in zip(batches, masks)])
           .tobytes() == tiles.tobytes(), "decoded tiles equal the written")
 
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    rows, probs, unc = score_tiles(model, hp, paths, labels)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = _build.launch_counts()
-    for name, count in launches.items():
-        want = len(batches) if name in SERVING else 0
-        check(count == want, f"{name}: {count} launches for {len(batches)} "
-                             f"batches from tfrecords, expected {want}")
-
     t = np.arange(n) % PREDICT_TILES
-    check(list(rows["slide"]) == [f"slide{i // PREDICT_TILES}"
-                                  for i in range(n)], "rows in tfrecord order")
-    check(np.array_equal(rows["loc_x"], TILE_PX * (t % 10))
-          and np.array_equal(rows["loc_y"], TILE_PX * (t // 10)),
-          "locations as written")
-    check(np.array_equal(rows["y_true"], np.repeat(PREDICT_LABELS,
-                                                   PREDICT_TILES)),
-          "y_true from the labels")
-    check(probs.shape == unc.shape == (n, 2), "output shape")
-    check(bool(np.isfinite(probs).all() and np.isfinite(unc).all()),
-          "finite outputs")
-    check(float(np.abs(probs.sum(1) - 1).max()) <= 1e-3, "rows sum to 1")
-    check(float(unc.min()) >= 0, "std >= 0")
+    runs = {}
+    for fuse in (False, True):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows, probs, unc = score_tiles(model, hp, paths, labels,
+                                       fuse_blocks=fuse)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        for name, count in launches.items():
+            want = len(batches) if name in SERVING else 0
+            if fuse and name == "fused_block":
+                want = BLOCKS_PER_REQUEST * len(batches)
+            check(count == want, f"{name}: {count} launches for "
+                                 f"{len(batches)} batches from tfrecords "
+                                 f"(fuse_blocks={fuse}), expected {want}")
+        check(list(rows["slide"]) == [f"slide{i // PREDICT_TILES}"
+                                      for i in range(n)],
+              "rows in tfrecord order")
+        check(np.array_equal(rows["loc_x"], TILE_PX * (t % 10))
+              and np.array_equal(rows["loc_y"], TILE_PX * (t // 10)),
+              "locations as written")
+        check(np.array_equal(rows["y_true"], np.repeat(PREDICT_LABELS,
+                                                       PREDICT_TILES)),
+              "y_true from the labels")
+        check(probs.shape == unc.shape == (n, 2), "output shape")
+        check(bool(np.isfinite(probs).all() and np.isfinite(unc).all()),
+              "finite outputs")
+        check(float(np.abs(probs.sum(1) - 1).max()) <= 1e-3, "rows sum to 1")
+        check(float(unc.min()) >= 0, "std >= 0")
+        runs[fuse] = {"score_tiles_s": secs, "tiles_per_s_from_disk": n / secs,
+                      "launches": launches,
+                      "mean_of_mean": probs.mean(0).tolist(),
+                      "mean_of_std": unc.mean(0).tolist()}
 
     # Device time of the same batches: the interface score_tiles builds,
     # called back to back on the batches already on the card.
-    ui = UncertaintyInterface.from_model(model, hp, k=K, device="cuda",
-                                         seed=42)
     on_card = [torch.from_numpy(b["image"]).cuda() for b in batches]
-    ui(on_card[0])
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True)
-          for _ in range(len(on_card) + 1)]
-    ev[0].record()
-    for i, x in enumerate(on_card):
-        ui(x)
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    device_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(on_card))]
-    del on_card
+    for fuse in (False, True):     # leaves ui the fuse_blocks interface
+        ui = UncertaintyInterface.from_model(model, hp, k=K, device="cuda",
+                                             seed=42, fuse_blocks=fuse)
+        ui(on_card[0])
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(on_card) + 1)]
+        ev[0].record()
+        for i, x in enumerate(on_card):
+            ui(x)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        runs[fuse]["device_ms"] = [ev[i].elapsed_time(ev[i + 1])
+                                   for i in range(len(on_card))]
+        runs[fuse]["device_s"] = sum(runs[fuse]["device_ms"]) / 1e3
 
-    # Dropout 0: score_tiles against the plain-version path (the exact
-    # f32 preprocess of float tiles, library convs, the module head).
+    # The pooled features of each batch as the path gives it to the
+    # kernels (128, 128, then 44 real rows of 128), both trunks against
+    # the plain versions, on the real rows (padding rows are constant
+    # tiles, whose standardization amplifies rounding noise).
+    feat = {"default": [], "fuse_blocks": []}
+    plain_feats = []
+    with torch.inference_mode():
+        for i, (x, m) in enumerate(zip(on_card, masks)):
+            m = torch.from_numpy(m).cuda()
+            xk = fused_preprocess(x, ui.wsi_normalizer)
+            xp = fused_preprocess_reference(x, ui.wsi_normalizer,
+                                            torch.bfloat16)
+            fp = model.trunk_exit(fused_middle_flow_reference(
+                model.trunk_entry(xp), *ui._mid_wts))[m]
+            for name, fk in (
+                    ("default", trunk_features(model, xk, True, ui._mid_wts)),
+                    ("fuse_blocks", trunk_features(model, xk, True,
+                                                   ui._mid_wts, True,
+                                                   ui._block_wts))):
+                err, scale = held_features(
+                    f"batch {i} ({int(m.sum())} rows), {name} features",
+                    fk[m], fp)
+                feat[name].append({"rows": int(m.sum()), "max_abs_err": err,
+                                   "tol": 3e-2 * scale})
+            plain_feats.append(fp)
+    del on_card, xk, xp
+
+    # Dropout 0, with probabilities that differ by tile: score_tiles
+    # against the plain-version path (the exact f32 preprocess of float
+    # tiles, library convs, the module head).
+    decisive_logits_(torch, model, torch.cat(plain_feats))
+    del plain_feats
     model.dropout = model.head.dropout = 0.0
-    _, p0, _ = score_tiles(model, hp, paths, labels)
     plain = UncertaintyInterface.from_model(model, hp, k=K, device="cuda",
                                             use_kernel=False,
                                             fused_trunk=False)
     want0 = np.concatenate([
         plain(torch.from_numpy(tiles[i:i + hp.batch_size]).cuda().float())[0]
         .cpu().numpy() for i in range(0, n, hp.batch_size)])
+    spread = float(np.ptp(want0[:, 1]))
+    check(spread > 0.2, f"dropout-0 probabilities spread {spread} <= 0.2")
+    for fuse in (False, True):
+        _, p0, _ = score_tiles(model, hp, paths, labels, fuse_blocks=fuse)
+        err0 = float(np.abs(p0 - want0).max())
+        check(err0 <= 2e-2, f"dropout-0 mean from tfrecords "
+                            f"(fuse_blocks={fuse}): max abs err {err0}")
+        runs[fuse]["dropout0_mean_max_abs_err"] = err0
     model.dropout = model.head.dropout = hp.dropout
-    err0 = float(np.abs(p0 - want0).max())
-    check(err0 <= 2e-2, f"dropout-0 mean from tfrecords: max abs err {err0}")
     return {
         "phase": "predict", "model": "xception", "tile_px": TILE_PX, "k": K,
         "dropout": hp.dropout, "slides": len(PREDICT_LABELS),
         "tiles": n, "batch": hp.batch_size, "batches": len(batches),
         "last_batch_rows": int(masks[-1].sum()),
         "tiles_gen_s": tiles_s, "write_s": write_s, "bytes_written": n_bytes,
-        "host_read_decode_s": host_s, "score_tiles_s": secs,
-        "tiles_per_s_from_disk": n / secs, "device_ms": device_ms,
-        "device_s": sum(device_ms) / 1e3, "launches": launches,
-        "mean_of_mean": probs.mean(0).tolist(),
-        "mean_of_std": unc.mean(0).tolist(),
-        "dropout0_mean_max_abs_err": err0, "dropout0_tol": 2e-2,
+        "host_read_decode_s": host_s, **runs[False],
+        "fuse_blocks": runs[True], "features": feat,
+        "dropout0_ptp": spread,
+        "dropout0_min_dist_to_half": float(np.abs(want0[:, 1] - 0.5).min()),
+        "dropout0_tol": 2e-2,
         "decode_by_filter": decode_ms_by_filter(tiles[0]), "card": card,
     }
 

@@ -235,3 +235,22 @@ def test_evaluate_needs_a_card_unless_cpu(evals):
     _, _, port_as_jax, path = evals[True]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_evaluate(PortProject(port_as_jax.root), path, OUTCOME)
+
+
+def test_evaluate_with_fused_blocks(evals, tmp_path):
+    """``fuse_blocks=True`` reaches the trunk: on the CPU its blocks run
+    the fused strided block's plain version (bf16), so the tile
+    predictions differ from the default composition's, within the 2e-2
+    that the tile CSVs of the two packages are held to."""
+    _, got, port_as_jax, path = evals[True]
+    root = shutil.copytree(port_as_jax.root, str(tmp_path / "root"))
+    fused = port_evaluate(PortProject(root), path, OUTCOME, device="cpu",
+                          fuse_blocks=True)
+    assert basename(fused["eval_dir"]) == "00002-eval-" + basename(
+        got["eval_dir"])[11:]
+    want = _read(got, "tile_predictions_eval.csv")
+    have = _read(fused, "tile_predictions_eval.csv")
+    assert_frame_equal(have.iloc[:, :4], want.iloc[:, :4])
+    pred = [c for c in want.columns if "_y_pred" in c]
+    diff = np.abs(have[pred].to_numpy() - want[pred].to_numpy())
+    assert 0 < diff.max() <= 2e-2       # another trunk, the same scores

@@ -590,44 +590,61 @@ def test_block_and_depthwise_reject_what_the_kernels_do_not_take(gen):
 def test_score_tiles_on_the_card_matches_the_cpu(gen, tmp_path):
     """``score_tiles`` over 3 tfrecords of 12 Paeth-filtered PNG tiles at
     xception_tiny, batch 16 (three batches, the last padded to 4 rows), at
-    dropout 0: the card's rows equal the CPU's, its probabilities within
-    2e-2 (bf16 trunk and preprocess on the card, the f32 chain and the
-    module path on the CPU) and its std within 1e-3; each batch launches
-    the preprocess, middle flow (the tiny width, 48, takes it) and MC head
-    kernels once."""
+    dropout 0, with the default trunk and with ``fuse_blocks=True``: the
+    card's rows equal the CPU's, its probabilities within 2e-2 (bf16
+    trunk and preprocess on the card, the f32 chain and the module path
+    on the CPU) and its std within 1e-3; each batch launches the
+    preprocess, middle flow (the tiny width, 48, takes it) and MC head
+    kernels once, and with ``fuse_blocks`` the strided-block kernel four
+    times. The logits layer is set so the probabilities spread over the
+    tiles (``chip_smoke.decisive_logits_``): a random head gives every
+    tile about 0.5, where a wrong kernel would stay within 2e-2."""
     import numpy as np
 
+    from biscuit_torch.data.normalize import inference_preprocess
     from biscuit_torch.data.tfrecord import TFRecordWriter
     from biscuit_torch.hp import ModelParams
     from biscuit_torch.models.xception import build_model
     from biscuit_torch.train.trainer import score_tiles
-    from chip_smoke import encode_png, init_random_
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+    from chip_smoke import decisive_logits_, encode_png, init_random_
 
     hp = ModelParams(model="xception_tiny", tile_px=32, batch_size=16,
                      hidden_layer_width=32, dropout=0.0, uq=True, uq_samples=4)
     model = build_model(hp)
     init_random_(torch, model, 0)
     rng = np.random.default_rng(0)
-    paths = []
+    paths, tiles = [], []
     for s in range(3):
         paths.append(str(tmp_path / f"s{s}.tfrecords"))
         with TFRecordWriter(paths[-1]) as w:
             for t in range(12):
-                img = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
-                w.write_tile(f"s{s}", encode_png(img, 4), loc_x=t, loc_y=s)
+                tiles.append(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8))
+                w.write_tile(f"s{s}", encode_png(tiles[-1], 4), loc_x=t,
+                             loc_y=s)
     labels = {"s0": 0, "s1": 1, "s2": 0}
+    norm = UncertaintyInterface.from_model(model, hp,
+                                           device="cpu").wsi_normalizer
+    with torch.no_grad():
+        feats = trunk_features(model, inference_preprocess(
+            torch.from_numpy(np.stack(tiles)), norm))
+    decisive_logits_(torch, model, feats)
     want_rows, want_p, want_u = score_tiles(model, hp, paths, labels,
                                             device="cpu")
-    before = _build.launch_counts()
-    rows, probs, unc = score_tiles(model, hp, paths, labels)
-    after = _build.launch_counts()
-    for name in after:
-        want = 3 if name in ("fused_preprocess", "fused_middle_flow",
-                             "mcd_head") else 0
-        assert after[name] - before[name] == want, name
-    for key in ("slide", "loc_x", "loc_y", "y_true"):
-        np.testing.assert_array_equal(rows[key], want_rows[key])
-    assert probs.shape == unc.shape == (36, 2)
-    assert np.ptp(want_p[:, 1]) > 1e-3
-    np.testing.assert_allclose(probs, want_p, rtol=0, atol=2e-2)
-    np.testing.assert_allclose(unc, want_u, rtol=0, atol=1e-3)
+    assert np.ptp(want_p[:, 1]) > 0.2
+    for fuse in (False, True):
+        before = _build.launch_counts()
+        rows, probs, unc = score_tiles(model, hp, paths, labels,
+                                       fuse_blocks=fuse)
+        after = _build.launch_counts()
+        for name in after:
+            want = 3 if name in ("fused_preprocess", "fused_middle_flow",
+                                 "mcd_head") else 0
+            if fuse and name == "fused_block":
+                want = 4 * 3
+            assert after[name] - before[name] == want, (fuse, name)
+        for key in ("slide", "loc_x", "loc_y", "y_true"):
+            np.testing.assert_array_equal(rows[key], want_rows[key])
+        assert probs.shape == unc.shape == (36, 2)
+        np.testing.assert_allclose(probs, want_p, rtol=0, atol=2e-2)
+        np.testing.assert_allclose(unc, want_u, rtol=0, atol=1e-3)
