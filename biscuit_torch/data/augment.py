@@ -6,8 +6,10 @@ flip, y = random vertical flip, r = random cardinal rotation, b = random
 Gaussian blur (``augment_batch``, on the standardized f32 batch), and j =
 random JPEG re-compression through the 8x8 DCT (``jpeg_augment_batch``,
 on the raw uint8 batch before normalization, the same point in the math
-as the reference's host codec). The host PIL codec path of the JAX
-package is not ported.
+as the reference's host codec). Under ``BISCUIT_JPEG_HOST=1``
+(``jpeg_on_host``) 'j' runs instead on the host, tile by tile, through
+Pillow's codec (``jpeg_augment_host``, which ``data/pipeline.py``
+``TileBatcher(jpeg_aug=True)`` applies as it decodes).
 
 Each policy is split into a sampler, which draws the per-image decisions
 from a ``torch.Generator``, and an application, which takes them; the
@@ -17,6 +19,9 @@ same decisions to both packages' applications.
 
 from __future__ import annotations
 
+import io
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -25,6 +30,31 @@ BLUR_PROB = 0.1
 BLUR_SIGMAS = (0.5, 1.0, 1.5, 2.0)
 JPEG_PROB = 0.5
 JPEG_QUALITY_RANGE = (50, 100)
+
+
+def jpeg_on_host() -> bool:
+    """True when the 'j' augmentation runs on the host (Pillow's codec)
+    instead of on the training device (BISCUIT_JPEG_HOST=1)."""
+    return os.environ.get("BISCUIT_JPEG_HOST", "0") == "1"
+
+
+def jpeg_augment_host(img, rng: np.random.Generator):
+    """Host-side random JPEG re-compression (the 'j' of 'xyrjb') of an
+    HWC uint8 array: with probability JPEG_PROB at a quality drawn from
+    JPEG_QUALITY_RANGE, as the JAX package's ``jpeg_augment_host``, from
+    the same numpy generator draws. Needs Pillow."""
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError("the host JPEG augmentation (BISCUIT_JPEG_HOST=1) "
+                          "needs Pillow, which is not installed") from None
+    if rng.random() >= JPEG_PROB:
+        return img
+    quality = int(rng.integers(*JPEG_QUALITY_RANGE))
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=quality)
+    buf.seek(0)
+    return np.asarray(Image.open(buf).convert("RGB"))
 
 
 def _bcast(mask):
@@ -166,16 +196,21 @@ def _dct8_matrix() -> np.ndarray:
 
 
 def _matmul_f32(a, b):
-    """``a @ b`` in full f32 whatever the process's matmul precision: with
-    TF32 on, the card would round the operands to 10 mantissa bits, and
-    quality-99 DC coefficients (~1e3, steps of 1) would quantize
-    differently."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+    """``a @ b`` in full f32 on the card whatever the process's TF32
+    setting: with TF32 on, the card would round the operands to 10
+    mantissa bits, and quality-99 DC coefficients (~1e3, steps of 1)
+    would quantize differently. Only the CUDA matmul's TF32 switch is
+    turned off for the call and restored; the process-wide precision is
+    neither read nor set (PyTorch refuses to read it once the per-backend
+    and the process-wide settings disagree)."""
+    if a.device.type != "cuda":
+        return torch.matmul(a, b)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         return torch.matmul(a, b)
     finally:
-        torch.set_float32_matmul_precision(prev)
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _jpeg_plane(plane, tbl):

@@ -10,8 +10,11 @@ Tiles are read and decoded in Python: by Pillow, imported only when a
 tile is decoded, where it is installed, and otherwise, for PNGs of the
 usual kinds, by ``data/png.py`` (zlib and numpy; on a Pillow-written
 299-px tile about ten times slower than Pillow). The JAX package's
-threaded native loader (``native/``) is not ported, nor are its host
-JPEG augmentation and multi-host sharding, which serve training.
+threaded native loader (``native/``) is not ported, nor is its
+multi-host sharding. With ``jpeg_aug`` each training tile is re-compressed
+on the host after decoding (``data/augment.py`` ``jpeg_augment_host``,
+drawing from the batcher's shuffle generator, as the JAX package's
+Python path does).
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ class TileBatcher:
             mask marks valid rows (static shapes for the card).
         shuffle: shuffle the global tile index each epoch.
         infinite: loop forever (training); otherwise one epoch.
+        seed: seed of the shuffle (and ``jpeg_aug``) generator.
+        jpeg_aug: random JPEG re-compression of each tile on the host.
         max_tiles: read at most this many tiles of each tfrecord.
         tile_px: when given, every decoded tile must be this size.
     """
@@ -69,6 +74,7 @@ class TileBatcher:
         shuffle: bool = True,
         infinite: bool = False,
         seed: int = 0,
+        jpeg_aug: bool = False,
         max_tiles: Optional[int] = None,
         tile_px: Optional[int] = None,
     ):
@@ -77,6 +83,7 @@ class TileBatcher:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.infinite = infinite
+        self.jpeg_aug = jpeg_aug
         self.rng = np.random.default_rng(seed)
         self.tile_px = tile_px
 
@@ -105,6 +112,10 @@ class TileBatcher:
     def _read_tile(self, pi: int, offset: int):
         ex = read_example_at(self._file(pi), offset)
         img = decode_image(ex["image_raw"])
+        if self.jpeg_aug:
+            from .augment import jpeg_augment_host
+
+            img = jpeg_augment_host(img, self.rng)
         px = self.tile_px
         if px is not None and img.shape[:2] != (px, px):
             raise ValueError(

@@ -158,11 +158,21 @@ class Dataset:
         splits_path: Optional[str] = None,
     ):
         """Deterministic (site-preserving) k-fold split; cached to JSON.
-        Not ported yet: ``train/splits.py`` comes with ``train_project``
-        (ROADMAP.md Queue 1 item 3)."""
-        raise NotImplementedError(
-            "Dataset.kfold_split needs train/splits.py, which is not "
-            "ported yet (ROADMAP.md Queue 1 item 3)")
+
+        See biscuit_torch.train.splits for the algorithm; the JSON cache is
+        the `splits_{exp}.json` seam from experiment.py:813,839,866.
+        """
+        from .train.splits import kfold_split
+
+        labels, _ = self.labels(outcome)
+        return kfold_split(
+            slides=self.slides(),
+            labels=labels,
+            sites=self.sites() if preserved_site else None,
+            k=k,
+            seed=seed,
+            splits_path=splits_path,
+        )
 
     def __len__(self) -> int:
         return len(self.slides())

@@ -191,11 +191,11 @@ class Project:
     # --- training/eval entry points (implemented in train/) --------------------
 
     def train(self, outcome, exp_label, **kwargs):
-        """Train model(s). Not ported yet: ``train_project`` is ROADMAP.md
-        Queue 1 item 3."""
-        raise NotImplementedError(
-            "Project.train needs train_project, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 3)")
+        """Train model(s); see biscuit_torch.train.trainer.train_project.
+        Mirrors sf.Project.train (experiment.py:1042-1051 call contract)."""
+        from .train.trainer import train_project
+
+        return train_project(self, outcome, exp_label, **kwargs)
 
     def evaluate(self, model, outcome, **kwargs):
         """Evaluate a saved model on this project's dataset; see

@@ -1,1 +1,2 @@
-"""Inference half of training: checkpoint loading and MC-dropout UQ."""
+"""Training and inference: ``train_project`` with its step and checkpoints,
+the k-fold splits, MC-dropout UQ and external evaluation."""

@@ -1,16 +1,18 @@
-"""Training step, checkpoints and tile predictions of the port.
+"""Training loop, step, checkpoints and tile predictions of the port.
 
-Counterpart of ``biscuit_tpu/train/trainer.py`` without its training
-loop: ``lr_schedule`` and ``make_optimizer`` (Adam or SGD with the
-continuous 0.98/512 exponential decay), ``preprocess`` (normalizer, then
-per-image standardization), ``make_train_step`` (uint8 batch -> JPEG ->
-normalize -> augment -> Xception forward/backward -> masked
-cross-entropy -> optimizer update), ``save_checkpoint``/
-``load_checkpoint`` in the JAX package's on-disk format, and the
-prediction writers: ``score_tiles``/``predict_tiles`` over tfrecords
-(the ``tile_predictions`` contract) and ``group_predictions_frame``.
-The training loop around the step
-(``train_project``, early stopping) is not ported yet.
+Counterpart of ``biscuit_tpu/train/trainer.py``, single process:
+``lr_schedule`` and ``make_optimizer`` (Adam or SGD with the continuous
+0.98/512 exponential decay), ``init_model`` (Flax's initialization),
+``preprocess`` (normalizer, then per-image standardization),
+``make_train_step`` (uint8 batch -> JPEG -> normalize -> augment ->
+Xception forward/backward -> masked cross-entropy -> optimizer update),
+``make_val_metrics_step`` (the early-stop check), ``save_checkpoint``/
+``load_checkpoint`` in the JAX package's on-disk format, the prediction
+writers (``score_tiles``/``predict_tiles`` over tfrecords, the
+``tile_predictions`` contract, and ``group_predictions_frame``), and the
+training loop ``train_project``: k-fold splits, the model-dir contract
+of SURVEY.md §2.4, early stopping on accuracy, per-epoch validation
+predictions and in-run checkpoints (``train/checkpoint.py``).
 
 A saved model directory holds ``params.json`` (``{"hp": ..., "outcome":
 ..., "label": ...}``) and ``model.msgpack`` (Flax ``to_bytes`` of
@@ -20,7 +22,9 @@ A saved model directory holds ``params.json`` (``{"hp": ..., "outcome":
 from __future__ import annotations
 
 import json
+import math
 import os
+import threading
 from os.path import join
 from typing import Dict, List, Optional
 
@@ -28,13 +32,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data.augment import augment_batch, jpeg_augment_batch
+from ..data.augment import augment_batch, jpeg_augment_batch, jpeg_on_host
 from ..data.normalize import make_normalizer, per_image_standardization
 from ..data.pipeline import PrefetchBatcher, TileBatcher
 from ..device import resolve_device
 from ..hp import ModelParams
 from ..models.convert import from_flax, read_msgpack, to_flax, write_msgpack
-from ..models.xception import build_model
+from ..models.xception import BatchNorm, Conv, build_model
+from ..stats.roc import auc_score, average_precision
+from ..utils_log import log
+from .checkpoint import RunCheckpointer
+from .splits import kfold_split, train_val_slides
 
 
 def lr_schedule(hp: ModelParams):
@@ -78,6 +86,52 @@ def make_optimizer(hp: ModelParams, params) -> ScheduledOptimizer:
     else:
         raise ValueError(f"Unsupported optimizer {hp.optimizer}")
     return ScheduledOptimizer(opt, schedule)
+
+
+# Standard deviation of the standard normal truncated to [-2, 2], by which
+# Flax's truncated-normal initializers divide their scale.
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(weight, fan_in: int, generator) -> None:
+    """Flax's ``lecun_normal``: a normal of standard deviation
+    sqrt(1 / fan_in) / _TRUNC_STD truncated to two of its standard
+    deviations, drawn by the inverse CDF from ``generator``."""
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    lo, hi = (0.5 * (1 + math.erf(z / 2 ** 0.5)) for z in (-2.0, 2.0))
+    u = torch.rand(weight.shape, generator=generator, dtype=torch.float64)
+    z = torch.erfinv(2 * (lo + (hi - lo) * u) - 1) * 2 ** 0.5
+    weight.copy_(z.clamp_(-2.0, 2.0) * std)
+
+
+def init_model(model, hp: ModelParams, generator):
+    """Initialize ``model`` in place as the JAX package's ``init_model``
+    does (Flax's defaults) and return it: LeCun-normal conv and dense
+    kernels (truncated normal, the same distribution as Flax's; the
+    draws are ``generator``'s, not JAX's), zero dense biases, BatchNorm
+    scale 1 and bias 0 with running mean 0 and variance 1.
+    ``train_project`` calls it with a CPU ``torch.Generator`` seeded from
+    the fold's seed, before the model moves to its device; it is the one
+    seam a test replaces to start both packages from the same weights.
+    (``chip_smoke.init_random_`` draws untruncated LeCun-normal convs and
+    BatchNorm statistics away from identity, for kernel checks.)
+
+    ``hp.pretrained`` raises: ``models/pretrained.py`` is not ported
+    (ROADMAP.md Queue 1 item 7)."""
+    if getattr(hp, "pretrained", None):
+        raise NotImplementedError(
+            "hp.pretrained needs models/pretrained.py, which is not ported "
+            "yet (ROADMAP.md Queue 1 item 7)")
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Conv):
+                _lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
+            elif isinstance(mod, torch.nn.Linear):
+                _lecun_normal_(mod.weight, mod.weight.shape[1], generator)
+                mod.bias.zero_()
+            elif isinstance(mod, BatchNorm):
+                mod.reset_parameters()
+    return model
 
 
 def preprocess(images_u8, normalizer):
@@ -137,7 +191,9 @@ def make_train_step(model, tx: ScheduledOptimizer, hp: ModelParams,
         raise ValueError(f"the model must be on {dev} to train there, but "
                          f"some of its tensors are on {sorted(elsewhere)}; "
                          f"move it with model.to(...) before make_optimizer")
-    jpeg = bool(hp.augment) and "j" in hp.augment
+    # 'j' runs here, on the raw batch, unless BISCUIT_JPEG_HOST=1 moved it
+    # to the host codec (TileBatcher's jpeg_aug).
+    jpeg = bool(hp.augment) and "j" in hp.augment and not jpeg_on_host()
     if fused_trunk is None:
         fused_trunk = dev.type == "cuda" and fused_train_applicable(model)
 
@@ -168,6 +224,28 @@ def make_train_step(model, tx: ScheduledOptimizer, hp: ModelParams,
         return {"loss": loss.detach(), "acc": acc.detach()}
 
     return train_step
+
+
+def make_val_metrics_step(model, normalizer):
+    """``(images, labels, mask) -> (correct, total)`` of the eval-mode
+    forward of a uint8 NHWC batch, for the mid-training early-stop check:
+    the plain preprocess and the module path (no kernel runs here, as no
+    Pallas kernel runs in the JAX step), the counts as device scalars on
+    the model's device. It leaves the model in eval mode; the training
+    step sets train mode again."""
+
+    def val_metrics(images, labels, mask):
+        dev = next(model.parameters()).device
+        images, labels, mask = (torch.as_tensor(t).to(dev)
+                                for t in (images, labels, mask))
+        mask = mask.float()
+        model.eval()
+        with torch.inference_mode():
+            logits = model(preprocess(images, normalizer))
+            correct = ((logits.argmax(-1) == labels.long()) * mask).sum()
+        return correct, mask.sum()
+
+    return val_metrics
 
 
 def save_checkpoint(model_dir: str, model, hp: ModelParams, epoch: int,
@@ -312,3 +390,401 @@ def group_predictions_frame(tile_df, probs, patients: Dict[str, str],
     g["y_true1"] = g["y_true1"].to_numpy().astype(np.uint8)
     return g
 
+
+
+def _write_predictions(df, path_base: str, fmt) -> None:
+    """Write a predictions frame in the requested format.
+
+    fmt: 'csv' (default; also for True), 'parquet' (writes
+    ``{base}.parquet.gzip``, the slideflow 1.2 variant the reference reads
+    back at utils.py:216-221), or falsy to skip.
+    """
+    if not fmt:
+        return
+    if fmt == "parquet":
+        df.to_parquet(path_base + ".parquet.gzip", compression="gzip")
+    else:
+        df.to_csv(path_base + ".csv", index=False)
+
+
+def _level_metrics(y_true, y_score):
+    return (
+        auc_score(np.asarray(y_true), np.asarray(y_score)),
+        average_precision(np.asarray(y_true), np.asarray(y_score)),
+    )
+
+
+# Model directories. One lock so that concurrent trainings in a process
+# allocate distinct run numbers; creating the directory inside the lock
+# makes it visible to the next _next_run_number scan.
+_MODEL_DIR_LOCK = threading.Lock()
+
+
+def _next_run_number(models_dir: str) -> int:
+    existing = []
+    for d in os.listdir(models_dir):
+        head = d.split("-", 1)[0]
+        if head.isdigit():
+            existing.append(int(head))
+    return max(existing) + 1 if existing else 0
+
+
+def _model_dir_name(n: int, outcome: str, label: str,
+                    kfold: Optional[int]) -> str:
+    tail = "" if kfold is None else f"-kfold{kfold}"
+    return f"{n:05d}-{outcome}-{label}-HP0{tail}"
+
+
+def train_project(
+    project,
+    outcome: str,
+    exp_label: str,
+    filters: Optional[Dict] = None,
+    params: Optional[ModelParams] = None,
+    splits: Optional[str] = None,
+    val_k: Optional[List[int]] = None,
+    val_k_fold: int = 3,
+    val_strategy: str = "k-fold",
+    save_predictions="csv",
+    validate_on_batch: int = 32,
+    validation_steps: int = 32,
+    save_model: bool = False,
+    steps_per_epoch_override: Optional[int] = None,
+    seed: int = 0,
+    max_tiles: Optional[int] = None,
+    checkpoint_every: Optional[int] = None,
+    device=None,
+    fuse_blocks: bool = False,
+):
+    """Train model(s) for an experiment label; ``sf.Project.train``'s
+    counterpart, as the JAX package's ``train_project`` in one process.
+
+    ``val_strategy`` 'k-fold' trains fold k of ``val_k`` (all
+    ``val_k_fold`` folds by default) with seed ``seed + k`` on the
+    site-preserving splits cached in ``splits`` (default
+    ``splits_{exp_label}.json`` under the project root); 'none' trains
+    one model on every slide with ``seed``.
+
+    Args (beyond the reference contract):
+        checkpoint_every: save an in-run checkpoint every N steps and
+            resume from the latest one when the run is relaunched.
+        device: where the model trains and predicts: the card unless
+            ``device="cpu"`` (without a card it raises).
+        fuse_blocks: validation predictions through the fully fused
+            trunk (``UncertaintyInterface``'s ``fuse_blocks``; the JAX
+            package's ``BISCUIT_FUSED_BLOCKS``).
+
+    Returns the list of model directories it wrote.
+    """
+    dev = resolve_device(device)
+    hp = params if params is not None else ModelParams()
+    dataset = project.dataset(hp.tile_px, hp.tile_um, filters=filters)
+    labels, unique = dataset.labels(outcome)
+    patients = dataset.patients()
+    by_slide = {
+        os.path.splitext(os.path.basename(p))[0]: p
+        for p in dataset.tfrecords()
+    }
+    log.info(f"Training {exp_label}: {len(by_slide)} slides, classes {unique}")
+    common = dict(
+        validate_on_batch=validate_on_batch,
+        validation_steps=validation_steps, save_model=save_model,
+        steps_per_epoch_override=steps_per_epoch_override,
+        max_tiles=max_tiles, checkpoint_every=checkpoint_every,
+        save_predictions=save_predictions, outcome_labels=unique,
+        device=dev, fuse_blocks=fuse_blocks,
+    )
+    slides = [s for s in dataset.slides() if s in by_slide]
+    if val_strategy == "k-fold":
+        splits_path = join(project.root, splits or f"splits_{exp_label}.json")
+        folds = kfold_split(slides=slides, labels=labels,
+                            sites=dataset.sites(), k=val_k_fold, seed=seed,
+                            splits_path=splits_path)
+        created = []
+        for k in (val_k if val_k else range(1, val_k_fold + 1)):
+            train_slides, val_slides = train_val_slides(folds, k)
+            created.append(_train_single(
+                project, outcome, exp_label, hp, labels, patients, by_slide,
+                train_slides, val_slides, kfold=k, seed=seed + k, **common))
+        return created
+    if val_strategy == "none":
+        return [_train_single(project, outcome, exp_label, hp, labels,
+                              patients, by_slide, slides, [], kfold=None,
+                              seed=seed, **common)]
+    raise ValueError(f"Unknown val_strategy {val_strategy}")
+
+
+def _model_dir(models_dir: str, outcome: str, exp_label: str,
+               kfold: Optional[int]) -> str:
+    """The run's directory: an existing one for this (outcome, label,
+    kfold) that died mid-run (no results_log.csv) is reused, so that its
+    in-run checkpoints resume it; completed ones never are."""
+    tail = "" if kfold is None else f"-kfold{kfold}"
+    wanted_suffix = f"{outcome}-{exp_label}-HP0{tail}"
+    with _MODEL_DIR_LOCK:
+        incomplete = [
+            d for d in os.listdir(models_dir)
+            if d[6:] == wanted_suffix
+            and not os.path.exists(join(models_dir, d, "results_log.csv"))
+        ]
+        if incomplete:
+            model_dir = join(models_dir, sorted(incomplete)[-1])
+            log.info(f"Reusing incomplete run dir {model_dir}")
+        else:
+            model_dir = join(models_dir, _model_dir_name(
+                _next_run_number(models_dir), outcome, exp_label, kfold))
+        os.makedirs(model_dir, exist_ok=True)
+    return model_dir
+
+
+def _train_single(
+    project, outcome, exp_label, hp, labels, patients, by_slide,
+    train_slides, val_slides, kfold, validate_on_batch, validation_steps,
+    save_model, steps_per_epoch_override, seed, max_tiles,
+    checkpoint_every=None, save_predictions="csv", outcome_labels=None,
+    device=None, fuse_blocks=False,
+):
+    """Train one model (one fold) on ``device``; writes the full §2.4
+    contract and returns its model directory."""
+    import signal
+    import time
+
+    import pandas as pd
+
+    from ..utils import tile_predictions_frame
+
+    phase_t = [time.perf_counter()]
+    phases: Dict[str, float] = {}
+    timing = bool(os.environ.get("BISCUIT_TIME_PHASES"))
+
+    def mark(name):
+        if timing:
+            now = time.perf_counter()
+            phases[name] = phases.get(name, 0.0) + (now - phase_t[0])
+            phase_t[0] = now
+
+    dev = resolve_device(device)
+    model = init_model(build_model(hp), hp,
+                       torch.Generator().manual_seed(seed)).to(dev)
+    tx = make_optimizer(hp, model.parameters())
+    normalizer = make_normalizer(hp.normalizer)
+    train_step = make_train_step(model, tx, hp, normalizer, device=dev)
+    val_metrics_step = make_val_metrics_step(model, normalizer)
+    mark("init")
+
+    model_dir = _model_dir(project.models_dir, outcome, exp_label, kfold)
+    pd.DataFrame(
+        [{"slide": s, "dataset": "training"} for s in train_slides]
+        + [{"slide": s, "dataset": "validation"} for s in val_slides]
+    ).to_csv(join(model_dir, "slide_manifest.csv"), index=False)
+    with open(join(model_dir, "params.json"), "w") as f:
+        meta = {"hp": hp.to_dict(), "outcome": outcome, "label": exp_label,
+                "kfold": kfold}
+        if outcome_labels is not None:
+            meta["outcome_labels"] = list(outcome_labels)
+        json.dump(meta, f, indent=2)
+    train_tfr = [by_slide[s] for s in train_slides if s in by_slide]
+    val_tfr = [by_slide[s] for s in val_slides if s in by_slide]
+    mark("dirs")
+
+    train_batcher = TileBatcher(
+        train_tfr, labels, batch_size=hp.batch_size, shuffle=True,
+        infinite=True, seed=seed,
+        # 'j' runs in the training step by default; the host codec only
+        # under BISCUIT_JPEG_HOST=1.
+        jpeg_aug="j" in (hp.augment or "") and jpeg_on_host(),
+        max_tiles=max_tiles, tile_px=hp.tile_px,
+    )
+    steps_per_epoch = max(1, len(train_batcher) // hp.batch_size)
+    if steps_per_epoch_override:
+        steps_per_epoch = int(steps_per_epoch_override)
+
+    # A small held-out stream for the mid-training early-stop checks.
+    val_batcher = None
+    if val_tfr and hp.early_stop:
+        val_batcher = TileBatcher(
+            val_tfr, labels, batch_size=hp.batch_size, shuffle=True,
+            infinite=True, seed=seed + 1, max_tiles=max_tiles,
+            tile_px=hp.tile_px,
+        )
+        val_iter = iter(val_batcher)
+
+    def feed(b):
+        return b["image"], b["label"], np.asarray(b["mask"], np.float32)
+
+    # Early stopping on accuracy, as the JAX package: every
+    # `validate_on_batch` steps the validation accuracy is observed; after
+    # `hp.ema_observations` observations an exponential moving average
+    # starts at their mean and then moves with smoothing
+    # `ema_smoothing / (1 + ema_observations)`. Training stops when the EMA
+    # worsens and more than `hp.early_stop_patience` epochs have elapsed
+    # (patience is an epoch floor).
+    es_window: list = []
+    es_ema = None
+    es_alpha = hp.ema_smoothing / (1 + hp.ema_observations)
+    early_stop_batch = None
+    stopped = False
+    results_rows, step_log = [], []
+    step = 0
+
+    # One generator on the device for the step's JPEG, augmentation and
+    # dropout draws; an in-run checkpoint restores its state with the
+    # model's and the optimizer's.
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ckpt = RunCheckpointer(model_dir, every=checkpoint_every)
+    _, _, _, restored_step = ckpt.maybe_restore(model, tx, gen)
+
+    profiler = None
+    if os.environ.get("BISCUIT_PROFILE") == "1":
+        from torch.profiler import ProfilerActivity, profile
+
+        profiler = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+        profiler.start()
+
+    # The host reads and decodes the next batches while the device steps.
+    train_stream = PrefetchBatcher(train_batcher, depth=3)
+    train_iter = iter(train_stream)
+    mark("stream_setup")
+    t_last = time.perf_counter()
+
+    # Preemption: on SIGTERM, checkpoint at the next step boundary, then
+    # exit through the previous handler; the relaunch resumes losing at
+    # most one step. Armed only with in-run checkpoints on and on the main
+    # thread (signal.signal is illegal elsewhere); BISCUIT_PREEMPT_SAVE=0
+    # disables it.
+    preempt = [False]
+    prev_sigterm = None
+    trap = bool(checkpoint_every
+                and os.environ.get("BISCUIT_PREEMPT_SAVE", "1") != "0"
+                and threading.current_thread() is threading.main_thread())
+    if trap:
+        def on_sigterm(signum, frame):
+            preempt[0] = True
+            log.warning("SIGTERM received: checkpointing at the next step "
+                        "boundary, then exiting")
+        prev_sigterm = signal.signal(signal.SIGTERM, on_sigterm)
+    try:
+        for epoch in range(1, max(hp.epochs) + 1):
+            for _ in range(steps_per_epoch):
+                step += 1
+                if step <= restored_step:
+                    # Fast-forward without reading batches: the generator
+                    # was restored at this step; the tile stream restarts
+                    # from its seed.
+                    continue
+                metrics = train_step(*feed(next(train_iter)), gen)
+                ckpt.save(step, model, tx, gen)
+                if preempt[0]:
+                    ckpt.save(step, model, tx, gen, force=True)
+                    ckpt.wait()
+                    log.warning(f"preemption checkpoint committed at step "
+                                f"{step}; re-raising SIGTERM")
+                    signal.signal(signal.SIGTERM, prev_sigterm)
+                    trap = False
+                    os.kill(os.getpid(), signal.SIGTERM)
+                if step % 10 == 0 or step == 1:
+                    now = time.perf_counter()
+                    step_log.append({
+                        "step": step,
+                        "epoch": epoch,
+                        "loss": float(metrics["loss"]),
+                        "acc": float(metrics["acc"]),
+                        "lr": float(lr_schedule(hp)(step)),
+                        "tiles_per_s": hp.batch_size
+                        * (10 if step > 1 else 1) / (now - t_last),
+                    })
+                    t_last = now
+
+                if (val_batcher is not None
+                        and hp.early_stop_method == "accuracy"
+                        and step % validate_on_batch == 0
+                        and early_stop_batch is None):
+                    correct = total = 0.0
+                    for _ in range(max(1, validation_steps)):
+                        c, t = val_metrics_step(*feed(next(val_iter)))
+                        correct += float(c)
+                        total += float(t)
+                    val_acc = correct / max(total, 1)
+                    if es_ema is None:
+                        es_window.append(val_acc)
+                        if len(es_window) >= hp.ema_observations:
+                            es_ema = float(np.mean(es_window))
+                    else:
+                        last_ema = es_ema
+                        es_ema = val_acc * es_alpha + es_ema * (1 - es_alpha)
+                        if (es_ema < last_ema and step / steps_per_epoch
+                                > hp.early_stop_patience):
+                            early_stop_batch = step
+                            stopped = True
+                            log.info(f"Early stop at batch {step} (val acc "
+                                     f"EMA {es_ema:.4f} < {last_ema:.4f})")
+                            break
+            mark("train_loop")
+
+            # End of epoch. Skip epochs fully covered by a restored
+            # checkpoint: the original run wrote their predictions, and
+            # later-step weights would overwrite that record.
+            if (epoch in hp.epochs or stopped) and not (
+                    step <= restored_step and not stopped):
+                # On an early stop mid-epoch, record under the next declared
+                # epoch, so that readers find tile_predictions_val_epoch{E}
+                # for E in hp.epochs.
+                later = [e for e in hp.epochs if e >= epoch]
+                epoch = (epoch if epoch in hp.epochs
+                         else (min(later) if later else max(hp.epochs)))
+                row = {"model_name": f"{outcome}-{exp_label}-HP0_epoch{epoch}"}
+                if val_tfr:
+                    df, probs, unc = predict_tiles(
+                        model, hp, val_tfr, labels, max_tiles=max_tiles,
+                        device=dev, fuse_blocks=fuse_blocks)
+                    _write_predictions(
+                        tile_predictions_frame(outcome, df, probs, unc),
+                        join(model_dir, f"tile_predictions_val_epoch{epoch}"),
+                        save_predictions)
+                    levels = {}
+                    for level in ("patient", "slide"):
+                        g = group_predictions_frame(df, probs, patients, level)
+                        _write_predictions(g, join(
+                            model_dir,
+                            f"{level}_predictions_{outcome}_val_epoch{epoch}"),
+                            save_predictions)
+                        levels[level] = _level_metrics(
+                            g["y_true1"], g["percent_tiles_positive1"])
+                    levels["tile"] = _level_metrics(df["y_true"], probs[:, 1])
+                    for level, (auc, ap) in levels.items():
+                        row[f"{level}_auc"] = json.dumps({outcome: [auc]})
+                        row[f"{level}_ap"] = json.dumps({outcome: [ap]})
+                if early_stop_batch is not None:
+                    row["early_stop_batch"] = early_stop_batch
+                results_rows.append(row)
+                if save_model:
+                    save_checkpoint(model_dir, model, hp, epoch, outcome,
+                                    exp_label, kfold,
+                                    outcome_labels=outcome_labels)
+            mark("epoch_preds")
+            if stopped:
+                break  # an early stop ends the remaining epochs
+    finally:
+        if trap:
+            signal.signal(signal.SIGTERM, prev_sigterm)
+        train_stream.close()
+        if val_batcher is not None:
+            val_batcher.close()
+        ckpt.close()
+        if profiler is not None:
+            profiler.stop()
+
+    if profiler is not None:
+        os.makedirs(join(model_dir, "profile"), exist_ok=True)
+        profiler.export_chrome_trace(join(model_dir, "profile", "trace.json"))
+    if step_log:
+        pd.DataFrame(step_log).to_csv(join(model_dir, "train_log.csv"),
+                                      index=False)
+    pd.DataFrame(results_rows).to_csv(join(model_dir, "results_log.csv"),
+                                      index=False)
+    if timing:
+        mark("close_writes")
+        print("[phases] " + json.dumps(
+            {k: round(v, 3) for k, v in phases.items()}), flush=True)
+    return model_dir

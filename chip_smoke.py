@@ -91,8 +91,23 @@ these phases, each printing one JSON line:
    kernel, counted on its own; and at batch 32, augment off and dropout
    0, the gradients of one kernel step held against one plain-version
    step from the same weights and batch.
+   train_project: ``Project.train`` of the same hp with uq=True at K,
+   early stopping on, 3-fold, on TP_SLIDES slides of TP_TILES smooth PNG
+   tiles written by the port's writer (labels 0/1 paired in 3 sites):
+   TP_STEPS steps an epoch over TP_EPOCHS, a one-batch validation check
+   and an in-run checkpoint every TP_STEPS steps, the epoch models
+   saved; each fold with its launch counts zeroed just before and read
+   just after (34 strip launches a step, rows 1-3 once a validation
+   batch of each recorded epoch) and its model dir checked; an epoch
+   model, loaded by ``UncertaintyInterface`` and rescored, against its
+   CSV; fold 1 relaunched without its results log and newest
+   checkpoint (it resumes and records epoch 2). It prints the seconds a
+   fold (the first apart), ``train_log.csv``'s rows, the host's read +
+   decode of a fold's training batches against the step's device time
+   on the same batches, and the seconds of an in-run and an epoch save.
 6. the kernels line (launches: the serving phases for kernels 1-4, the
-   depthwise entry phase, the training phase); 7. the last line
+   depthwise entry phase, the training phase, with phase train_project's
+   added to kernels 1-3 and 6); 7. the last line
    ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
@@ -155,6 +170,14 @@ PREPROCESS_VARIANTS = ((8, 1024), (16, 192), (16, 256), (16, 320))
 PREDICT_LABELS = (0, 1, 0)
 PREDICT_TILES = 100
 OUTCOME = "cohort"
+# Phase train_project: 6 slides (labels 0/1 paired in 3 sites) of 64
+# tiles, 3 folds of 2 epochs of TP_STEPS steps, a validation check and an
+# in-run checkpoint every TP_STEPS steps (at each epoch's end).
+TP_SLIDES = 6
+TP_TILES = 64
+TP_STEPS = 5
+TP_EPOCHS = (1, 2)
+TP_FOLDS = 3
 
 
 def emit(obj) -> None:
@@ -1673,6 +1696,282 @@ def train_path(torch, seed: int, card: str):
     }, launches, plane_launches
 
 
+def train_project_project(tmp: str):
+    """The project of phase train_project in ``tmp``: TP_TILES smooth
+    tiles for each of TP_SLIDES slides, slide s of label s % 2, site
+    s // 2 and its own patient, as PNG tfrecords by the port's writer, an
+    annotations CSV and a Project; returns (project, seconds to write)."""
+    import os
+
+    import pandas as pd
+
+    from biscuit_torch.data.tfrecord import TFRecordWriter
+    from biscuit_torch.project import Project
+
+    t0 = time.perf_counter()
+    tiles = smooth_tiles(TP_SLIDES * TP_TILES, SEED + 1)
+    tfr = os.path.join(tmp, "train_tfr")
+    os.makedirs(tfr)
+    for s in range(TP_SLIDES):
+        with TFRecordWriter(os.path.join(tfr, f"tslide{s}.tfrecords")) as w:
+            for t in range(TP_TILES):
+                w.write_tile(f"tslide{s}", encode_png(
+                    tiles[s * TP_TILES + t]), loc_x=TILE_PX * (t % 8),
+                    loc_y=TILE_PX * (t // 8))
+    ann = os.path.join(tmp, "train_annotations.csv")
+    pd.DataFrame({"patient": [f"tpatient{s}" for s in range(TP_SLIDES)],
+                  "slide": [f"tslide{s}" for s in range(TP_SLIDES)],
+                  OUTCOME: [f"class{s % 2}" for s in range(TP_SLIDES)],
+                  "site": [f"site{s // 2}" for s in range(TP_SLIDES)]}
+                 ).to_csv(ann, index=False)
+    project = Project(os.path.join(tmp, "train_project"), annotations=ann,
+                      name="smoke_train", create=True)
+    project.add_source("smoke_train", tfrecords=tfr)
+    return project, time.perf_counter() - t0
+
+
+def check_model_dir(model_dir: str, k, epochs, log_steps, hp):
+    """The model-dir contract of one fold (SURVEY.md §2.4) for the
+    recorded ``epochs``: manifest, params.json, the prediction CSVs with
+    finite probabilities, the six AUC/AP columns, the epoch checkpoints,
+    and a train log of ``log_steps`` with finite losses; returns the rows
+    of the results and train logs."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    files = set(os.listdir(model_dir))
+    base = f"{OUTCOME}-smoke-HP0-kfold{k}"
+    want = {"slide_manifest.csv", "params.json", "train_log.csv",
+            "results_log.csv", "ckpt"}
+    for e in epochs:
+        want |= {f"tile_predictions_val_epoch{e}.csv",
+                 f"patient_predictions_{OUTCOME}_val_epoch{e}.csv",
+                 f"slide_predictions_{OUTCOME}_val_epoch{e}.csv",
+                 f"{base}_epoch{e}"}
+    check(want <= files, f"fold {k}: missing {sorted(want - files)}")
+    man = pd.read_csv(os.path.join(model_dir, "slide_manifest.csv"))
+    val = sorted(man.loc[man["dataset"] == "validation", "slide"])
+    check(len(man) == TP_SLIDES and len(val) == 2
+          and {int(v[-1]) % 2 for v in val} == {0, 1}
+          and len({int(v[-1]) // 2 for v in val}) == 1,
+          f"fold {k}: manifest {man.to_dict('list')}")
+    with open(os.path.join(model_dir, "params.json")) as f:
+        meta = json.load(f)
+    check(meta["kfold"] == k and meta["hp"] == hp.to_dict()
+          and meta["outcome_labels"] == ["class0", "class1"],
+          f"fold {k}: params.json")
+    log = pd.read_csv(os.path.join(model_dir, "results_log.csv"))
+    check(list(log["model_name"]) == [f"{OUTCOME}-smoke-HP0_epoch{e}"
+                                      for e in epochs],
+          f"fold {k}: results_log rows {list(log['model_name'])}")
+    for col in ("patient_auc", "patient_ap", "slide_auc", "slide_ap",
+                "tile_auc", "tile_ap"):
+        for cell in log[col]:
+            (v,) = json.loads(cell)[OUTCOME]
+            check(0.0 <= v <= 1.0, f"fold {k}: {col} {v}")
+    for e in epochs:
+        tiles = pd.read_csv(os.path.join(
+            model_dir, f"tile_predictions_val_epoch{e}.csv"))
+        p = tiles[[f"{OUTCOME}_y_pred0", f"{OUTCOME}_y_pred1"]].to_numpy()
+        u = tiles[[f"{OUTCOME}_uncertainty0",
+                   f"{OUTCOME}_uncertainty1"]].to_numpy()
+        check(len(tiles) == 2 * TP_TILES and sorted(set(tiles["slide"]))
+              == val, f"fold {k} epoch {e}: tile rows")
+        check(bool(np.isfinite(p).all() and np.isfinite(u).all()
+                   and np.abs(p.sum(1) - 1).max() <= 1e-3
+                   and u.min() >= 0), f"fold {k} epoch {e}: tile values")
+        for f in ("model.msgpack", "params.json"):
+            check(os.path.exists(os.path.join(model_dir, f"{base}_epoch{e}",
+                                              f)), f"fold {k}: {f}")
+    train_log = pd.read_csv(os.path.join(model_dir, "train_log.csv"))
+    check(list(train_log["step"]) == log_steps
+          and bool(np.isfinite(train_log["loss"]).all()),
+          f"fold {k}: train_log {train_log.to_dict('list')}")
+    return log.to_dict("records"), train_log.to_dict("records")
+
+
+def train_project_phase(torch, tmp: str, card: str):
+    """``Project.train`` of hp.nature2022 (Xception-299 bf16, 2x1024,
+    dropout 0.1, 'xyrjb', batch 128) with uq=True at K, early stopping
+    on, 3-fold, on the project of ``train_project_project``: TP_STEPS
+    steps an epoch over TP_EPOCHS, a validation check of one batch and an
+    in-run checkpoint every TP_STEPS steps, the epoch models saved. The
+    folds run as three calls with ``val_k=[k]``, which is what one call
+    does fold by fold, each with the launch counts zeroed just before and
+    read just after: 34 strip-kernel launches a step, rows 1-3 once for
+    each validation batch of each recorded epoch, nothing else. Each
+    fold's model dir is checked; fold 1's last epoch model, loaded by
+    ``UncertaintyInterface``, rescored on the validation tiles, gives its
+    CSV's values. Then fold 1 is relaunched without its results log and
+    its newest checkpoint: it reuses the dir, resumes at step TP_STEPS
+    (epoch 1 covered) and records epoch 2. Also times the host's read +
+    decode of the training batches, the step's device time on the same
+    batches already on the card, and one in-run and one epoch save."""
+    import dataclasses
+    import gc
+    import os
+    import shutil
+
+    import numpy as np
+    import pandas as pd
+
+    from biscuit_torch.data.normalize import make_normalizer
+    from biscuit_torch.data.pipeline import TileBatcher
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.ops import _build
+    from biscuit_torch.train.checkpoint import RunCheckpointer
+    from biscuit_torch.train.trainer import (
+        init_model,
+        make_optimizer,
+        make_train_step,
+        save_checkpoint,
+        score_tiles,
+    )
+    from biscuit_torch.train.uq import UncertaintyInterface
+
+    hp = dataclasses.replace(nature2022_params(), uq=True, uq_samples=K,
+                             epochs=list(TP_EPOCHS), ema_observations=1)
+    check(hp.batch_size == TRAIN_BATCH and hp.augment == "xyrjb"
+          and hp.dropout == 0.1 and hp.model == "xception"
+          and hp.early_stop and hp.compute_dtype == "bfloat16",
+          "published configuration")
+    project, write_s = train_project_project(tmp)
+    kw = dict(params=hp, val_k_fold=TP_FOLDS,
+              steps_per_epoch_override=TP_STEPS, validate_on_batch=TP_STEPS,
+              validation_steps=1, save_model=True, checkpoint_every=TP_STEPS)
+    steps = TP_STEPS * max(TP_EPOCHS)
+    total = {}
+    folds = []
+    for k in range(1, TP_FOLDS + 1):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        (model_dir,) = project.train(OUTCOME, "smoke", val_k=[k], **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        rows, train_log = check_model_dir(model_dir, k, TP_EPOCHS,
+                                          [1, steps], hp)
+        for name, count in launches.items():
+            want = {"unit_bwd_strips": UNITS_PER_STEP * steps}.get(
+                name, len(TP_EPOCHS) if name in SERVING else 0)
+            check(count == want, f"fold {k}: {name} {count} launches, "
+                                 f"expected {want}")
+            total[name] = total.get(name, 0) + count
+        ckpts = sorted(os.listdir(os.path.join(model_dir, "ckpt")), key=int)
+        check(ckpts == [str(TP_STEPS), str(steps)], f"fold {k}: ckpt {ckpts}")
+        folds.append({"fold": k, "seconds": secs, "launches": launches,
+                      "dir": os.path.basename(model_dir),
+                      "early_stop_batch": rows[-1].get("early_stop_batch"),
+                      "train_log": train_log,
+                      "results": [{c: r[c] for c in r if c.endswith("auc")}
+                                  for r in rows]})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The saved model of fold 1's last epoch gives its CSV's values.
+    first = os.path.join(project.models_dir, folds[0]["dir"])
+    ui = UncertaintyInterface(os.path.join(
+        first, f"{OUTCOME}-smoke-HP0-kfold1_epoch{TP_EPOCHS[-1]}"), seed=42)
+    check(not ui.model.training, "the loaded model is in eval mode")
+    dataset = project.dataset(hp.tile_px, hp.tile_um)
+    labels, _ = dataset.labels(OUTCOME)
+    man = pd.read_csv(os.path.join(first, "slide_manifest.csv"))
+    val_tfr = [p for p in dataset.tfrecords() if os.path.basename(p)[:-10]
+               in set(man.loc[man["dataset"] == "validation", "slide"])]
+    _, probs, unc = score_tiles(ui.model, hp, val_tfr, labels)
+    csv = pd.read_csv(os.path.join(
+        first, f"tile_predictions_val_epoch{TP_EPOCHS[-1]}.csv"))
+    rescore_err = float(max(
+        np.abs(probs - csv[[f"{OUTCOME}_y_pred0", f"{OUTCOME}_y_pred1"]]
+               .to_numpy()).max(),
+        np.abs(unc - csv[[f"{OUTCOME}_uncertainty0",
+                          f"{OUTCOME}_uncertainty1"]].to_numpy()).max()))
+    check(rescore_err <= 1e-6, f"rescored epoch model: max abs err "
+                               f"{rescore_err} from its CSV")
+    del ui
+
+    # Relaunch fold 1 as if it had died after its first checkpoint.
+    os.remove(os.path.join(first, "results_log.csv"))
+    shutil.rmtree(os.path.join(first, "ckpt", str(steps)))
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    (again,) = project.train(OUTCOME, "smoke", val_k=[1], **kw)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resume_launches = _build.launch_counts()
+    check(again == first and len(os.listdir(project.models_dir)) == TP_FOLDS,
+          "the relaunch reuses fold 1's dir")
+    check_model_dir(again, 1, TP_EPOCHS[-1:], [steps], hp)
+    for name, count in resume_launches.items():
+        want = {"unit_bwd_strips": UNITS_PER_STEP * (steps - TP_STEPS)}.get(
+            name, 1 if name in SERVING else 0)
+        check(count == want, f"resumed fold 1: {name} {count} launches, "
+                             f"expected {want}")
+        total[name] += count
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Host read + decode of one fold's training batches against the
+    # step's device time on the same batches, and the two saves.
+    train_tfr = [p for p in dataset.tfrecords() if p not in val_tfr]
+    t0 = time.perf_counter()
+    batches = list(TileBatcher(train_tfr, labels, hp.batch_size,
+                               shuffle=True, seed=1, tile_px=hp.tile_px))
+    host_s = time.perf_counter() - t0
+    model = init_model(build_model(hp), hp,
+                       torch.Generator().manual_seed(SEED)).cuda()
+    tx = make_optimizer(hp, model.parameters())
+    step = make_train_step(model, tx, hp, make_normalizer(hp.normalizer))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    on_card = [[torch.from_numpy(np.asarray(b[key], np.float32 if key ==
+                                            "mask" else None)).cuda()
+                for key in ("image", "label", "mask")] for b in batches]
+    step(*on_card[0], gen)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(len(on_card) + 1)]
+    ev[0].record()
+    for i, b in enumerate(on_card):
+        step(*b, gen)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    device_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(on_card))]
+    saves = RunCheckpointer(os.path.join(tmp, "save_timing"), every=1)
+    t0 = time.perf_counter()
+    saves.save(1, model, tx, gen)
+    ckpt_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(os.path.join(saves.dir, "1", "state.pt"))
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(tmp, "save_timing"), model, hp, 1, OUTCOME,
+                    "smoke", 1)
+    epoch_save_s = time.perf_counter() - t0
+    del model, tx, step, on_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = sum(int(b["mask"].sum()) for b in batches)
+    return {
+        "phase": "train_project", "model": hp.model, "tile_px": hp.tile_px,
+        "batch": hp.batch_size, "k": K, "slides": TP_SLIDES,
+        "tiles_a_slide": TP_TILES, "folds": TP_FOLDS,
+        "steps_per_epoch": TP_STEPS, "epochs": list(TP_EPOCHS),
+        "tfrecords_write_s": write_s,
+        "first_fold_s": folds[0]["seconds"],
+        "other_folds_s": [f["seconds"] for f in folds[1:]],
+        "fold_runs": folds, "rescore_max_abs_err": rescore_err,
+        "resume": {"seconds": resume_s, "launches": resume_launches,
+                   "steps": steps - TP_STEPS},
+        "host_read_decode_s": host_s, "host_tiles": n,
+        "host_ms_a_tile": 1e3 * host_s / n,
+        "device_step_ms": device_ms,
+        "device_ms_a_tile": sum(device_ms) / (len(device_ms) * hp.batch_size),
+        "ckpt_save_s": ckpt_s, "ckpt_bytes": ckpt_bytes,
+        "epoch_save_s": epoch_save_s, "launches": total, "card": card,
+    }, total
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1776,10 +2075,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_row, strip_launches, plane_launches = train_path(torch, SEED, card)
     emit(train_row)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_row, tp_launches = train_project_phase(torch, tmp, card)
+    emit(tp_row)
     launches["fused_block"] = fused_launches["fused_block"]
     launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
+    for name, count in tp_launches.items():
+        launches[name] += count
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -335,6 +335,28 @@ def test_jpeg_products_stay_f32_with_tf32_on(gen):
     assert torch.equal(got, want)
 
 
+def test_jpeg_products_leave_the_process_precision_alone(gen):
+    """After ``set_float32_matmul_precision("high")`` and then the CUDA
+    matmul's own TF32 switch turned off, PyTorch refuses to read the
+    process-wide precision; the JPEG augmentation (in every training step
+    with 'j') neither reads nor sets it, and still pins full f32."""
+    from biscuit_torch.data.augment import jpeg_apply
+
+    x = torch.randint(0, 256, (8, 64, 64, 3), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    apply = torch.ones(8, dtype=torch.bool, device="cuda")
+    q = torch.full((8,), 99, device="cuda")
+    want = jpeg_apply(x, apply, q)
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = jpeg_apply(x, apply, q)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(got, want)
+
+
 # (N, H, W, CI, CO, hs): a small plane, a ragged last strip (19 = 3*6 + 1)
 # over 16 images, the 37x37 entry geometry in two strips, the exit tail
 # (CI over one depthwise block's 1024 channels, both GEMM dimensions over
@@ -648,3 +670,75 @@ def test_score_tiles_on_the_card_matches_the_cpu(gen, tmp_path):
         assert probs.shape == unc.shape == (36, 2)
         np.testing.assert_allclose(probs, want_p, rtol=0, atol=2e-2)
         np.testing.assert_allclose(unc, want_u, rtol=0, atol=1e-3)
+
+
+def test_train_project_on_the_card(gen, tmp_path):
+    """``Project.train`` of xception_tiny (bf16, 32 px, batch 16, uq=True
+    at K=4) on a project of 6 slides of 16 PNG tiles, 3 steps an epoch
+    over epochs [1, 2], fold 1 of 3: every step's 16 unit backwards on
+    the strip kernel, the preprocess, middle-flow and MC-head kernels
+    once for each of the 2 validation batches of each epoch, nothing
+    else; the model-dir contract; and the epoch model, loaded by
+    ``UncertaintyInterface``, gives its CSV's probabilities again."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    from biscuit_torch.data.tfrecord import TFRecordWriter
+    from biscuit_torch.hp import ModelParams
+    from biscuit_torch.project import Project
+    from biscuit_torch.train.trainer import score_tiles
+    from biscuit_torch.train.uq import UncertaintyInterface
+    from chip_smoke import encode_png
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "tfr").mkdir()
+    for s in range(6):
+        with TFRecordWriter(str(tmp_path / "tfr" / f"s{s}.tfrecords")) as w:
+            for t in range(16):
+                w.write_tile(f"s{s}", encode_png(rng.integers(
+                    0, 256, (32, 32, 3), dtype=np.uint8)), loc_x=t, loc_y=s)
+    pd.DataFrame({"patient": [f"p{s}" for s in range(6)],
+                  "slide": [f"s{s}" for s in range(6)],
+                  "cohort": [f"c{s % 2}" for s in range(6)],
+                  "site": [f"site{s // 2}" for s in range(6)]}).to_csv(
+                      tmp_path / "ann.csv", index=False)
+    project = Project(str(tmp_path / "root"),
+                      annotations=str(tmp_path / "ann.csv"), create=True)
+    project.add_source("SRC", tfrecords=str(tmp_path / "tfr"))
+    hp = ModelParams(model="xception_tiny", tile_px=32, tile_um=32,
+                     batch_size=16, epochs=[1, 2], early_stop=False,
+                     hidden_layer_width=32, dropout=0.1, uq=True,
+                     uq_samples=4, augment="xyrjb")
+    before = _build.launch_counts()
+    (model_dir,) = project.train("cohort", "card", params=hp, val_k=[1],
+                                 steps_per_epoch_override=3, save_model=True)
+    after = _build.launch_counts()
+    for name in after:
+        want = {"unit_bwd_strips": 16 * 6}.get(name, 2 * 2 if name in (
+            "fused_preprocess", "fused_middle_flow", "mcd_head") else 0)
+        assert after[name] - before[name] == want, name
+    files = set(os.listdir(model_dir))
+    for e in (1, 2):
+        assert {f"tile_predictions_val_epoch{e}.csv",
+                f"slide_predictions_cohort_val_epoch{e}.csv",
+                f"patient_predictions_cohort_val_epoch{e}.csv",
+                f"cohort-card-HP0-kfold1_epoch{e}"} <= files
+    assert {"slide_manifest.csv", "params.json", "train_log.csv",
+            "results_log.csv"} <= files
+    log = pd.read_csv(os.path.join(model_dir, "results_log.csv"))
+    assert list(log["model_name"]) == ["cohort-card-HP0_epoch1",
+                                       "cohort-card-HP0_epoch2"]
+    ui = UncertaintyInterface(os.path.join(model_dir,
+                                           "cohort-card-HP0-kfold1_epoch2"))
+    man = pd.read_csv(os.path.join(model_dir, "slide_manifest.csv"))
+    val = list(man.loc[man["dataset"] == "validation", "slide"])
+    labels = {f"s{s}": s % 2 for s in range(6)}
+    _, probs, _ = score_tiles(ui.model, ui.hp, [
+        str(tmp_path / "tfr" / f"{s}.tfrecords") for s in sorted(val)],
+        labels)
+    csv = pd.read_csv(os.path.join(model_dir,
+                                   "tile_predictions_val_epoch2.csv"))
+    np.testing.assert_allclose(
+        probs, csv[["cohort_y_pred0", "cohort_y_pred1"]], rtol=0, atol=1e-6)
