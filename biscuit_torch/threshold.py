@@ -11,10 +11,12 @@ frames. It keeps the JAX package's deliberate fixes: a fold whose error
 ROC is single-class degrades to "undetectable" in ``detect`` instead of
 raising, and ``apply(..., tile_uq=None)`` skips the tile filter.
 
+``plot=True`` draws the uncertainty figure (``plot_uncertainty``, with
+the numpy LOESS ``_loess_smooth``) where the JAX package draws it;
+matplotlib and seaborn are imported only then.
+
 Not ported yet: the device statistics backend (``backend="device"``
-raises; ROADMAP.md Queue 1 item 8) and the uncertainty figure
-(``plot=True`` raises; the figures wait for the slice of ROADMAP.md
-Queue 1 item 5).
+raises; ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -32,23 +34,20 @@ __all__ = [
     "apply",
     "detect",
     "from_cv",
+    "plot_uncertainty",
 ]
 
 _FLOAT_TYPES = (float, np.float16, np.float32, np.float64)
 
 
-def _host_only(backend, plot) -> None:
-    """Refuse what the port does not have yet: the device backend and
-    the uncertainty figure."""
+def _host_only(backend) -> None:
+    """Refuse what the port does not have yet: the device backend."""
     if backend == "device":
         raise NotImplementedError(
             "the device statistics backend is not ported yet (ROADMAP.md "
             "Queue 1 item 8); use backend='host' or None")
     if backend not in (None, "host"):
         raise ValueError(f"backend must be 'host', 'device' or None: {backend}")
-    if plot:
-        raise NotImplementedError(
-            "plot_uncertainty is not ported yet (ROADMAP.md Queue 1 item 5)")
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +191,7 @@ def apply(
     """
     assert keep in ("high_confidence", "low_confidence")
     assert not (level == "patient" and patients is None)
-    _host_only(backend, plot)
+    _host_only(backend)
 
     if tile_uq:
         log.debug(f"Applying tile UQ threshold of {tile_uq:.5f}")
@@ -223,6 +222,9 @@ def apply(
         empty = {k: None for k in (
             "auc", "percent_incl", "acc", "sensitivity", "specificity")}
         return empty, None
+
+    if plot:
+        plot_uncertainty(s_df, threshold=slide_uq, kind=level, title=title)
 
     if slide_uq:
         log.debug(f"Using {level} uncertainty threshold of {slide_uq:.5f}")
@@ -283,7 +285,7 @@ def detect(
     log.debug("Detecting thresholds...")
     empty_thresh = {k: None for k in (
         "tile_uq", "slide_uq", "tile_pred", "slide_pred")}
-    _host_only(backend, plot)
+    _host_only(backend)
     try:
         df, detected_tile_pred = process_tile_predictions(
             df, pred_thresh=tile_pred, patients=patients
@@ -366,10 +368,14 @@ def detect(
                           "(single-class error ROC)")
                 return empty_thresh, None
             log.debug(f"Slide-level optimal UQ threshold: {slide_uq:.4f}")
+            if plot:
+                plot_uncertainty(s_df, threshold=slide_uq, kind="slide")
             s_df = s_df[s_df["uncertainty"] < slide_uq]
     else:
         log.debug("Not performing slide-level uncertainty thresholding.")
         slide_uq = 0.5
+        if plot:
+            plot_uncertainty(s_df, threshold=slide_uq, kind="slide")
 
     auc = auc_score(s_df["y_true"].to_numpy(), s_df["y_pred"].to_numpy())
     thresholds = {
@@ -427,3 +433,116 @@ def from_cv(dfs, **kwargs):
         "tile_pred": float(np.mean(k_tile_pred_thresh)),
         "slide_pred": float(np.mean(k_slide_pred_thresh)),
     }
+
+
+# ---------------------------------------------------------------------------
+# Plotting
+# ---------------------------------------------------------------------------
+
+def _loess_smooth(x, y, frac=0.75):
+    """Local linear regression with tricube weights (numpy implementation,
+    replaces the reference's skmisc.loess dependency). Returns (fit, se)."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    n = x.size
+    k = max(2, int(np.ceil(frac * n)))
+    fit = np.empty(n)
+    se = np.empty(n)
+    for i in range(n):
+        d = np.abs(x - x[i])
+        idx = np.argpartition(d, min(k - 1, n - 1))[:k]
+        h = d[idx].max()
+        w = (1 - np.clip(d[idx] / (h if h > 0 else 1.0), 0, 1) ** 3) ** 3
+        sw = w.sum()
+        xw = (w * x[idx]).sum() / sw
+        yw = (w * y[idx]).sum() / sw
+        cov = (w * (x[idx] - xw) * (y[idx] - yw)).sum()
+        var = (w * (x[idx] - xw) ** 2).sum()
+        b = cov / var if var > 0 else 0.0
+        fit[i] = yw + b * (x[i] - xw)
+        resid = y[idx] - (yw + b * (x[idx] - xw))
+        se[i] = np.sqrt((w * resid**2).sum() / sw / max(1, sw))
+    return fit, se
+
+
+def plot_uncertainty(df, kind, threshold=None, title=None, seed=None):
+    """3-panel uncertainty figure: KDE, scatter vs threshold, calibration.
+
+    DELIBERATE FIGURE-PARITY PORT (SURVEY-quirk style disclosure): this
+    function intentionally reproduces the reference figure *pixel-for-pixel*
+    — panel layout, marker shapes/sizes, and styling constants ('#FC6D77'
+    error marks, '#EAEAF2' panel background) are copied from reference
+    threshold.py:15-122 because the published Figure-4 artifacts are the
+    parity target; the plotting code itself is restructured (explicit axes,
+    numpy LOESS replacement for skmisc). Behavioral deviations:
+    ``kind='tile'`` subsampling accepts a ``seed`` (reference is unseeded,
+    threshold.py:32-33), and the LOESS band uses :func:`_loess_smooth`.
+    """
+    import matplotlib.pyplot as plt
+    import seaborn as sns
+
+    if kind == "tile":
+        df = df.sample(n=min(1000, len(df)), random_state=seed)
+
+    f, axes = plt.subplots(1, 3)
+    f.set_size_inches(15, 5)
+    palette = sns.color_palette("Set2")
+    tf_pal = {True: palette[0], False: palette[1]}
+
+    # Left: KDE of uncertainty by correctness.
+    kde = sns.kdeplot(
+        x="uncertainty", hue="correct", data=df, fill=True,
+        palette=tf_pal, ax=axes[0],
+    )
+    kde.set(xlabel="Uncertainty")
+    axes[0].title.set_text(f"Uncertainty density ({kind}-level)")
+
+    # Middle: prediction vs uncertainty scatter split by threshold.
+    if threshold is not None:
+        axes[1].axhline(y=threshold, color="r", linestyle="--")
+        at_df = df.loc[df["uncertainty"] >= threshold]
+        axes[1].scatter(
+            x=at_df.loc[at_df["correct"], "y_pred"],
+            y=at_df.loc[at_df["correct"], "uncertainty"],
+            marker="o", s=10, color="gray",
+        )
+        axes[1].scatter(
+            x=at_df.loc[~at_df["correct"], "y_pred"],
+            y=at_df.loc[~at_df["correct"], "uncertainty"],
+            marker="x", color="#FC6D77",
+        )
+        bt_df = df.loc[df["uncertainty"] < threshold]
+    else:
+        bt_df = df
+    axes[1].scatter(
+        x=bt_df.loc[bt_df["correct"], "y_pred"],
+        y=bt_df.loc[bt_df["correct"], "uncertainty"],
+        marker="o", s=10,
+    )
+    axes[1].scatter(
+        x=bt_df.loc[~bt_df["correct"], "y_pred"],
+        y=bt_df.loc[~bt_df["correct"], "uncertainty"],
+        marker="x", color="red",
+    )
+    if title is not None:
+        axes[1].title.set_text(title)
+
+    # Right: probability calibration (local regression of correct~uncertainty).
+    l_df = df[["uncertainty", "correct"]].sort_values(by=["uncertainty"])
+    x = l_df["uncertainty"].to_numpy()
+    y = l_df["correct"].astype(float).to_numpy()
+    z, se = _loess_smooth(x, y)
+    axes[2].plot(x, y, "+", ms=6)
+    axes[2].plot(x, z)
+    axes[2].fill_between(x, z - 1.96 * se, z + 1.96 * se, alpha=0.2)
+    axes[2].tick_params(labelrotation=90)
+    axes[2].set_ylim(-0.1, 1.1)
+    if threshold is not None:
+        axes[2].axvline(x=threshold, color="r", linestyle="--")
+
+    for ax in (axes[1], axes[2]):
+        ax.spines["bottom"].set_linewidth(0.5)
+        ax.spines["bottom"].set_color("black")
+        ax.tick_params(axis="x", colors="black")
+        ax.grid(visible=True, which="both", axis="both", color="white")
+        ax.set_facecolor("#EAEAF2")

@@ -105,10 +105,21 @@ these phases, each printing one JSON line:
    fold (the first apart), ``train_log.csv``'s rows, the host's read +
    decode of a fold's training batches against the step's device time
    on the same batches, and the seconds of an in-run and an epoch save.
+   experiment: where pandas and scipy are installed,
+   ``Experiment.run`` of ZD (5 slides a class) with the default hp
+   ("nature2022", Xception-299, K=30) over a training project of
+   EX_TRAIN and an evaluation project of EX_EVAL slides of EX_TILES
+   smooth PNG tiles: steps 2, 3, 5 and 6 (3 CV folds, 3 UQ CV folds, the
+   FULL model, its evaluation), each step timed, with the launch counts
+   zeroed just before the first and read just after the last (34 strip
+   launches a training step, rows 1-3 once a batch of UQ validation or
+   evaluation tiles); every model dir, experiments.csv, the eval dir, a
+   rerun that trains nothing, and ``results``' rows and AUCs checked;
+   where they are not, one line saying so. No figure is drawn.
 6. the kernels line (launches: the serving phases for kernels 1-4, the
-   depthwise entry phase, the training phase, with phase train_project's
-   added to kernels 1-3 and 6); 7. the last line
-   ``{"ok": true, "device": ...}``.
+   depthwise entry phase, the training phase, with phases
+   train_project's and experiment's added to kernels 1-3 and 6); 7. the
+   last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. It needs one CUDA card; without one it exits 1 at once.
@@ -178,6 +189,13 @@ TP_TILES = 64
 TP_STEPS = 5
 TP_EPOCHS = (1, 2)
 TP_FOLDS = 3
+# Phase experiment: Experiment.run of ZD (5 slides a class) over a
+# training project of EX_TRAIN slides (two a site) and an evaluation
+# project of EX_EVAL, EX_TILES tiles a slide, steps EX_STEPS.
+EX_TRAIN = 10
+EX_EVAL = 4
+EX_TILES = 32
+EX_STEPS = (2, 3, 5, 6)
 
 
 def emit(obj) -> None:
@@ -1696,11 +1714,12 @@ def train_path(torch, seed: int, card: str):
     }, launches, plane_launches
 
 
-def train_project_project(tmp: str):
-    """The project of phase train_project in ``tmp``: TP_TILES smooth
-    tiles for each of TP_SLIDES slides, slide s of label s % 2, site
-    s // 2 and its own patient, as PNG tfrecords by the port's writer, an
-    annotations CSV and a Project; returns (project, seconds to write)."""
+def write_project(tmp: str, name: str, n_slides: int, n_tiles: int,
+                  seed: int, classes):
+    """A Project ``name`` in ``tmp``: ``n_tiles`` smooth tiles for each of
+    ``n_slides`` slides, slide s of class ``classes[s % 2]``, site s // 2
+    and its own patient, as PNG tfrecords by the port's writer, with an
+    annotations CSV; returns (project, seconds to write)."""
     import os
 
     import pandas as pd
@@ -1709,24 +1728,23 @@ def train_project_project(tmp: str):
     from biscuit_torch.project import Project
 
     t0 = time.perf_counter()
-    tiles = smooth_tiles(TP_SLIDES * TP_TILES, SEED + 1)
-    tfr = os.path.join(tmp, "train_tfr")
+    tiles = smooth_tiles(n_slides * n_tiles, seed)
+    tfr = os.path.join(tmp, f"{name}_tfr")
     os.makedirs(tfr)
-    for s in range(TP_SLIDES):
-        with TFRecordWriter(os.path.join(tfr, f"tslide{s}.tfrecords")) as w:
-            for t in range(TP_TILES):
-                w.write_tile(f"tslide{s}", encode_png(
-                    tiles[s * TP_TILES + t]), loc_x=TILE_PX * (t % 8),
-                    loc_y=TILE_PX * (t // 8))
-    ann = os.path.join(tmp, "train_annotations.csv")
-    pd.DataFrame({"patient": [f"tpatient{s}" for s in range(TP_SLIDES)],
-                  "slide": [f"tslide{s}" for s in range(TP_SLIDES)],
-                  OUTCOME: [f"class{s % 2}" for s in range(TP_SLIDES)],
-                  "site": [f"site{s // 2}" for s in range(TP_SLIDES)]}
+    for s in range(n_slides):
+        with TFRecordWriter(os.path.join(tfr, f"{name}{s}.tfrecords")) as w:
+            for t in range(n_tiles):
+                w.write_tile(f"{name}{s}", encode_png(tiles[s * n_tiles + t]),
+                             loc_x=TILE_PX * (t % 8), loc_y=TILE_PX * (t // 8))
+    ann = os.path.join(tmp, f"{name}_annotations.csv")
+    pd.DataFrame({"patient": [f"{name}p{s}" for s in range(n_slides)],
+                  "slide": [f"{name}{s}" for s in range(n_slides)],
+                  OUTCOME: [classes[s % 2] for s in range(n_slides)],
+                  "site": [f"{name}site{s // 2}" for s in range(n_slides)]}
                  ).to_csv(ann, index=False)
-    project = Project(os.path.join(tmp, "train_project"), annotations=ann,
-                      name="smoke_train", create=True)
-    project.add_source("smoke_train", tfrecords=tfr)
+    project = Project(os.path.join(tmp, name), annotations=ann, name=name,
+                      create=True)
+    project.add_source(name, tfrecords=tfr)
     return project, time.perf_counter() - t0
 
 
@@ -1795,7 +1813,7 @@ def check_model_dir(model_dir: str, k, epochs, log_steps, hp):
 def train_project_phase(torch, tmp: str, card: str):
     """``Project.train`` of hp.nature2022 (Xception-299 bf16, 2x1024,
     dropout 0.1, 'xyrjb', batch 128) with uq=True at K, early stopping
-    on, 3-fold, on the project of ``train_project_project``: TP_STEPS
+    on, 3-fold, on TP_SLIDES slides of TP_TILES tiles: TP_STEPS
     steps an epoch over TP_EPOCHS, a validation check of one batch and an
     in-run checkpoint every TP_STEPS steps, the epoch models saved. The
     folds run as three calls with ``val_k=[k]``, which is what one call
@@ -1838,7 +1856,8 @@ def train_project_phase(torch, tmp: str, card: str):
           and hp.dropout == 0.1 and hp.model == "xception"
           and hp.early_stop and hp.compute_dtype == "bfloat16",
           "published configuration")
-    project, write_s = train_project_project(tmp)
+    project, write_s = write_project(tmp, "tp", TP_SLIDES, TP_TILES,
+                                     SEED + 1, ("class0", "class1"))
     kw = dict(params=hp, val_k_fold=TP_FOLDS,
               steps_per_epoch_override=TP_STEPS, validate_on_batch=TP_STEPS,
               validation_steps=1, save_model=True, checkpoint_every=TP_STEPS)
@@ -1972,6 +1991,194 @@ def train_project_phase(torch, tmp: str, card: str):
     }, total
 
 
+def check_experiment_dir(model_dir: str, uq: bool, full: bool):
+    """The model-dir contract of one of the protocol's trainings: the
+    manifest and params.json; for a CV fold the epoch-1 results row with
+    its six AUC/AP cells in [0, 1] and the prediction CSVs with finite
+    probabilities (and uncertainties with UQ); for the FULL model its
+    epoch-1 model. Returns the manifest's training and validation slide
+    counts."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    files = set(os.listdir(model_dir))
+    label = "EXP_ZD_FULL" if full else "EXP_ZD_UQ" if uq else "EXP_ZD"
+    want = {"slide_manifest.csv", "params.json", "results_log.csv"}
+    if full:
+        want.add(f"{OUTCOME}-{label}-HP0_epoch1")
+    else:
+        want |= {"tile_predictions_val_epoch1.csv",
+                 f"patient_predictions_{OUTCOME}_val_epoch1.csv",
+                 f"slide_predictions_{OUTCOME}_val_epoch1.csv"}
+    check(want <= files, f"{model_dir}: missing {sorted(want - files)}")
+    man = pd.read_csv(os.path.join(model_dir, "slide_manifest.csv"))
+    n_train = int((man["dataset"] == "training").sum())
+    n_val = int((man["dataset"] == "validation").sum())
+    with open(os.path.join(model_dir, "params.json")) as f:
+        meta = json.load(f)
+    check(meta["label"] == label and meta["hp"]["uq"] == (uq or full)
+          and meta["hp"]["model"] == "xception"
+          and meta["hp"]["batch_size"] == TRAIN_BATCH, f"{model_dir}: hp")
+    log = pd.read_csv(os.path.join(model_dir, "results_log.csv"))
+    check(list(log["model_name"]) == [f"{OUTCOME}-{label}-HP0_epoch1"],
+          f"{model_dir}: results_log rows")
+    if full:
+        check(n_val == 0 and n_train == EX_TRAIN, f"{model_dir}: manifest")
+        for f in ("model.msgpack", "params.json"):
+            check(os.path.exists(os.path.join(
+                model_dir, f"{OUTCOME}-{label}-HP0_epoch1", f)),
+                f"{model_dir}: epoch model {f}")
+        return n_train, n_val
+    check(n_val > 0 and n_train + n_val == EX_TRAIN, f"{model_dir}: manifest")
+    for col in ("patient_auc", "patient_ap", "slide_auc", "slide_ap",
+                "tile_auc", "tile_ap"):
+        (v,) = json.loads(log[col][0])[OUTCOME]
+        check(0.0 <= v <= 1.0, f"{model_dir}: {col} {v}")
+    tiles = pd.read_csv(os.path.join(model_dir,
+                                     "tile_predictions_val_epoch1.csv"))
+    p = tiles[[f"{OUTCOME}_y_pred0", f"{OUTCOME}_y_pred1"]].to_numpy()
+    check(len(tiles) == n_val * EX_TILES and bool(np.isfinite(p).all())
+          and np.abs(p.sum(1) - 1).max() <= 1e-3, f"{model_dir}: tile rows")
+    check((f"{OUTCOME}_uncertainty1" in tiles) == uq,
+          f"{model_dir}: uncertainty columns")
+    if uq:
+        u = tiles[f"{OUTCOME}_uncertainty1"].to_numpy()
+        check(bool(np.isfinite(u).all() and u.min() >= 0),
+              f"{model_dir}: uncertainty values")
+    return n_train, n_val
+
+
+def experiment_phase(torch, tmp: str, card: str):
+    """``Experiment(train, [eval]).run({"ZD": ...}, steps=EX_STEPS)`` with
+    the default hp ("nature2022": Xception-299 bf16, 2x1024, dropout 0.1,
+    K=30, batch 128) on the card, over a training project of EX_TRAIN
+    slides and an evaluation project of EX_EVAL (``write_project``): 3 CV
+    folds (step 2), 3 UQ CV folds (step 3), the FULL model (step 5, its
+    steps from ``find_cv_early_stop``) and its evaluation (step 6); step
+    1 does not apply to ZD and step 4 needs >= 50 slides. One ``run``
+    call, each step timed from its "[Step n]" line to the next, with the
+    launch counts zeroed just before and read just after:
+    34 strip launches a training step (a fold's steps are its training
+    tiles // 128) and rows 1-3 once a batch of the UQ folds' validation
+    tiles and of the evaluation, nothing else. Then every model dir, the
+    annotations, the eval dir, a second run of steps 2, 3 and 5 (no new
+    model dir, "already done"), and ``results``: its 'none' and 'all'
+    arms 3 rows each and one eval row, finite AUCs in [0, 1]."""
+    import contextlib
+    import gc
+    import io
+    import math
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    from biscuit_torch import utils
+    from biscuit_torch.experiment import Experiment
+    from biscuit_torch.ops import _build
+
+    class StepClock(io.TextIOBase):
+        """Passes ``run``'s output on, noting when each step's bold
+        "[Step n]" heading is printed."""
+
+        def __init__(self, out):
+            self.out, self.starts = out, []
+
+        def write(self, text):
+            m = re.search(r"\033\[1m\[Step (\d)\]", text)
+            if m:
+                self.starts.append((m.group(1), time.perf_counter()))
+            return self.out.write(text)
+
+        def flush(self):
+            self.out.flush()
+
+    train_P, train_s = write_project(tmp, "extrain", EX_TRAIN, EX_TILES,
+                                     SEED + 2, ("LUAD", "LUSC"))
+    eval_P, eval_s = write_project(tmp, "exeval", EX_EVAL, EX_TILES,
+                                   SEED + 3, ("LUAD", "LUSC"))
+    exp = Experiment(train_P, [eval_P], outdir=os.path.join(tmp, "results"))
+    zd = {"ZD": {"out1": EX_TRAIN // 2, "out2": EX_TRAIN // 2}}
+    clock = StepClock(sys.stdout)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(clock):
+        exp.run(zd, steps=list(EX_STEPS))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = _build.launch_counts()
+    run_s = t_end - t0
+    ends = [t for _, t in clock.starts[1:]] + [t_end]
+    step_s = {n: end - start for (n, start), end in zip(clock.starts, ends)}
+    check(list(step_s) == [str(n) for n in EX_STEPS],
+          f"the steps that ran: {list(step_s)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ann = pd.read_csv(os.path.join(train_P.root, "experiments.csv"))
+    check((ann["include_ZD"] == "include").sum() == EX_TRAIN,
+          "experiments.csv: include_ZD")
+    steps = 0
+    uq_batches = 0
+    for label, uq in (("EXP_ZD", False), ("EXP_ZD_UQ", True)):
+        for d in utils.find_cv(train_P, label, outcome=OUTCOME):
+            n_train, n_val = check_experiment_dir(d, uq, False)
+            steps += max(1, n_train * EX_TILES // TRAIN_BATCH)
+            if uq:
+                uq_batches += math.ceil(n_val * EX_TILES / TRAIN_BATCH)
+    full = utils.find_model(train_P, "EXP_ZD_FULL", outcome=OUTCOME)
+    check_experiment_dir(full, True, True)
+    stop = utils.find_cv_early_stop(train_P, "EXP_ZD", outcome=OUTCOME)
+    steps += stop or EX_TRAIN * EX_TILES // TRAIN_BATCH
+    eval_dir = utils.find_eval(eval_P, "EXP_ZD_FULL", outcome=OUTCOME)
+    check(set(os.listdir(eval_dir)) == {
+        "results_log.csv", "tile_predictions_eval.csv",
+        f"slide_predictions_{OUTCOME}_eval.csv",
+        f"patient_predictions_{OUTCOME}_eval.csv"}, "the eval-dir files")
+    eval_batches = math.ceil(EX_EVAL * EX_TILES / TRAIN_BATCH)
+    for name, count in launches.items():
+        want = {"unit_bwd_strips": UNITS_PER_STEP * steps}.get(
+            name, uq_batches + eval_batches if name in SERVING else 0)
+        check(count == want, f"experiment: {name} {count} launches, "
+                             f"expected {want}")
+
+    before = sorted(os.listdir(train_P.models_dir))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        exp.run(zd, steps=[2, 3, 5])
+    rerun_s = time.perf_counter() - t0
+    check(sorted(os.listdir(train_P.models_dir)) == before
+          and out.getvalue().count("already done") == 3,
+          f"the rerun trains nothing: {out.getvalue()!r}")
+
+    t0 = time.perf_counter()
+    df, eval_dfs = exp.results(["ZD"], uq=True, eval=True)
+    results_s = time.perf_counter() - t0
+    ev = eval_dfs[eval_P.name]
+    check(sorted(df["uq"]) == ["all"] * 3 + ["none"] * 3 and len(ev) == 1,
+          f"results rows: {df['uq'].tolist()}, {len(ev)} eval")
+    aucs = np.concatenate([
+        df[[c for c in df if c.endswith("_auc")]].to_numpy(np.float64)
+        .ravel(), ev[["patient_auc", "slide_auc"]].to_numpy(np.float64)
+        .ravel()])
+    check(bool(np.isfinite(aucs).all() and (aucs >= 0).all()
+               and (aucs <= 1).all()), f"results AUCs {aucs.tolist()}")
+    return {
+        "phase": "experiment", "model": "xception", "tile_px": TILE_PX,
+        "batch": TRAIN_BATCH, "k": K, "train_slides": EX_TRAIN,
+        "eval_slides": EX_EVAL, "tiles_a_slide": EX_TILES,
+        "steps": list(EX_STEPS), "tfrecords_write_s": train_s + eval_s,
+        "step_s": step_s,
+        "run_s": run_s, "rerun_s": rerun_s, "results_s": results_s,
+        "training_steps": steps, "early_stop_batch": stop,
+        "cv": df.to_dict("records"), "eval": ev.to_dict("records"),
+        "launches": launches, "card": card,
+    }, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2079,12 +2286,22 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tp_row, tp_launches = train_project_phase(torch, tmp, card)
     emit(tp_row)
+    torch.cuda.empty_cache()
+    if any(importlib.util.find_spec(m) is None for m in ("pandas", "scipy")):
+        emit({"phase": "experiment",
+              "skipped": "pandas or scipy is not installed on this machine"})
+        ex_launches = {}
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            ex_row, ex_launches = experiment_phase(torch, tmp, card)
+        emit(ex_row)
     launches["fused_block"] = fused_launches["fused_block"]
     launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
-    for name, count in tp_launches.items():
-        launches[name] += count
+    for phase_launches in (tp_launches, ex_launches):
+        for name, count in phase_launches.items():
+            launches[name] += count
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

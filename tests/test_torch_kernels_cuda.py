@@ -742,3 +742,76 @@ def test_train_project_on_the_card(gen, tmp_path):
                                    "tile_predictions_val_epoch2.csv"))
     np.testing.assert_allclose(
         probs, csv[["cohort_y_pred0", "cohort_y_pred1"]], rtol=0, atol=1e-6)
+
+
+def test_experiment_run_on_the_card(gen, tmp_path):
+    """``Experiment.run`` steps 3, 5 and 6 (step 6 evaluates step 5's FULL
+    model) of ZD at xception_tiny (bf16, 32 px, batch 16, K=4) on a
+    10-slide training and a 4-slide evaluation project of 16 PNG tiles,
+    with no device in ``train_kwargs``: every training step on the strip
+    kernel, the UQ validation predictions and the evaluation through the
+    preprocess, middle-flow and MC-head kernels; the UQ folds' uncertainty
+    columns, the eval dir's four files, and finite AUCs in [0, 1] from
+    ``results``."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    from biscuit_torch import utils
+    from biscuit_torch.data.tfrecord import TFRecordWriter
+    from biscuit_torch.experiment import Experiment
+    from biscuit_torch.hp import ModelParams
+    from biscuit_torch.project import Project
+    from chip_smoke import encode_png
+
+    rng = np.random.default_rng(0)
+    projects = []
+    for name, n in (("tr", 10), ("ev", 4)):
+        (tmp_path / f"{name}_tfr").mkdir()
+        for s in range(n):
+            with TFRecordWriter(str(tmp_path / f"{name}_tfr" /
+                                    f"{name}{s}.tfrecords")) as w:
+                for t in range(16):
+                    img = rng.integers(40, 120, (32, 32, 3), dtype=np.uint8)
+                    img[..., 2 * (s % 2)] += 100
+                    w.write_tile(f"{name}{s}", encode_png(img), loc_x=t,
+                                 loc_y=s)
+        pd.DataFrame({"patient": [f"{name}p{s}" for s in range(n)],
+                      "slide": [f"{name}{s}" for s in range(n)],
+                      "cohort": ["LUAD", "LUSC"] * (n // 2),
+                      "site": [f"site{s // 2}" for s in range(n)]}).to_csv(
+                          tmp_path / f"{name}.csv", index=False)
+        projects.append(Project(str(tmp_path / name),
+                                annotations=str(tmp_path / f"{name}.csv"),
+                                name=name, create=True))
+        projects[-1].add_source("SRC", tfrecords=str(tmp_path /
+                                                     f"{name}_tfr"))
+    exp = Experiment(projects[0], [projects[1]],
+                     outdir=str(tmp_path / "results"))
+    exp.train_kwargs = {"seed": 0, "validate_on_batch": 16,
+                        "validation_steps": 8}
+    hp = ModelParams(model="xception_tiny", tile_px=32, tile_um=32,
+                     batch_size=16, epochs=[1], early_stop=False,
+                     hidden_layer_width=32, dropout=0.1, uq_samples=4,
+                     augment="xyrjb")
+    before = _build.launch_counts()
+    exp.run({"ZD": {"out1": 5, "out2": 5}}, steps=[3, 5, 6], hp=hp)
+    after = _build.launch_counts()
+    for name in ("fused_preprocess", "fused_middle_flow", "mcd_head",
+                 "unit_bwd_strips"):
+        assert after[name] > before[name], name
+    for m in utils.find_cv(projects[0], "EXP_ZD_UQ", outcome="cohort"):
+        df = pd.read_csv(os.path.join(m, "tile_predictions_val_epoch1.csv"))
+        assert "cohort_uncertainty1" in df.columns
+        assert np.isfinite(df["cohort_uncertainty1"]).all()
+    eval_dir = utils.find_eval(projects[1], "EXP_ZD_FULL", outcome="cohort")
+    assert set(os.listdir(eval_dir)) == {
+        "results_log.csv", "tile_predictions_eval.csv",
+        "patient_predictions_cohort_eval.csv",
+        "slide_predictions_cohort_eval.csv"}
+    df, eval_dfs = exp.results(["ZD"], uq=True, eval=True)
+    assert list(df["uq"]) == ["all"] * 3
+    assert len(eval_dfs["ev"]) == 1
+    for auc in list(df["slide_auc"]) + list(eval_dfs["ev"]["patient_auc"]):
+        assert 0.0 <= auc <= 1.0

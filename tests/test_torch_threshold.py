@@ -171,7 +171,49 @@ def test_what_is_not_ported_raises():
                  lambda: port.from_cv([df.copy()], backend="device")):
         with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             call()
-    with pytest.raises(NotImplementedError, match="plot_uncertainty"):
-        port.detect(df.copy(), plot=True)
     with pytest.raises(ValueError, match="backend must be"):
         port.detect(df.copy(), backend="gpu")
+
+
+def _plotted(mod, call, monkeypatch):
+    """(the result of ``call``, the frames and arguments it gave
+    ``mod.plot_uncertainty``)."""
+    captured = []
+    with monkeypatch.context() as mp:
+        mp.setattr(mod, "plot_uncertainty",
+                   lambda df, threshold=None, kind=None, title=None:
+                   captured.append((df.copy(), threshold, kind, title)))
+        return call(), captured
+
+
+@pytest.mark.parametrize("fn,kw", [
+    ("detect", {}), ("detect", {"slide_uq": 0.5}),
+    ("apply", {"tile_uq": 0.1, "slide_uq": 0.05, "title": "Exp. X"}),
+    ("apply", {"tile_uq": None, "slide_uq": 0.05, "level": "patient",
+               "patients": _patients(), "keep": "low_confidence"})])
+def test_plot_true_draws_the_jax_frames(fn, kw, monkeypatch):
+    """``plot=True`` hands ``plot_uncertainty`` the same frames, at the
+    same places, as the JAX package's host path, and the results are the
+    same as without the figure."""
+    df = make_preds(acc=0.85)
+    if "patients" in kw:
+        df = df.drop(columns=["patient"])
+    got, got_frames = _plotted(port, lambda: getattr(port, fn)(
+        df.copy(), plot=True, **kw), monkeypatch)
+    want, want_frames = _plotted(ref, lambda: getattr(ref, fn)(
+        df.copy(), plot=True, backend="host", **kw), monkeypatch)
+    _same(got[0], want[0])
+    assert len(got_frames) == len(want_frames) == 1
+    for (gdf, *gargs), (wdf, *wargs) in zip(got_frames, want_frames):
+        assert gargs == wargs
+        assert_frame_equal(gdf, wdf)
+    _same(getattr(port, fn)(df.copy(), **kw)[0], got[0])
+
+
+def test_plot_true_draws_a_figure():
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
+    port.detect(make_preds(acc=0.85), plot=True)
+    assert len(plt.gcf().axes) == 3
+    plt.close("all")
