@@ -11,9 +11,8 @@ Deliberate fix (SURVEY.md §2.1 configure row): the reference overwrites the
 eval slides path with the train path (`val_slides = abspath(train_slides)`,
 configure.py:50); here each project keeps its own slide dir.
 
-``--extract True`` reaches ``Project.extract_tiles``, which raises until
-the port has ``data/slide.py`` (ROADMAP.md Queue 1 item 4); configure
-with ``--extract False`` meanwhile.
+``--extract True`` reaches ``Project.extract_tiles`` (``data/slide.py``),
+which builds the native data plane at first use.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@
 Counterpart of ``biscuit_tpu/cli/results.py`` (reference results.py):
 cross-validation curves (Figs 2-4 data), class-ratio comparisons and GAN
 results (Fig 7, results.py:310-347), from the trees ``Experiment.run``
-writes. The UQ heatmaps (Fig 5, ``--heatmap``) and UMAP mosaics (Fig 6,
-``--umap``) need the port's heatmap and mosaic modules and raise until
-ROADMAP.md Queue 1 item 4.
+writes, and the UQ heatmaps with their tile export (Fig 5,
+``--heatmap``) and the UMAP mosaics (Fig 6, ``--umap``), whose inference
+runs on ``--device`` (the card by default).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import click
 import numpy as np
 
 from ..experiment import Experiment, published_matrix
+from ..utils_log import log
 
 
 @click.command()
@@ -30,22 +31,21 @@ from ..experiment import Experiment, published_matrix
 @click.option("--ratio", default=False, type=bool,
               help="Assemble class-ratio experiment results.")
 @click.option("--umap", "umaps", default=False, type=bool,
-              help="Generate UMAP mosaics (Figure 6; not ported yet).")
+              help="Generate UMAP mosaics (Figure 6).")
 @click.option("--heatmap", "heatmaps", default=False, type=bool,
-              help="Generate UQ heatmaps (Figure 5; not ported yet).")
+              help="Generate UQ heatmaps (Figure 5).")
 @click.option("--heatmap_slide", default=None,
               help="Slide image path for the heatmap figure.")
 @click.option("--gan", default=False, type=bool,
               help="Assemble GAN-fraction results (Figure 7).")
 @click.option("--subset", default=None,
               help="Comma-separated experiment IDs (default: full ladder).")
+@click.option("--device", default=None,
+              help="Where the heatmap and UMAP models run (default: the "
+                   "card; 'cpu' asks for the CPU).")
 def show_results(train_project, eval_projects, outcome, outdir, reg, ratio,
-                 umaps, heatmaps, heatmap_slide, gan, subset):
+                 umaps, heatmaps, heatmap_slide, gan, subset, device):
     """Assemble results and regenerate figures (results.py:33-267)."""
-    if heatmaps or umaps:
-        raise NotImplementedError(
-            "--heatmap and --umap need the port's heatmap and mosaic "
-            "modules, ROADMAP.md Queue 1 item 4")
     import pandas as pd
 
     exp = Experiment(
@@ -128,6 +128,84 @@ def show_results(train_project, eval_projects, outcome, outdir, reg, ratio,
                 gan_df["id"].str[-2:].astype(int))
             gan_df.to_csv(join(outdir, "gan_results.csv"), index=False)
             click.echo(f"GAN results -> {join(outdir, 'gan_results.csv')}")
+
+    if heatmaps:
+        _generate_uq_heatmaps(exp, heatmap_slide, outdir, device)
+
+    if umaps:
+        _generate_umap_mosaics(exp, outdir, device)
+
+
+def _generate_uq_heatmaps(exp, slide_path, outdir, device=None):
+    """Figure 5: whole-slide heatmap with high-confidence masking
+    (results.py:179-227): recompute the tile-UQ threshold from nested CV,
+    run grid inference, mask uncertain tiles to [-1, -1]."""
+    from .. import utils
+    from ..heatmap import Heatmap, export_tiles_by_uncertainty
+
+    if slide_path is None:
+        slides = exp.train_project.dataset().slide_paths()
+        if not slides:
+            log.warning("No slide images registered; skipping heatmaps")
+            return
+        slide_path = slides[0]
+
+    _, thresh = exp.thresholds_from_nested_cv("EXP_AA_UQ")
+    if thresh["tile_uq"] is None:
+        log.warning("No nested-CV thresholds for EXP_AA_UQ; skipping heatmap")
+        return
+    model = utils.find_model(
+        exp.train_project, "EXP_AA_FULL", outcome=exp.outcome, epoch=1
+    )
+    hm = Heatmap(slide_path, model, stride_div=1, device=device)
+    hm.save(join(outdir, "heatmap_raw"))
+    # High-confidence masking (results.py:222-227).
+    uq_mask = hm.uncertainty[:, :, 0] > thresh["tile_uq"]
+    hm.logits[uq_mask, :] = [-1, -1]
+    hm.save(join(outdir, "heatmap_masked"))
+    # Per-tile UQ inference + export by uncertainty (results.py:234-265),
+    # batched.
+    export_tiles_by_uncertainty(
+        slide_path, model, tile_uq=thresh["tile_uq"],
+        outdir=join(outdir, "tiles"), device=device,
+    )
+    click.echo(f"Heatmaps + UQ tile export -> {outdir}")
+
+
+def _generate_umap_mosaics(exp, outdir, device=None):
+    """Figure 6: UMAP of penultimate features labeled by logits /
+    uncertainty / slide + tile mosaic (results.py:269-306)."""
+    from PIL import Image
+
+    from .. import utils
+    from ..mosaic import (
+        generate_features,
+        generate_mosaic,
+        slide_map_from_features,
+    )
+
+    model = utils.find_model(
+        exp.train_project, "EXP_AA_FULL", outcome=exp.outcome, epoch=1
+    )
+    tfrecords = exp.train_project.dataset().tfrecords()
+    if not tfrecords:
+        log.warning("No tfrecords found; skipping UMAP")
+        return
+    features, meta, tiles = generate_features(
+        model, tfrecords, max_tiles=100, keep_tiles=True,
+        cache=join(outdir, "feature_cache.npz"), device=device,
+    )
+    smap = slide_map_from_features(features, meta, tiles)
+    smap.label_by_logits(1)
+    smap.save(join(outdir, "umap_logits.png"))
+    smap.label_by_uncertainty(1)
+    smap.save(join(outdir, "umap_uncertainty.png"))
+    smap.label_by_slide()
+    smap.save(join(outdir, "umap_slide.png"))
+    if tiles is not None:
+        mosaic_img = generate_mosaic(features, meta, tiles)
+        Image.fromarray(mosaic_img).save(join(outdir, "mosaic.png"))
+    click.echo(f"UMAP figures -> {outdir}")
 
 
 if __name__ == "__main__":

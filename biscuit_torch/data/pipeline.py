@@ -6,15 +6,19 @@ through their index sidecars, decodes each tile on the host and yields
 fixed-shape batches with a mask of the real rows; everything downstream
 (stain normalization, standardization, the model) runs on the card.
 
-Tiles are read and decoded in Python: by Pillow, imported only when a
-tile is decoded, where it is installed, and otherwise, for PNGs of the
-usual kinds, by ``data/png.py`` (zlib and numpy; on a Pillow-written
-299-px tile about ten times slower than Pillow). The JAX package's
-threaded native loader (``native/``) is not ported, nor is its
-multi-host sharding. With ``jpeg_aug`` each training tile is re-compressed
-on the host after decoding (``data/augment.py`` ``jpeg_augment_host``,
-drawing from the batcher's shuffle generator, as the JAX package's
-Python path does).
+By default tiles are read and decoded in Python: by Pillow, imported
+only when a tile is decoded, where it is installed, and otherwise, for
+PNGs of the usual kinds, by ``data/png.py`` (zlib and numpy; on a
+Pillow-written 299-px tile about ten times slower than Pillow). With
+``use_native=True`` each batch is read, parsed and decoded by the native
+library's threaded reader (``data/native_loader.py``) with the GIL
+released, and a tile its decoder rejects is decoded in Python, as the
+JAX package's ``_gather_native`` does; both give the same bytes. The
+JAX package's multi-host sharding is not ported. With ``jpeg_aug`` each
+training tile is re-compressed on the host after decoding
+(``data/augment.py`` ``jpeg_augment_host``, drawing from the batcher's
+shuffle generator, as the JAX package's Python path does), always in
+Python.
 """
 
 from __future__ import annotations
@@ -64,6 +68,10 @@ class TileBatcher:
         jpeg_aug: random JPEG re-compression of each tile on the host.
         max_tiles: read at most this many tiles of each tfrecord.
         tile_px: when given, every decoded tile must be this size.
+        use_native: read and decode through the native library's
+            threaded reader (built and loaded here, or raising) where
+            ``tile_px`` is given and ``jpeg_aug`` is off; the default
+            decodes in Python. Either way the batches are the same.
     """
 
     def __init__(
@@ -77,7 +85,13 @@ class TileBatcher:
         jpeg_aug: bool = False,
         max_tiles: Optional[int] = None,
         tile_px: Optional[int] = None,
+        use_native: bool = False,
     ):
+        if use_native:
+            from .native_loader import load
+
+            load()
+        self.use_native = use_native
         self.paths = list(tfrecords)
         self.labels = labels or {}
         self.batch_size = batch_size
@@ -130,7 +144,41 @@ class TileBatcher:
         loc_y = ex.get("loc_y", [0])
         return img, slide, int(loc_x[0]), int(loc_y[0])
 
+    def _gather_native(self, idx):
+        """Threaded native read + parse + decode, grouped per source
+        file; a tile the native decoder rejects takes the Python path."""
+        from .native_loader import native_read_decode_batch
+
+        n = len(idx)
+        imgs = np.empty((n, self.tile_px, self.tile_px, 3), np.uint8)
+        slides = [""] * n
+        locs = np.zeros((n, 2), np.int64)
+        by_file: Dict[int, list] = {}
+        for row, i in enumerate(idx):
+            pi, off = self.entries[i]
+            by_file.setdefault(int(pi), []).append((row, int(off)))
+        for pi, items in by_file.items():
+            rows = [r for r, _ in items]
+            offsets = np.asarray([o for _, o in items], np.int64)
+            b_imgs, b_slides, b_locs, _labels, _ok = native_read_decode_batch(
+                self.paths[pi], offsets, self.tile_px
+            )
+            for j, row in enumerate(rows):
+                if b_locs[j, 0] == -1:  # native decode failed: python path
+                    img, slide, lx, ly = self._read_tile(pi, offsets[j])
+                    imgs[row] = img
+                    slides[row] = slide
+                    locs[row] = (lx, ly)
+                else:
+                    imgs[row] = b_imgs[j]
+                    slides[row] = b_slides[j] or self._slide_names[pi]
+                    locs[row] = b_locs[j]
+        return imgs, slides, locs
+
     def _gather(self, idx):
+        if (self.use_native and not self.jpeg_aug
+                and self.tile_px is not None):
+            return self._gather_native(idx)
         imgs, slides, locs = [], [], []
         for i in idx:
             pi, off = self.entries[i]

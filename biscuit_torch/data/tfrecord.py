@@ -7,8 +7,10 @@ tile archives written by either package (or by slideflow) load in the
 other. Readers skip the CRCs, and a ``.index.npy`` sidecar of record
 offsets gives O(1) random access, as slideflow's index files do.
 
-CRC32C (Castagnoli) is a per-byte table loop in Python: the JAX package's
-native CRC (``native/``) is not ported, so writing runs at a few MB/s.
+CRC32C (Castagnoli) runs through the native library
+(``data/native_loader.py``, SSE4.2 or slicing-by-8) once this process has
+loaded it, as the JAX package's runs through its own where built; before
+that, a per-byte table loop in Python, which writes at a few MB/s.
 """
 
 from __future__ import annotations
@@ -36,8 +38,14 @@ _CRC_TABLE = _crc_table()
 
 
 def crc32c(data: bytes) -> int:
-    """CRC32C of ``data``. The CRC has a sequential dependency from byte
-    to byte, so numpy cannot vectorize the loop."""
+    """CRC32C of ``data``: the native library's where this process has
+    loaded it (nothing is built here), else the Python table loop. The
+    CRC has a sequential dependency from byte to byte, so numpy cannot
+    vectorize the loop."""
+    from . import native_loader
+
+    if native_loader.loaded():
+        return native_loader.native_crc32c(data)
     tab = _CRC_TABLE
     crc_val = 0xFFFFFFFF
     for b in data:

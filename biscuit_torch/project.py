@@ -206,8 +206,10 @@ class Project:
         return evaluate_project(self, model, outcome, **kwargs)
 
     def extract_tiles(self, tile_px=299, tile_um=302, **kwargs):
-        """Extract tiles from WSIs into per-slide tfrecords. Not ported
-        yet: ``data/slide.py`` is ROADMAP.md Queue 1 item 4."""
-        raise NotImplementedError(
-            "Project.extract_tiles needs data/slide.py, which is not ported "
-            "yet (ROADMAP.md Queue 1 item 4)")
+        """Extract tiles from WSIs into per-slide tfrecords; see
+        biscuit_torch.data.slide.extract_tiles_for_project
+        (configure.py:115-133 contract)."""
+        from .data.slide import extract_tiles_for_project
+
+        return extract_tiles_for_project(self, tile_px=tile_px,
+                                         tile_um=tile_um, **kwargs)

@@ -20,9 +20,8 @@ The port's copy of ``biscuit_tpu/utils.py`` (reference BISCUIT
 n=150) and DeLong CIs; its ``rng`` argument pins the bootstrap, which is
 unseeded by default as in the reference. ``auc_and_threshold`` gives
 ``(auc, nan)`` on single-class labels instead of raising, as the JAX
-package does. scipy is imported by the functions that need it.
-``truncate_colormap`` belongs to the heatmaps and is not ported yet
-(ROADMAP.md Queue 1 item 4).
+package does. scipy is imported by the functions that need it, and
+matplotlib by ``truncate_colormap``, the heatmaps' colormap helper.
 """
 
 from __future__ import annotations
@@ -97,6 +96,16 @@ def rename_cols(df, outcome, *, y_true=None, y_pred=None, uncertainty=None):
 
 
 # --- Results readers (reference utils.py:66-504) ---------------------------
+
+
+def truncate_colormap(cmap, minval=0.0, maxval=1.0, n=100):
+    """Truncate a matplotlib colormap (utils.py:57-63)."""
+    import matplotlib.colors as colors
+
+    return colors.LinearSegmentedColormap.from_list(
+        f"trunc({cmap.name},{minval:.2f},{maxval:.2f})",
+        cmap(np.linspace(minval, maxval, n)),
+    )
 
 
 def _parse_cell(cell):

@@ -4,18 +4,21 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --unit-bwd-passes [--root CHECKOUT]
     python3 chip_smoke.py --preprocess [--root CHECKOUT]
+    python3 chip_smoke.py --slide
 
 The second form only profiles the unit backward pass by pass at
 UNIT_PASS_GEOMETRIES (one line a geometry), the third only times the
 preprocess kernel (row 1) and one request's preprocess stage, and the
 kernel at PREPROCESS_VARIANTS too where the checkout's plan takes a
 cluster size (one line); both import ``biscuit_torch`` from CHECKOUT when given (to
-time another checkout's kernels in the same call). The first form runs
+time another checkout's kernels in the same call). The fourth builds and
+runs phase slide alone (one line). The first form runs
 these phases, each printing one JSON line:
 
 1. env: torch/CUDA versions and ``nvidia-smi`` name and power limit (also
    printed raw on a line of its own); TF32 off for the f32 comparisons.
-2. build: every kernel of the main path built from ``biscuit_torch/csrc``;
+2. build: every kernel of the main path built from ``biscuit_torch/csrc``,
+   and the native data plane from ``csrc/native`` at the same time;
    ptxas: the registers, spills and shared memory of the sepconv GEMM
    (``csrc/sepconv_gemm.cuh``) in the two sources that run it (the middle
    flow and fused block rows add the GEMM's plan: column tile, cluster
@@ -116,10 +119,34 @@ these phases, each printing one JSON line:
    evaluation tiles); every model dir, experiments.csv, the eval dir, a
    rerun that trains nothing, and ``results``' rows and AUCs checked;
    where they are not, one line saying so. No figure is drawn.
+   slide: whole slides on the card. The native data plane
+   (``data/native_loader.py``, built with g++ beside the kernels in phase
+   build, which prints its capabilities and which libtiff it found) writes
+   SLIDE_COUNT synthetic H&E-like slides of SLIDE_PX square (tissue on
+   about half, 19 x 19 positions at 302 um and 1 mpp) as JPEG tiled TIFFs;
+   ``WSI`` must open them through ``TiledTiff``. hp.nature2022 with uq at
+   K, seeded LeCun weights and ``decisive_logits_`` over slide 0's tissue
+   tiles, saved as model dirs at dropout 0.1 and 0. Then, each with its
+   launch counts zeroed just before and read just after: ``Heatmap`` of
+   each slide with Otsu QC (rows 1-3 once a batch of 64; the -99 cells
+   the QC mask; host tile reads and scoring timed apart); the dropout-0
+   ``Heatmap`` held against the plain path (2e-2, probabilities spread
+   > 0.2); ``export_tiles_by_uncertainty`` at the heatmap's median
+   uncertainty (every tissue tile exported once, each on its side of the
+   threshold); ``Project.extract_tiles`` of both slides, the tfrecords
+   read by ``TileBatcher`` with and without ``use_native`` (bit for bit),
+   the read + decode per tile by Pillow, the native reader on 1 and on
+   every core, and Pillow in a thread pool of 1 and every core, and the
+   tiles scored from the native batches at dropout 0 (rows 1-3 once a
+   batch; within 2e-2 of the heatmap's cells); ``score_gan_tiles`` of
+   GAN_TILES 512-px crops (rows 2-3 once a batch of 64, row 1 never; the
+   card's resize within 1e-3 of the CPU's); ``generate_features`` of
+   MOSAIC_TILES tiles a slide (no launch), the slide map and a 10 x 10
+   mosaic.
 6. the kernels line (launches: the serving phases for kernels 1-4, the
    depthwise entry phase, the training phase, with phases
-   train_project's and experiment's added to kernels 1-3 and 6); 7. the
-   last line ``{"ok": true, "device": ...}``.
+   train_project's, experiment's and slide's added to kernels 1-3 and
+   6); 7. the last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. It needs one CUDA card; without one it exits 1 at once.
@@ -196,6 +223,16 @@ EX_TRAIN = 10
 EX_EVAL = 4
 EX_TILES = 32
 EX_STEPS = (2, 3, 5, 6)
+# Phase slide: SLIDE_COUNT synthetic H&E-like slides of SLIDE_PX square at
+# the default 1 mpp (19 x 19 grid positions at 302 um), written as JPEG
+# tiled TIFFs of SLIDE_TIFF_TILE tiles; GAN_TILES 512-px GAN tiles; the
+# mosaic over MOSAIC_TILES extracted tiles a slide.
+SLIDE_COUNT = 2
+SLIDE_PX = 6000
+SLIDE_TIFF_TILE = 256
+GAN_TILES = 128
+GAN_PX = 512
+MOSAIC_TILES = 100
 
 
 def emit(obj) -> None:
@@ -2179,6 +2216,401 @@ def experiment_phase(torch, tmp: str, card: str):
     }, launches
 
 
+def he_slide(seed: int, px: int = SLIDE_PX):
+    """A synthetic H&E-like RGB slide, uint8 (px, px, 3): a near-white
+    background (236-251) and a disc of tissue over about half the area,
+    pink stroma under low-frequency waves with purple 8-px 'nuclei' and
+    +-12 levels of noise; no region is constant."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pos = np.arange(px, dtype=np.float32)
+    wave = np.zeros((px, px), np.float32)
+    for _ in range(3):
+        fy, fx = rng.uniform(0.002, 0.01, 2)
+        py, ph = rng.uniform(0, 2 * np.pi, 2)
+        wave += np.outer(np.cos(fy * pos + py), np.cos(fx * pos + ph))
+    cy, cx = px / 2 + rng.uniform(-px / 30, px / 30, 2)
+    disc = ((pos[:, None] - cy) ** 2 + (pos[None, :] - cx) ** 2
+            < (0.4 * px) ** 2)
+    nuclei = np.repeat(np.repeat(rng.random((px // 8 + 1, px // 8 + 1))
+                                 < 0.15, 8, 0), 8, 1)[:px, :px] & disc
+    img = rng.integers(236, 252, (px, px, 3), dtype=np.uint8)
+    noise = rng.integers(-12, 13, (px, px, 3), dtype=np.int16)
+    for c, (base, amp, dark) in enumerate(((205, 25, 95), (120, 30, 60),
+                                           (165, 20, 140))):
+        tissue = np.where(nuclei, dark, base + amp * wave) + noise[..., c]
+        img[..., c] = np.where(disc, np.clip(tissue, 0, 255), img[..., c])
+    return img
+
+
+def slide_phase(torch, tmp: str, card: str):
+    """Whole slides on the card (see the docstring, phase slide).
+    Returns (row, launches of rows 1-3 on the slide path)."""
+    import dataclasses
+    import io
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import pandas as pd
+    from PIL import Image
+
+    from biscuit_torch.data import native_loader
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.data.pipeline import TileBatcher
+    from biscuit_torch.data.slide import WSI
+    from biscuit_torch.data.normalize import make_normalizer
+    from biscuit_torch.data.tfrecord import (
+        TFRecordWriter,
+        load_index,
+        read_example_at,
+    )
+    from biscuit_torch.gan import resize_batch, score_gan_tiles
+    from biscuit_torch.heatmap import Heatmap, export_tiles_by_uncertainty
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.mosaic import (
+        generate_features,
+        generate_mosaic,
+        slide_map_from_features,
+    )
+    from biscuit_torch.ops import _build
+    from biscuit_torch.project import Project
+    from biscuit_torch.train.trainer import save_checkpoint
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+
+    def counted(fn):
+        """fn() with the launch counts zeroed just before and read just
+        after: (its result, the counts, its seconds)."""
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _build.launch_counts(), time.perf_counter() - t0
+
+    def check_launches(what, launches, per_kernel):
+        for name, count in launches.items():
+            want = per_kernel.get(name, 0)
+            check(count == want, f"{what}: {count} {name} launches, "
+                                 f"expected {want}")
+
+    caps = native_loader.capabilities()
+    row = {"phase": "slide", "card": card, "capabilities": caps,
+           "tiff_library": native_loader.tiff_library(),
+           "slide_px": SLIDE_PX, "tiff_tile": SLIDE_TIFF_TILE,
+           "tile_px": TILE_PX, "tile_um": 302, "k": K}
+    print(f"bn_capabilities: {json.dumps(caps)} (libtiff: "
+          f"{row['tiff_library']})", flush=True)
+    check(caps["tiff"], "the TIFF reader needs a libtiff on this host")
+
+    # 1. Slides: two H&E-like 6000-px JPEG tiled TIFFs.
+    slides_dir = os.path.join(tmp, "slides")
+    os.makedirs(slides_dir)
+    paths, imgs, t_gen, t_write = [], [], 0.0, 0.0
+    for s in range(SLIDE_COUNT):
+        t0 = time.perf_counter()
+        imgs.append(he_slide(SEED + s))
+        t_gen += time.perf_counter() - t0
+        paths.append(os.path.join(slides_dir, f"wsi{s}.svs"))
+        t0 = time.perf_counter()
+        native_loader.write_tiled_tiff(paths[-1], imgs[-1],
+                                       tile=SLIDE_TIFF_TILE, jpeg=True)
+        t_write += time.perf_counter() - t0
+    row.update(slides_gen_s=t_gen, slides_write_s=t_write,
+               slide_bytes=[os.path.getsize(p) for p in paths])
+
+    hp = dataclasses.replace(nature2022_params(), uq=True, uq_samples=K)
+    hp0 = dataclasses.replace(hp, dropout=0.0)
+    wsis = [WSI(p, hp.tile_px, hp.tile_um, qc="otsu") for p in paths]
+    for w in wsis:
+        check(w._tiled is not None, f"{w.path} opened through TiledTiff")
+        check((w.grid_x, w.grid_y) == (19, 19), "19 x 19 grid at 302 um")
+    tissue = []
+    for w in wsis:
+        m = np.zeros((w.grid_y, w.grid_x), bool)
+        for i, j, x, y in w.coords():
+            m[j, i] = w._tile_is_tissue(x, y)
+        tissue.append(m)
+    n_tissue = [int(m.sum()) for m in tissue]
+    check(all(0.3 * 361 < n < 0.7 * 361 for n in n_tissue),
+          f"tissue tiles {n_tissue} of 361: Otsu QC drops about half")
+    row["tissue_tiles"] = n_tissue
+
+    # The model: seeded LeCun weights, its logits layer set from the
+    # plain features of slide 0's tissue tiles so that the probabilities
+    # spread; saved at dropout 0.1 and 0.
+    model = build_model(hp)
+    init_random_(torch, model, SEED)
+    model = model.cuda().eval()
+    t0 = time.perf_counter()
+    tiles0 = [(it["loc"], it["image"])
+              for it in wsis[0].build_generator(include_loc="grid")()]
+    row["read_tiles_s"] = time.perf_counter() - t0
+    x0 = np.stack([t for _, t in tiles0])
+    norm = make_normalizer(hp.normalizer)
+    with torch.inference_mode():
+        feats = torch.cat([trunk_features(model, inference_preprocess(
+            torch.from_numpy(x0[i:i + 64]).cuda().float(), norm), False)
+            for i in range(0, len(x0), 64)])
+    decisive_logits_(torch, model, feats)
+    del feats
+    model_dir = save_checkpoint(os.path.join(tmp, "models"), model, hp, 1,
+                                OUTCOME, "slide", None)
+    model0_dir = save_checkpoint(os.path.join(tmp, "models"), model, hp0, 1,
+                                 OUTCOME, "slide0", None)
+
+    # 2. Heatmaps on the card: slide 1 first (warm-up), then slide 0;
+    # rows 1-3 once a batch each.
+    path_launches = {name: 0 for name in SERVING}
+    hms, hm_rows = [], []
+    for s in (1, 0):
+        hm, launches, secs = counted(lambda: Heatmap(paths[s], model_dir,
+                                                     qc="otsu"))
+        check_launches(f"Heatmap of slide {s}", launches,
+                       {n: hm.timings["batches"] for n in SERVING})
+        for name in SERVING:
+            path_launches[name] += launches[name]
+        unscored = hm.uncertainty[..., 0] == -99.0
+        check(np.array_equal(~unscored, tissue[s]),
+              f"slide {s}: the -99 cells are the QC mask's")
+        check(bool(np.array_equal(unscored, hm.logits[..., 1] == -99.0)),
+              "logits and uncertainty masked alike")
+        p = hm.logits[~unscored]
+        check(bool(np.isfinite(p).all()) and float(np.abs(
+            p.sum(-1) - 1).max()) <= 1e-3, "heatmap rows sum to 1")
+        check(float(hm.uncertainty[~unscored].min()) >= 0, "std >= 0")
+        hms.append(hm)
+        hm_rows.append({"slide": s, "seconds": secs, **hm.timings,
+                        "tiles_per_s": hm.timings["tiles"] / secs,
+                        "launches": {n: launches[n] for n in SERVING}})
+    hm = hms[1]
+    row["heatmap"] = hm_rows
+
+    # The dropout-0 grid against the plain path on the card (f32
+    # preprocess of float tiles, library convs, the module head).
+    hm0, launches, _ = counted(lambda: Heatmap(paths[0], model0_dir,
+                                               qc="otsu"))
+    check_launches("dropout-0 Heatmap", launches,
+                   {n: hm0.timings["batches"] for n in SERVING})
+    for name in SERVING:
+        path_launches[name] += launches[name]
+    model.dropout = model.head.dropout = 0.0
+    plain = UncertaintyInterface.from_model(model, hp0, k=K, device="cuda",
+                                            use_kernel=False,
+                                            fused_trunk=False)
+    want = np.concatenate([plain(torch.from_numpy(
+        x0[i:i + 64]).cuda().float())[0].float().cpu().numpy()
+        for i in range(0, len(x0), 64)])
+    model.dropout = model.head.dropout = hp.dropout
+    got = np.stack([hm0.logits[j, i] for (i, j), _ in tiles0])
+    err0 = float(np.abs(got - want).max())
+    spread = float(np.ptp(want[:, 1]))
+    check(spread > 0.2, f"dropout-0 probabilities spread {spread} <= 0.2")
+    check(err0 <= 2e-2, f"dropout-0 heatmap: max abs err {err0}")
+    row.update(dropout0_max_abs_err=err0, dropout0_ptp=spread,
+               dropout0_tol=2e-2)
+
+    # 3. Tiles exported by uncertainty at the heatmap's median.
+    unc = hm.uncertainty[..., 0]
+    tile_uq = float(np.median(unc[unc > -99]))
+    out = os.path.join(tmp, "export")
+    (n_incl, n_excl), launches, secs = counted(
+        lambda: export_tiles_by_uncertainty(paths[0], model_dir, tile_uq,
+                                            out, qc="otsu"))
+    n_batches = -(-n_tissue[0] // 64)
+    check_launches("export_tiles_by_uncertainty", launches,
+                   {n: n_batches for n in SERVING})
+    for name in SERVING:
+        path_launches[name] += launches[name]
+    files = {d: os.listdir(os.path.join(out, d))
+             for d in ("uq_incl", "uq_excl")}
+    check((len(files["uq_incl"]), len(files["uq_excl"])) == (n_incl, n_excl)
+          and n_incl + n_excl == n_tissue[0],
+          f"exported {n_incl} + {n_excl} of {n_tissue[0]} tissue tiles")
+    cells = set()
+    for d, names in files.items():
+        for name in names:
+            _, i, j, u = name[:-4].rsplit("-", 3)
+            cells.add((int(j), int(i)))
+            check((float(u) < tile_uq + 5e-6) if d == "uq_incl"
+                  else (float(u) >= tile_uq - 5e-6),
+                  f"{d}/{name} against the threshold {tile_uq}")
+    check(cells == set(zip(*np.where(tissue[0]))),
+          "the exported tiles are the tissue cells")
+    row["export"] = {"tile_uq": tile_uq, "incl": n_incl, "excl": n_excl,
+                     "heatmap_incl": int(((unc > -99) & (unc < tile_uq))
+                                         .sum()),
+                     "seconds": secs}
+
+    # 4. Extraction into tfrecords, then the native and default decodes.
+    ann = os.path.join(tmp, "slides.csv")
+    pd.DataFrame({"patient": [f"p{s}" for s in range(SLIDE_COUNT)],
+                  "slide": [f"wsi{s}" for s in range(SLIDE_COUNT)],
+                  OUTCOME: ["LUAD", "LUSC"][:SLIDE_COUNT]}).to_csv(
+                      ann, index=False)
+    project = Project(os.path.join(tmp, "wsi_project"), annotations=ann,
+                      name="wsi", create=True)
+    project.add_source("WSI", slides=slides_dir,
+                       tfrecords=os.path.join(tmp, "wsi_tfr"))
+    t0 = time.perf_counter()
+    report = project.extract_tiles(tile_px=hp.tile_px, tile_um=hp.tile_um,
+                                   qc="otsu", report_pdf=False)
+    extract_s = time.perf_counter() - t0
+    check([(r["slide"], r["tiles"], r["grid"]) for r in report]
+          == [(f"wsi{s}", n_tissue[s], "19x19") for s in range(SLIDE_COUNT)],
+          f"extraction report {report}")
+    tfrs = project.dataset(tile_px=hp.tile_px, tile_um=hp.tile_um
+                           ).tfrecords()
+    check(len(tfrs) == SLIDE_COUNT, "one tfrecord a slide")
+    n_ext = sum(n_tissue)
+    row["extract"] = {"seconds": extract_s, "tiles": n_ext,
+                      "tiles_per_s": n_ext / extract_s,
+                      "bytes": sum(os.path.getsize(p) for p in tfrs)}
+
+    def read_all(**kw):
+        t0 = time.perf_counter()
+        batches = list(TileBatcher(tfrs, {}, hp.batch_size, shuffle=False,
+                                   tile_px=hp.tile_px, **kw))
+        return batches, time.perf_counter() - t0
+
+    default, default_s = read_all()
+    native, native_s = read_all(use_native=True)
+    for b, nb in zip(default, native):
+        check(b["image"].tobytes() == nb["image"].tobytes()
+              and b["slide"] == nb["slide"]
+              and np.array_equal(b["loc"], nb["loc"]),
+              "native and default batches bit for bit")
+    check(len(default) == len(native), "as many batches")
+    # The tiles are the heatmap's pixels: the same cells, and at dropout
+    # 0 the same probabilities within 2e-2.
+    decode = {"tiles": n_ext, "pillow_batcher_ms": default_s / n_ext * 1e3,
+              "native_batcher_ms": native_s / n_ext * 1e3}
+    offsets = [load_index(p) for p in tfrs]
+    threads = os.cpu_count() or 1
+    for nt in (1, threads):
+        t0 = time.perf_counter()
+        ok = sum(native_loader.native_read_decode_batch(
+            p, o, hp.tile_px, threads=nt)[4] for p, o in zip(tfrs, offsets))
+        decode[f"native_{nt}_threads_ms"] = ((time.perf_counter() - t0)
+                                             / n_ext * 1e3)
+        decode[f"native_{nt}_threads_decoded"] = int(ok)
+    raws = []
+    for p, o in zip(tfrs, offsets):
+        with open(p, "rb") as f:
+            raws += [read_example_at(f, int(off))["image_raw"] for off in o]
+
+    def pillow(raw):
+        return np.asarray(Image.open(io.BytesIO(raw)).convert("RGB"))
+
+    for nt in (1, threads):
+        with ThreadPoolExecutor(nt) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(pillow, raws))
+            decode[f"pillow_{nt}_threads_ms"] = ((time.perf_counter() - t0)
+                                                 / n_ext * 1e3)
+    decode["threads"] = threads
+    row["decode"] = decode
+
+    ui0 = UncertaintyInterface(model0_dir)
+
+    def score_native():
+        out = []
+        for b in TileBatcher(tfrs, {}, hp.batch_size, shuffle=False,
+                             tile_px=hp.tile_px, use_native=True):
+            p, _ = ui0(torch.from_numpy(b["image"]).cuda())
+            out.append((b, p.float().cpu().numpy()))
+        return out
+
+    scored, launches, secs = counted(score_native)
+    check_launches("scoring the extracted tiles", launches,
+                   {n: len(scored) for n in SERVING})
+    for name in SERVING:
+        path_launches[name] += launches[name]
+    err = 0.0
+    for b, p in scored:
+        for r in np.where(b["mask"])[0]:
+            if b["slide"][r] == "wsi0":
+                i, j = b["loc"][r]
+                err = max(err, float(np.abs(p[r] - hm0.logits[j, i]).max()))
+    check(err <= 2e-2, f"extracted tiles against the dropout-0 heatmap: "
+                       f"{err}")
+    row["score_extracted"] = {"seconds": secs, "batches": len(scored),
+                              "tiles_per_s": n_ext / secs,
+                              "vs_heatmap_max_abs_err": err}
+
+    # 5. GAN tiles: 512-px crops of the slides' tissue, resized on the
+    # card; rows 2-3 once a batch, row 1 never (float tiles).
+    rng = np.random.default_rng(SEED)
+    gan_paths = []
+    for s in range(SLIDE_COUNT):
+        gan_paths.append(os.path.join(tmp, f"gan{s}.tfrecords"))
+        lo, hi = int(SLIDE_PX * 0.3), int(SLIDE_PX * 0.7) - GAN_PX
+        with TFRecordWriter(gan_paths[-1]) as w:
+            for t in range(GAN_TILES // SLIDE_COUNT):
+                y, x = rng.integers(lo, hi, 2)
+                buf = io.BytesIO()
+                Image.fromarray(imgs[s][y:y + GAN_PX, x:x + GAN_PX]).save(
+                    buf, format="PNG")
+                w.write_tile(f"gan{s}", buf.getvalue(), loc_x=int(x),
+                             loc_y=int(y))
+    df, launches, secs = counted(lambda: score_gan_tiles(
+        model_dir, gan_paths, outcome=OUTCOME, batch_size=64,
+        gan_px=GAN_PX))
+    gan_batches = -(-GAN_TILES // 64)
+    check_launches("score_gan_tiles", launches,
+                   {"fused_middle_flow": gan_batches,
+                    "mcd_head": gan_batches})
+    for name in SERVING:
+        path_launches[name] += launches[name]
+    vals = df[[c for c in df.columns if c.startswith(f"{OUTCOME}_y_pred")
+               or c.startswith(f"{OUTCOME}_uncertainty")]].to_numpy()
+    check(len(df) == GAN_TILES and bool(np.isfinite(vals).all()),
+          "GAN frame: a finite row a tile")
+    sample = np.stack([imgs[0][y:y + GAN_PX, x:x + GAN_PX] for y, x in
+                       rng.integers(lo, hi, (16, 2))])
+    on_card = resize_batch(torch.from_numpy(sample).cuda(), hp.tile_px)
+    on_cpu = resize_batch(torch.from_numpy(sample), hp.tile_px)
+    resize_err = float((on_card.cpu() - on_cpu).abs().max())
+    check(resize_err <= 1e-3, f"resize on the card vs the CPU: {resize_err}")
+    row["gan"] = {"tiles": GAN_TILES, "seconds": secs,
+                  "tiles_per_s": GAN_TILES / secs,
+                  "launches": {n: launches[n] for n in SERVING},
+                  "resize_max_abs_err": resize_err, "resize_tol": 1e-3}
+
+    # 6. Mosaic: features of MOSAIC_TILES tiles a slide, no kernel.
+    (feats, meta, mtiles), launches, feat_s = counted(
+        lambda: generate_features(model_dir, tfrs, max_tiles=MOSAIC_TILES,
+                                  keep_tiles=True, k=K))
+    check_launches("generate_features", launches, {})
+    n_m = SLIDE_COUNT * MOSAIC_TILES
+    check(feats.shape == (n_m, 2048) and bool(np.isfinite(feats).all())
+          and mtiles.shape == (n_m, TILE_PX, TILE_PX, 3) and len(meta) == n_m,
+          "features of every tile")
+    t0 = time.perf_counter()
+    smap = slide_map_from_features(feats, meta, mtiles)
+    umap_s = time.perf_counter() - t0
+    smap.label_by_slide()
+    check(smap.coords.shape == (n_m, 2) and bool(np.isfinite(
+        smap.coords).all()) and sorted(set(smap.labels)) == [0.0, 1.0],
+          "slide map")
+    t0 = time.perf_counter()
+    canvas = generate_mosaic(feats, meta, mtiles, grid=10)
+    mosaic_s = time.perf_counter() - t0
+    check(canvas.shape == (10 * TILE_PX, 10 * TILE_PX, 3), "mosaic canvas")
+    row["mosaic"] = {"tiles": n_m, "features_s": feat_s,
+                     "embed_method": smap.embed_method, "embed_s": umap_s,
+                     "mosaic_s": mosaic_s,
+                     "cells_filled": int((canvas.reshape(
+                         10, TILE_PX, 10, TILE_PX, 3) != 255).any(
+                             axis=(1, 3, 4)).sum())}
+    for w in wsis:
+        w.close()
+    row["launches"] = path_launches
+    return row, path_launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2189,6 +2621,8 @@ def main(argv=None) -> int:
                          "UNIT_PASS_GEOMETRIES")
     ap.add_argument("--preprocess", action="store_true",
                     help="only row 1 and one request's preprocess stage")
+    ap.add_argument("--slide", action="store_true",
+                    help="only the build and phase slide")
     ap.add_argument("--root", help="import biscuit_torch from this checkout "
                                    "(with --unit-bwd-passes or --preprocess)")
     opts = ap.parse_args(argv)
@@ -2232,9 +2666,34 @@ def main(argv=None) -> int:
                            torch.Generator(device="cuda").manual_seed(SEED))
         return 0
 
+    import threading
+
+    from biscuit_torch.data import native_loader
+
+    # The native data plane builds with g++ while nvcc builds the kernels;
+    # loaded from here on, it also computes the tfrecord writers' CRC32C.
+    native = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            native_loader.load()
+        except BaseException as e:  # re-raised below, after nvcc
+            native["error"] = e
+        native["seconds"] = time.perf_counter() - t
+
+    native_thread = threading.Thread(target=build_native)
     t0 = time.perf_counter()
+    native_thread.start()
     _build.build_all()
+    native_thread.join()
+    if "error" in native:
+        raise native["error"]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "native_seconds": native["seconds"],
+          "native": {"library": str(native_loader.lib_path()),
+                     "capabilities": native_loader.capabilities(),
+                     "tiff_library": native_loader.tiff_library()},
           "ptxas": {name: [ln.strip() for ln in _build.build_log(name)
                            .splitlines() if "registers" in ln or "spill" in ln]
                     for name in _build.SOURCES}})
@@ -2245,6 +2704,11 @@ def main(argv=None) -> int:
         "fused_unit_bwd": ptxas_entries(
             _build.build_log("fused_unit_bwd"),
             ("UbDgradA", "UbWgradA", "ub_dw_bwd_kernel"))})
+
+    if opts.slide:
+        with tempfile.TemporaryDirectory() as tmp:
+            emit(slide_phase(torch, tmp, card)[0])
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -2295,11 +2759,15 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             ex_row, ex_launches = experiment_phase(torch, tmp, card)
         emit(ex_row)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        slide_row, slide_launches = slide_phase(torch, tmp, card)
+    emit(slide_row)
     launches["fused_block"] = fused_launches["fused_block"]
     launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
-    for phase_launches in (tp_launches, ex_launches):
+    for phase_launches in (tp_launches, ex_launches, slide_launches):
         for name, count in phase_launches.items():
             launches[name] += count
 

@@ -815,3 +815,84 @@ def test_experiment_run_on_the_card(gen, tmp_path):
     assert len(eval_dfs["ev"]) == 1
     for auc in list(df["slide_auc"]) + list(eval_dfs["ev"]["patient_auc"]):
         assert 0.0 <= auc <= 1.0
+
+
+def test_heatmap_on_the_card_matches_the_cpu(gen, tmp_path):
+    """``Heatmap`` of a 192-px JPEG tiled slide (6 x 6 positions of 32 px,
+    Otsu QC keeping the 24 tissue ones) at xception_tiny, batch 16, dropout
+    0, on the card and on the CPU: the same -99 mask, probabilities within
+    2e-2 (bf16 trunk and preprocess on the card, the f32 chain and the
+    module path on the CPU), std within 1e-3; on the card the preprocess,
+    middle-flow and MC-head kernels launch once a batch (2 batches). The
+    logits layer is set so the probabilities spread
+    (``chip_smoke.decisive_logits_``)."""
+    import numpy as np
+
+    from biscuit_torch.data.native_loader import write_tiled_tiff
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.data.slide import WSI
+    from biscuit_torch.heatmap import Heatmap
+    from biscuit_torch.hp import ModelParams
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.train.trainer import save_checkpoint
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+    from chip_smoke import decisive_logits_, init_random_
+
+    rng = np.random.default_rng(0)
+    img = rng.integers(236, 253, (192, 192, 3), dtype=np.uint8)
+    img[:, :128] = np.clip(np.array([170, 90, 140]) + rng.normal(
+        0, 30, (192, 128, 3)), 0, 255).astype(np.uint8)
+    slide = str(tmp_path / "hs.svs")
+    write_tiled_tiff(slide, img, tile=64, jpeg=True)
+    hp = ModelParams(model="xception_tiny", tile_px=32, tile_um=32,
+                     hidden_layer_width=32, dropout=0.0, uq=True,
+                     uq_samples=4)
+    model = build_model(hp)
+    init_random_(torch, model, 0)
+    tiles = np.stack([it["image"] for it in WSI(
+        slide, 32, 32, qc="otsu").build_generator()()])
+    norm = UncertaintyInterface.from_model(model, hp,
+                                           device="cpu").wsi_normalizer
+    with torch.no_grad():
+        feats = trunk_features(model, inference_preprocess(
+            torch.from_numpy(tiles), norm))
+    decisive_logits_(torch, model, feats)
+    model_dir = save_checkpoint(str(tmp_path / "models"), model, hp, 1,
+                                "cohort", "HM", None)
+    want = Heatmap(slide, model_dir, batch_size=16, qc="otsu", device="cpu")
+    before = _build.launch_counts()
+    got = Heatmap(slide, model_dir, batch_size=16, qc="otsu")
+    after = _build.launch_counts()
+    for name in after:
+        n = 2 if name in ("fused_preprocess", "fused_middle_flow",
+                          "mcd_head") else 0
+        assert after[name] - before[name] == n, name
+    unscored = want.logits[..., 1] == -99.0
+    assert unscored.sum() == 12
+    np.testing.assert_array_equal(got.logits[..., 1] == -99.0, unscored)
+    assert np.ptp(want.logits[~unscored, 1]) > 0.2
+    np.testing.assert_allclose(got.logits, want.logits, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(got.uncertainty, want.uncertainty, rtol=0,
+                               atol=1e-3)
+
+
+def test_resize_batch_on_the_card_matches_the_cpu(gen):
+    """The GAN path's 512 -> 299 resize on the card within 1e-3 (0-255
+    scale) of the CPU's, with TF32 allowed or not: the weights are made on
+    the CPU and the contractions run in f64 on both."""
+    import numpy as np
+
+    from biscuit_torch.gan import resize_batch
+
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (4, 512, 512, 3), dtype=np.uint8))
+    want = resize_batch(imgs, 299)
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            got = resize_batch(imgs.cuda(), 299)
+            assert got.is_cuda and got.dtype == torch.float32
+            assert (got.cpu() - want).abs().max().item() <= 1e-3
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -332,15 +332,49 @@ def test_configure_writes_the_jax_projects(tmp_path):
 
 
 def test_configure_extract_waits_for_item_4(tmp_path):
-    (tmp_path / "anns").mkdir()
-    pd.DataFrame({"slide": ["a"]}).to_csv(tmp_path / "anns" / "t.csv",
-                                          index=False)
-    res = CliRunner().invoke(port_configure.configure_projects, [
-        "--train_anns", str(tmp_path / "anns" / "t.csv"),
-        "--val_anns", str(tmp_path / "anns" / "t.csv"),
-        "--out", str(tmp_path / "projects")])
-    assert isinstance(res.exception, NotImplementedError)
-    assert "Queue 1 item 4" in str(res.exception)
+    """``configure --extract True`` (``--gan_extract False``) on two
+    annotated JPEG tiled slides a project writes, tile for tile and byte
+    for byte, the tfrecords the JAX CLI writes (Queue 1 item 4 is in)."""
+    from PIL import Image
+
+    from biscuit_torch.data.native_loader import write_tiled_tiff
+
+    rng = np.random.default_rng(0)
+    for part in ("train", "val"):
+        (tmp_path / part).mkdir()
+        for i in range(2):
+            img = np.full((96, 96, 3), 244, np.uint8)
+            img[:, :60] = rng.integers(60, 200, (96, 60, 3))
+            write_tiled_tiff(str(tmp_path / part / f"{part}{i}.svs"), img,
+                             tile=32, jpeg=True)
+        Image.fromarray(img).save(tmp_path / part / f"{part}x.png")
+        pd.DataFrame({"patient": [f"{part}P{i}" for i in range(2)],
+                      "slide": [f"{part}{i}" for i in range(2)],
+                      "cohort": ["LUAD", "LUSC"]}).to_csv(
+                          tmp_path / f"{part}.csv", index=False)
+    args = ["--train_slides", str(tmp_path / "train"),
+            "--val_slides", str(tmp_path / "val"),
+            "--train_anns", str(tmp_path / "train.csv"),
+            "--val_anns", str(tmp_path / "val.csv"),
+            "--tile_px", "32", "--tile_um", "32", "--mpp", "1.0",
+            "--qc", "otsu", "--gan_extract", "False"]
+    for name, mod in (("port", port_configure), ("jax", jax_configure)):
+        res = CliRunner().invoke(mod.configure_projects, args + [
+            "--out", str(tmp_path / name)])
+        assert res.exit_code == 0, (res.output, res.exception)
+    for proj, part in (("training", "train"), ("evaluation", "val")):
+        tfr = tmp_path / "port" / proj / "tfrecords" / "32px_32um"
+        assert sorted(os.listdir(tfr)) == sorted(
+            f"{part}{i}.tfrecords{s}" for i in range(2)
+            for s in ("", ".index.npy"))
+        for f in os.listdir(tfr):
+            got = (tfr / f).read_bytes()
+            assert got == (tmp_path / "jax" / proj / "tfrecords" /
+                           "32px_32um" / f).read_bytes()
+            assert len(got) > 0
+        rel = f"{proj}/extraction_report_32px.csv"
+        assert ((tmp_path / "port" / rel).read_bytes()
+                == (tmp_path / "jax" / rel).read_bytes())
 
 
 @pytest.mark.parametrize("s", ["1-6", "2,3", "4", "3-3", "1,5,6"])
@@ -401,13 +435,61 @@ def test_results_cli_writes_what_experiment_results_writes(cli_tree):
 
 
 @pytest.mark.parametrize("flag", ["--heatmap", "--umap"])
-def test_results_cli_heatmap_and_umap_wait_for_item_4(cli_tree, flag):
+def test_results_cli_heatmap_and_umap_wait_for_item_4(cli_tree, flag,
+                                                      tmp_path, monkeypatch):
+    """``--heatmap`` / ``--umap`` (Queue 1 item 4 is in) write the files
+    the JAX CLI writes, on the CPU. The tree has no EXP_AA models, so
+    both packages' ``find_model`` return one saved here (the tiny hp with
+    UQ, the port's initial weights) and their nested-CV thresholds a
+    fixed tile threshold. The tile export's file names carry each tile's
+    uncertainty, which the two packages' dropout streams draw apart: its
+    tiles are compared by slide and grid place."""
+    from PIL import Image
+
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.train.trainer import init_model, save_checkpoint
+    from biscuit_tpu.cli import results as jax_results
+
     train_P, eval_P, tmp, _ = cli_tree
-    res = CliRunner().invoke(port_results.show_results, [
-        "--train_project", train_P.root, "--eval_project", eval_P.root,
-        "--outdir", str(tmp / "hm"), flag, "True"])
-    assert isinstance(res.exception, NotImplementedError)
-    assert "Queue 1 item 4" in str(res.exception)
+    hp = tiny_hp(uq=True)
+    model = save_checkpoint(
+        str(tmp_path / "models"), init_model(
+            build_model(hp), hp, torch.Generator().manual_seed(0)), hp,
+        epoch=1, outcome="cohort", label="EXP_AA_FULL", kfold=None)
+    for mod in (port_utils, jax_utils):
+        monkeypatch.setattr(mod, "find_model", lambda *a, **k: model)
+    for cls in (port_experiment.Experiment, jax_experiment.Experiment):
+        monkeypatch.setattr(cls, "thresholds_from_nested_cv",
+                            lambda self, label: (None, {"tile_uq": 0.02}))
+    slide = str(tmp_path / "hs.png")
+    img = np.random.default_rng(1).integers(40, 200, (96, 96, 3),
+                                            dtype=np.uint8)
+    Image.fromarray(img).save(slide)
+    files = {}
+    for name, cmd, extra in (
+            ("port", port_results.show_results, ["--device", "cpu"]),
+            ("jax", jax_results.show_results, [])):
+        out = tmp_path / name
+        res = CliRunner().invoke(cmd, [
+            "--train_project", train_P.root, "--eval_project", eval_P.root,
+            "--outdir", str(out), "--reg", "False", "--heatmap_slide",
+            slide, flag, "True"] + extra)
+        assert res.exit_code == 0, (res.output, res.exception)
+        files[name] = sorted(
+            os.path.relpath(join(d, f), out).rsplit("-", 1)[0]
+            if "uq_" in d else os.path.relpath(join(d, f), out)
+            for d, _, fs in os.walk(out) for f in fs)
+    assert files["port"] == files["jax"]
+    want = (["feature_cache.npz", "mosaic.png", "umap_logits.png",
+             "umap_slide.png", "umap_uncertainty.png"] if flag == "--umap"
+            else 9)
+    if flag == "--umap":
+        assert files["port"] == want
+    else:
+        assert sum(f.startswith("tiles/uq_") for f in files["port"]) == want
+        assert {f for f in files["port"] if not f.startswith("tiles/")} == {
+            f"heatmap_{k}/hs-{m}.png" for k in ("raw", "masked")
+            for m in ("preds", "uncertainty")}
 
 
 def test_train_cli_refuses_submeshes_and_needs_a_card(cli_tree, tmp_path):
