@@ -8,9 +8,10 @@ slides); the JAX package stays the reference it is tested against.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 the hand-written kernels under ``csrc/`` are built at first use
 (``ops/_build.py``), and so is the native data plane under
-``csrc/native/``, with g++ (``data/native_loader.py``). ``Experiment`` (the 6-step protocol,
-``experiment.py``) loads on first access, so that importing the package
-imports no pandas.
+``csrc/native/``, with g++ (``data/native_loader.py``). ``Experiment``
+(the 6-step protocol, ``experiment.py``) and ``serve`` (the single-file
+servables) load on first access, so that importing the package imports
+no pandas.
 """
 
 from .device import resolve_device  # noqa: F401
@@ -21,4 +22,8 @@ def __getattr__(name):
         from .experiment import Experiment
 
         return Experiment
+    if name == "serve":
+        import importlib
+
+        return importlib.import_module(".serve", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

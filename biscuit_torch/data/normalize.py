@@ -132,14 +132,16 @@ def per_image_standardization(x: torch.Tensor) -> torch.Tensor:
 def inference_preprocess(images_u8: torch.Tensor, normalizer):
     """uint8 tile batch -> model input for the inference paths. A uint8
     CUDA batch with the reinhard_fast normalizer goes through the fused
-    kernel (``ops/fused_preprocess.py``, bf16 out); everything else takes
-    the exact f32 chain."""
+    kernel (``ops/fused_preprocess.py``, through its registered op, bf16
+    out); everything else takes the exact f32 chain."""
     if (images_u8.is_cuda
             and type(normalizer) is ReinhardFastNormalizer
             and images_u8.dtype == torch.uint8):
-        from ..ops.fused_preprocess import fused_preprocess
+        from ..ops import library
+        from ..ops.fused_preprocess import coefficients
 
-        return fused_preprocess(images_u8, normalizer)
+        return library.fused_preprocess(
+            images_u8, coefficients(normalizer, images_u8.device))
     x = images_u8.float()
     if normalizer is not None:
         x = normalizer(x)

@@ -11,10 +11,10 @@ scored (QC or ROI), the attributes the reference masks for Figure 5
 Tiles are read on the host (``data/slide.py``) and stream in batches
 through the port's ``UncertaintyInterface`` on ``device`` (the card
 unless ``device="cpu"``): on the card the preprocess, middle-flow and MC
-head kernels, once a batch. Each batch draws its dropout from the
-interface's per-call seed stream, where the JAX package splits a key a
-batch. Servable artifacts (``*.biscuit``) are not ported yet (ROADMAP.md
-Queue 1 item 6) and raise.
+head kernels, once a batch. ``model`` may also be a servable artifact
+(``serve.py``), which then scores the batches at its exported batch size.
+Each batch draws its dropout from the interface's per-call seed stream,
+where the JAX package splits a key a batch.
 """
 
 from __future__ import annotations
@@ -28,36 +28,39 @@ import numpy as np
 from .data.slide import WSI
 from .utils_log import log
 
-SERVABLE_MAGIC = b"BISCUIT-SERVABLE\n"
-
-
-def is_servable_artifact(path) -> bool:
-    """True if ``path`` is a servable container (the JAX package's
-    ``serve.is_servable_artifact``: the magic bytes, whatever the name)."""
-    if not isinstance(path, (str, os.PathLike)) or not os.path.isfile(path):
-        return False
-    try:
-        with open(path, "rb") as f:
-            return f.read(len(SERVABLE_MAGIC)) == SERVABLE_MAGIC
-    except OSError:
-        return False
-
-
-def refuse_servable(model) -> None:
-    if is_servable_artifact(model):
-        raise NotImplementedError(
-            f"{model} is a servable artifact; the port's servables "
-            "(serve.py) are not ported yet (ROADMAP.md Queue 1 item 6): "
-            "pass the model directory")
-
-
 def _load_interface(model: str, k: Optional[int], device):
-    """(interface, tile_px, tile_um) of a saved model directory."""
+    """(callable, tile_px, tile_um) from a model dir or a servable
+    artifact (``serve.py``; sniffed by its magic, whatever its name). Both
+    keep the ``UncertaintyInterface`` call contract, so grid inference
+    runs from either."""
+    from .serve import is_servable_artifact
+
+    if is_servable_artifact(model):
+        from .serve import load_servable
+
+        sv = load_servable(model, device=device)
+        if k is not None and k != sv.k:
+            raise ValueError(
+                f"k={k} requested but the artifact bakes K={sv.k}; "
+                "re-export with the wanted k")
+        if sv.tile_um is None:
+            raise ValueError(
+                "the artifact records no tile_um; re-export it (or use a "
+                "model dir)")
+        return sv, sv.tile_px, sv.tile_um
     from .train.uq import UncertaintyInterface
 
-    refuse_servable(model)
     interface = UncertaintyInterface(model, k=k, device=device)
     return interface, interface.hp.tile_px, interface.hp.tile_um
+
+
+def _auto_batch(batch_size, interface, default: int = 64) -> int:
+    """``batch_size=None``: an artifact's exported static batch (a smaller
+    one would pad every call up to it), else ``default``."""
+    if batch_size is not None:
+        return batch_size
+    exported = getattr(interface, "batch_size", None)
+    return int(exported) if exported else default
 
 
 class _GridScorer:
@@ -120,7 +123,7 @@ def export_tiles_by_uncertainty(
     This is the reference's Figure-5 tile loop (results.py:234-265):
     normalizer -> standardization -> K-pass MC dropout -> route by the
     tile uncertainty threshold, in batches of ``batch_size`` (64 by
-    default) on ``device``.
+    default, an artifact's own batch for an artifact) on ``device``.
 
     Returns (n_included, n_excluded).
     """
@@ -134,7 +137,7 @@ def export_tiles_by_uncertainty(
     os.makedirs(excl_dir, exist_ok=True)
 
     n_incl = n_excl = 0
-    scorer = _GridScorer(interface, batch_size or 64)
+    scorer = _GridScorer(interface, _auto_batch(batch_size, interface))
     try:
         for imgs, locs, _probs, unc in scorer.batches(wsi, max_tiles):
             for img, (i, j), u in zip(imgs, locs, unc[:, 1]):
@@ -171,10 +174,12 @@ class Heatmap:
 
         Args:
             slide: path to the whole-slide image.
-            model: path to a saved `..._epoch{E}` model dir.
+            model: path to a saved `..._epoch{E}` model dir, or a servable
+                artifact (``serve.export_servable``).
             stride_div: grid stride divisor (1 = non-overlapping).
-            batch_size: tiles a batch (64 by default); the last batch is
-                padded with zero tiles.
+            batch_size: tiles a batch (64 by default, an artifact's own
+                batch for an artifact); the last batch is padded with
+                zero tiles.
             device: where the model runs (the card unless "cpu").
 
         ``timings`` holds the tiles, the batches, and in seconds the
@@ -194,7 +199,8 @@ class Heatmap:
         self.logits = np.full((gy, gx, n_classes), -99.0, np.float32)
         self.uncertainty = np.full((gy, gx, 1), -99.0, np.float32)
 
-        scorer = _GridScorer(self.interface, batch_size or 64)
+        scorer = _GridScorer(self.interface,
+                             _auto_batch(batch_size, self.interface))
         for _imgs, locs, probs, unc in scorer.batches(self.wsi):
             for (i, j), p, u in zip(locs, probs, unc):
                 self.logits[j, i] = p

@@ -8,14 +8,15 @@ and render a mosaic of representative tiles. Label hooks match the
 reference: ``label_by_logits``, ``label_by_uncertainty``,
 ``label_by_slide``.
 
-``generate_features`` keeps the JAX package's routing: the module trunk
-(no fused middle flow) and the module MC head, after the plain
-preprocess chain, so it launches none of the port's kernels.
+``generate_features`` keeps the JAX package's routing: from a model
+dir, the module trunk (no fused middle flow) and the module MC head,
+after the plain preprocess chain, so it launches none of the port's
+kernels; from a servable artifact (``serve.py``) or a loaded
+``Servable``, the artifact's feature program, at its exported batch.
 
 Embedding backend: umap-learn when importable, else the vendored minimal
 UMAP (:mod:`biscuit_torch.stats.umap_lite`), with PCA as a loud last
-resort — non-UMAP artifacts are suffixed ``_pca``. Servable artifacts
-are not ported yet (ROADMAP.md Queue 1 item 6) and raise.
+resort — non-UMAP artifacts are suffixed ``_pca``.
 """
 
 from __future__ import annotations
@@ -125,8 +126,13 @@ def generate_features(
     k: int = 8,
     device=None,
 ):
-    """Penultimate-activation dump + per-tile UQ predictions of a saved
-    model directory, on ``device`` (the card unless ``device="cpu"``).
+    """Penultimate-activation dump + per-tile UQ predictions, on
+    ``device`` (the card unless ``device="cpu"``).
+
+    ``model_path`` is a saved model directory, a servable artifact path
+    (exported with ``with_features=True``) or a loaded
+    ``serve.Servable``; from an artifact, ``batch_size`` and ``k`` are
+    the exported ones (a different ``k`` is logged and ignored).
 
     Returns (features (N, F), meta list, tiles or None). Features come from
     the deterministic trunk; probs/uncertainty from the K-pass MC head,
@@ -134,11 +140,8 @@ def generate_features(
     """
     import torch
 
-    from .data.normalize import make_normalizer, per_image_standardization
     from .data.pipeline import TileBatcher
-    from .heatmap import refuse_servable
-    from .train.trainer import load_checkpoint
-    from .train.uq import mc_dropout_head
+    from .serve import Servable, is_servable_artifact
 
     if cache and os.path.exists(cache):
         blob = np.load(cache, allow_pickle=True)
@@ -146,26 +149,52 @@ def generate_features(
             blob["tiles"] if "tiles" in blob.files else None
         )
 
-    refuse_servable(model_path)
-    model, hp, _meta = load_checkpoint(model_path, device)
-    dev = next(model.parameters()).device
-    normalizer = make_normalizer(hp.normalizer)
+    servable = None
+    if isinstance(model_path, Servable):
+        servable = model_path
+    elif is_servable_artifact(model_path):
+        from .serve import load_servable
 
-    def step(imgs, seed):
-        with torch.inference_mode():
-            x = torch.from_numpy(imgs).to(dev).float()
-            if normalizer is not None:
-                x = normalizer(x)
-            x = per_image_standardization(x)
-            feats = model.features(x)
-            mean, std = mc_dropout_head(model, feats, seed, k=k,
-                                        use_kernel=False)
-            return (feats.float().cpu().numpy(),
-                    mean.float().cpu().numpy(), std.float().cpu().numpy())
+        servable = load_servable(str(model_path), device=device)
+    if servable is not None:
+        if not servable.has_features:
+            raise ValueError(
+                "this servable artifact carries no feature program; "
+                "re-export with export_servable(..., with_features=True)")
+        if k != servable.features_k:
+            log.info(f"the artifact's feature head runs k="
+                     f"{servable.features_k} (k={k} ignored)")
+        batch_size, tile_px = servable.batch_size, servable.tile_px
+
+        def step(imgs, seed):
+            outs = servable.features_exact(torch.from_numpy(imgs), seed=seed)
+            return tuple(o.float().cpu().numpy() for o in outs)
+    else:
+        from .data.normalize import make_normalizer, per_image_standardization
+        from .train.trainer import load_checkpoint
+        from .train.uq import mc_dropout_head
+
+        model, hp, _meta = load_checkpoint(model_path, device)
+        dev = next(model.parameters()).device
+        normalizer = make_normalizer(hp.normalizer)
+        tile_px = hp.tile_px
+
+        def step(imgs, seed):
+            with torch.inference_mode():
+                x = torch.from_numpy(imgs).to(dev).float()
+                if normalizer is not None:
+                    x = normalizer(x)
+                x = per_image_standardization(x)
+                feats = model.features(x)
+                mean, std = mc_dropout_head(model, feats, seed, k=k,
+                                            use_kernel=False)
+                return (feats.float().cpu().numpy(),
+                        mean.float().cpu().numpy(),
+                        std.float().cpu().numpy())
 
     batcher = TileBatcher(
         tfrecords, {}, batch_size=batch_size, shuffle=False, infinite=False,
-        max_tiles=max_tiles, tile_px=hp.tile_px,
+        max_tiles=max_tiles, tile_px=tile_px,
     )
     feats_all, meta, tiles_all = [], [], []
     try:

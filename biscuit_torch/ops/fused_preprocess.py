@@ -188,15 +188,27 @@ def max_active_clusters(plan: Plan, device=None) -> int:
     return fit.value
 
 
+def _normalizer_of(coef: torch.Tensor):
+    """The normalizer whose targets ``coef`` (``coefficients``) holds."""
+    from ..data.normalize import ReinhardFastNormalizer
+
+    tail = coef[-6:].tolist()
+    return ReinhardFastNormalizer(tail[:3], tail[3:])
+
+
 def fused_preprocess(x_u8: torch.Tensor, normalizer=None,
-                     out_dtype=torch.bfloat16) -> torch.Tensor:
+                     out_dtype=torch.bfloat16, coef=None) -> torch.Tensor:
     """uint8 (N, H, W, 3) tiles -> stain-normalized, standardized
     (N, H, W, 3) activations. ``normalizer`` supplies the target lαβ
-    statistics (default targets when None). On the card the output is
-    bf16; on the CPU the plain version returns ``out_dtype``."""
+    statistics (default targets when None), or ``coef`` gives them as
+    ``coefficients``' tensor on the tiles' device (the registered op's
+    form). On the card the output is bf16; on the CPU the plain version
+    returns ``out_dtype``."""
     if x_u8.ndim != 4 or x_u8.shape[-1] != 3:
         raise ValueError(f"expected (N, H, W, 3) tiles, got {tuple(x_u8.shape)}")
     if not x_u8.is_cuda:
+        if coef is not None:
+            normalizer = _normalizer_of(coef)
         return fused_preprocess_reference(x_u8, normalizer, out_dtype)
     if x_u8.dtype != torch.uint8:
         raise TypeError(f"fused_preprocess takes uint8 tiles, got {x_u8.dtype}")
@@ -205,6 +217,13 @@ def fused_preprocess(x_u8: torch.Tensor, normalizer=None,
     x = x_u8.contiguous()
     n, h, w, _ = x.shape
     plan = launch_plan(n, h, w)
+    if coef is None:
+        coef = coefficients(normalizer, x.device)
+    elif (coef.device != x.device or coef.shape != (42,)
+          or coef.dtype != torch.float32 or not coef.is_contiguous()):
+        raise ValueError(f"coef must be the 42 f32 coefficients on "
+                         f"{x.device}, got {tuple(coef.shape)} {coef.dtype} "
+                         f"on {coef.device}")
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    _launch(x, out, coefficients(normalizer, x.device), plan)
+    _launch(x, out, coef, plan)
     return out

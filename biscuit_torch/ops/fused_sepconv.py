@@ -144,29 +144,29 @@ def trunk_features_fused(model, x, mid_wts=None, fuse_blocks: bool = False,
     through ``fused_strided_block``, then the exit sepconvs and pool.
     ``mid_wts`` and ``block_wts`` are ``stack_middle_weights``'s result
     and the list of ``stack_block_weights`` results of
-    ``fused_block.trunk_blocks``, computed here when None."""
+    ``fused_block.trunk_blocks``, computed here when None. The kernels
+    run through their registered ops (``ops/library.py``), so that this
+    composition traces into an exported program as it runs live."""
     from ..models.xception import ARCHS
+    from . import library
 
     if mid_wts is None:
         mid_wts = stack_middle_weights(
             model.backbone, ARCHS[model.arch]["middle_repeats"])
     if not fuse_blocks:
         h = model.trunk_entry(x)
-        h = fused_middle_flow(h, *mid_wts)
+        h = library.fused_middle_flow(h, *mid_wts)
         return model.trunk_exit(h)
 
-    from .fused_block import (
-        fused_strided_block,
-        stack_block_weights,
-        trunk_blocks,
-    )
+    from .fused_block import stack_block_weights, trunk_blocks
 
     blocks = trunk_blocks(model.backbone)
     if block_wts is None:
         block_wts = [stack_block_weights(b) for b in blocks]
     h = model.trunk_stem(x).contiguous()
     for blk, wts in zip(blocks[:-1], block_wts[:-1]):
-        h = fused_strided_block(h, wts, blk.relu_first)
-    h = fused_middle_flow(h, *mid_wts)
-    h = fused_strided_block(h, block_wts[-1], blocks[-1].relu_first)
+        h = library.fused_strided_block(h, list(wts), int(blk.relu_first))
+    h = library.fused_middle_flow(h, *mid_wts)
+    h = library.fused_strided_block(h, list(block_wts[-1]),
+                                    int(blocks[-1].relu_first))
     return model.trunk_exit_tail(h)

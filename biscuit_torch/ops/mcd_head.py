@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -46,8 +47,9 @@ def _mulhilo(a: int, b: torch.Tensor):
     return (p1 >> 32) + (p2 >> 16) + (t >> 32), t & _MASK32
 
 
-def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
-    """Philox4x32-10 on int64 tensors holding uint32 counters."""
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding uint32 counters; the key
+    words are ints or 0-d int64 tensors."""
     for r in range(10):
         if r:
             k0 = (k0 + _W0) & _MASK32
@@ -58,11 +60,28 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def philox_dropout_bits(seed: int, k: int, layer: int, n: int, h: int,
+def seed_tensor(seed: int) -> torch.Tensor:
+    """A 64-bit dropout seed as the 0-d int64 CPU tensor the registered
+    head op and the exported programs take: the bit pattern, wrapped to
+    signed where the top bit is set (``key_halves`` masks it back)."""
+    seed = int(seed) & ((1 << 64) - 1)
+    return torch.tensor(seed - (1 << 64) if seed >> 63 else seed,
+                        dtype=torch.int64)
+
+
+def key_halves(seed):
+    """(low, high) 32-bit halves of a seed given as an int or as a 0-d
+    int64 tensor holding its bit pattern (ints or 0-d tensors out)."""
+    return seed & _MASK32, (seed >> 32) & _MASK32
+
+
+def philox_dropout_bits(seed, k: int, layer: int, n: int, h: int,
                         device=None) -> torch.Tensor:
     """(K, N, H) int64 draws in [0, 2**32) of the kernel's dropout stream:
     counter (col // 4, row, pass, layer), key (seed & 0xFFFFFFFF, seed >>
-    32), word col % 4."""
+    32), word col % 4. ``seed`` is an int or a 0-d int64 tensor
+    (``seed_tensor``) on the CPU, so that an exported program takes it as
+    an input."""
     dev = torch.device("cpu") if device is None else device
     kk = torch.arange(k, device=dev).view(k, 1, 1)
     rr = torch.arange(n, device=dev).view(1, n, 1)
@@ -72,7 +91,7 @@ def philox_dropout_bits(seed: int, k: int, layer: int, n: int, h: int,
                           kk.expand(shape),
                           torch.full(shape, layer, dtype=torch.int64,
                                      device=dev),
-                          seed & _MASK32, (seed >> 32) & _MASK32)
+                          *key_halves(seed))
     return torch.stack(words, dim=-1).reshape(k, n, -1)[..., :h]
 
 
@@ -81,8 +100,9 @@ def _threshold(dropout: float) -> int:
 
 
 def _keep_scale(dropout: float) -> float:
-    # f32(1 / (1 - rate)), the TPU kernel's weakly typed constant.
-    return float(torch.tensor(1.0 / (1.0 - dropout), dtype=torch.float32))
+    # f32(1 / (1 - rate)), the TPU kernel's weakly typed constant (numpy,
+    # not a tensor, so that tracing it for an export reads no tensor).
+    return float(np.float32(1.0 / (1.0 - dropout)))
 
 
 def head_weights(head):
@@ -98,11 +118,12 @@ def head_weights(head):
 
 
 def mcd_head_reference(feats, w1, b1, w2, b2, w3, b3, k: int = 30,
-                       dropout: float = 0.1, seed: int | None = 0,
+                       dropout: float = 0.1, seed=0,
                        keep1=None, keep2=None):
     """Plain version. Masks: explicit boolean keep-masks ``keep1``/``keep2``
     of shape (K, N, H) when given, else the kernel's Philox stream from
-    ``seed``; at dropout 0 nothing is dropped."""
+    ``seed`` (an int or a 0-d int64 tensor); at dropout 0 nothing is
+    dropped."""
     n = feats.shape[0]
     hdim = w1.shape[1]
     f = feats.float().to(torch.bfloat16).float()
@@ -144,14 +165,16 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
 
 
 def mcd_head(feats, w1, b1, w2, b2, w3, b3, k: int = 30,
-             dropout: float = 0.1, seed: int = 0):
+             dropout: float = 0.1, seed=0):
     """K-pass MC-dropout head over pooled features.
 
     Args:
         feats: (N, F) f32 pooled backbone features.
         w1 (F, H), w2 (H, H), w3 (H, C): bf16 weights, (in, out) layout.
         b1, b2 (H,), b3 (C,): f32 biases.
-        seed: 64-bit key of the Philox dropout stream.
+        seed: 64-bit key of the Philox dropout stream, an int or a 0-d
+            int64 CPU tensor (``seed_tensor``; read on the host, which
+            does not wait for the card).
     Returns:
         (mean (N, C), std (N, C)) of the softmax over k samples, f32.
     """
@@ -182,16 +205,18 @@ def mcd_head(feats, w1, b1, w2, b2, w3, b3, k: int = 30,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     dev = feats.device
-    out = torch.empty((2, n, c), dtype=torch.float32, device=dev)
+    # Two allocations, so that neither output is a view of the other.
+    mean = torch.empty((n, c), dtype=torch.float32, device=dev)
+    std = torch.empty_like(mean)
     scratch = torch.empty(_build.bound(
         NAME, "mcd_head_scratch_bytes", [ctypes.c_int] * 2,
         ctypes.c_size_t)(n, hdim), dtype=torch.uint8, device=dev)
     rc = _build.bound(NAME, "mcd_head_launch", _ARGTYPES)(
         *(_build.ptr(x) for x in (feats, w1, b1, w2, b2, w3, b3)),
-        out.data_ptr(), out.data_ptr() + n * c * 4, scratch.data_ptr(), n, f,
-        hdim, c, k, seed & _MASK32, (seed >> 32) & _MASK32,
+        mean.data_ptr(), std.data_ptr(), scratch.data_ptr(), n, f,
+        hdim, c, k, *(int(h) for h in key_halves(seed)),
         _threshold(dropout), _keep_scale(dropout), dev.index or 0,
         _build.stream_ptr(feats))
     _build.check(rc, NAME)
     _build.count_launch(NAME)
-    return out[0], out[1]
+    return mean, std

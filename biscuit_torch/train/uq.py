@@ -11,13 +11,16 @@ Backends: on the card the middle flow goes through the fused kernel
 (``ops/mcd_head.py``) when its shape fits the kernel
 (``head_kernel_applicable``; other heads run the module head);
 ``fused_trunk=False`` / ``use_kernel=False`` pick the library-conv middle
-flow and the module head instead. On the CPU the
-defaults are the module paths, as the JAX package defaults to XLA off the
-TPU; passing ``True`` runs the kernels' plain versions. ``fuse_blocks``
-(default False, as the JAX package without ``BISCUIT_FUSED_BLOCKS=1``)
-opts into the fully fused trunk, whose entry and exit blocks go through
-the fused strided-block kernel (``ops/fused_block.py``); it implies the
-fused trunk. The opt-in int8 trunk is not ported yet.
+flow and the module head instead. The kernels run through their
+registered ops (``ops/library.py``), as in an exported servable
+(``serve.py``), whose plain head is ``mc_dropout_head_philox``. On the
+CPU the defaults are the module paths, as the JAX package defaults to
+XLA off the TPU; passing ``True`` runs the kernels' plain versions.
+``fuse_blocks`` (default False, as the JAX package without
+``BISCUIT_FUSED_BLOCKS=1``) opts into the fully fused trunk, whose entry
+and exit blocks go through the fused strided-block kernel
+(``ops/fused_block.py``); it implies the fused trunk. The opt-in int8
+trunk is not ported yet.
 """
 
 from __future__ import annotations
@@ -74,18 +77,57 @@ def mc_dropout_head(model, feats, seed: int = 0, k: int = 30,
     if use_kernel is None:
         use_kernel = head_kernel_applicable(model.head, feats.is_cuda)
     if use_kernel:
-        from ..ops.mcd_head import head_weights, mcd_head
+        from ..ops import library
+        from ..ops.mcd_head import head_weights, seed_tensor
 
         if head_wts is None:
             head_wts = head_weights(model.head)
-        return mcd_head(feats.float().contiguous(), *head_wts, k=k,
-                        dropout=model.dropout, seed=seed)
+        if not isinstance(seed, torch.Tensor):
+            seed = seed_tensor(seed)
+        return library.mcd_head(feats.float().contiguous(), list(head_wts),
+                                seed, k, float(model.dropout))
     gen = torch.Generator(device=feats.device).manual_seed(seed)
     probs = torch.stack([
         torch.softmax(model.head_logits(feats, mc_dropout=True,
                                         generator=gen), dim=-1)
         for _ in range(k)
     ])
+    return probs.mean(dim=0), probs.std(dim=0, correction=0)
+
+
+def mc_dropout_head_philox(model, feats, seed, k: int = 30, head_wts=None):
+    """The K head passes with every dropout mask drawn from the MC head
+    kernel's Philox stream (``ops/mcd_head.philox_dropout_bits``) keyed by
+    ``seed``, an int or a 0-d int64 CPU tensor: the plain head of an
+    exported program, where a ``torch.Generator`` cannot be an input. A
+    head of the kernel's shape runs the kernel's plain version (its masks
+    and bf16 roundings); any other runs the module head's f32 arithmetic,
+    hidden layer i masked by the stream's layer i. -> (mean, std)."""
+    from ..ops.mcd_head import (
+        _threshold,
+        head_weights,
+        mcd_head_reference,
+        philox_dropout_bits,
+    )
+
+    head = model.head
+    if head_kernel_applicable(head, True):
+        if head_wts is None:
+            head_wts = head_weights(head)
+        return mcd_head_reference(feats, *head_wts, k=k,
+                                  dropout=head.dropout, seed=seed)
+    h = feats.float()
+    keep = 1.0 - head.dropout
+    for i in range(head.hidden_layers):
+        h = torch.relu(getattr(head, f"hidden{i}")(h))
+        if head.dropout > 0:
+            drawn = philox_dropout_bits(seed, k, i, h.shape[-2], h.shape[-1],
+                                        h.device)
+            h = torch.where(drawn >= _threshold(head.dropout), h / keep,
+                            torch.zeros_like(h))
+    probs = torch.softmax(head.logits(h), dim=-1)
+    if probs.ndim == 2:                 # no dropout: every pass is the same
+        probs = probs.expand(k, *probs.shape)
     return probs.mean(dim=0), probs.std(dim=0, correction=0)
 
 

@@ -69,6 +69,30 @@ def tile_predictions_frame(outcome, df, probs, unc) -> pd.DataFrame:
     return out
 
 
+def scored_tile_rows(batcher, score_fn):
+    """Drive a TileBatcher-like iterator through ``score_fn`` (``batch ->
+    (probs, unc or None)``, numpy) and assemble the mask-stripped triple
+    ``(rows_df, probs, unc)`` behind :func:`tile_predictions_frame`, as
+    ``serve.predict_tfrecords`` writes it."""
+    rows = {"slide": [], "loc_x": [], "loc_y": [], "y_true": []}
+    probs_all, unc_all = [], []
+    for batch in batcher:
+        probs, unc = score_fn(batch)
+        m = np.asarray(batch["mask"])
+        probs_all.append(np.asarray(probs)[m])
+        if unc is not None:
+            unc_all.append(np.asarray(unc)[m])
+        for i in np.where(m)[0]:
+            rows["slide"].append(batch["slide"][i])
+            rows["loc_x"].append(int(batch["loc"][i, 0]))
+            rows["loc_y"].append(int(batch["loc"][i, 1]))
+            rows["y_true"].append(int(batch["label"][i]))
+    probs = (np.concatenate(probs_all) if probs_all
+             else np.zeros((0, 2), np.float32))
+    return (pd.DataFrame(rows), probs,
+            np.concatenate(unc_all) if unc_all else None)
+
+
 def rename_cols(df, outcome, *, y_true=None, y_pred=None, uncertainty=None):
     """Rename outcome-prefixed prediction columns to canonical names, in
     place. Supports both dash and underscore separators (utils.py:31-53)."""

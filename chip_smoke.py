@@ -5,6 +5,7 @@
     python3 chip_smoke.py --unit-bwd-passes [--root CHECKOUT]
     python3 chip_smoke.py --preprocess [--root CHECKOUT]
     python3 chip_smoke.py --slide
+    python3 chip_smoke.py --serve
 
 The second form only profiles the unit backward pass by pass at
 UNIT_PASS_GEOMETRIES (one line a geometry), the third only times the
@@ -12,7 +13,8 @@ preprocess kernel (row 1) and one request's preprocess stage, and the
 kernel at PREPROCESS_VARIANTS too where the checkout's plan takes a
 cluster size (one line); both import ``biscuit_torch`` from CHECKOUT when given (to
 time another checkout's kernels in the same call). The fourth builds and
-runs phase slide alone (one line). The first form runs
+runs phase slide alone (one line), the fifth phase serve alone (a line an
+artifact, then the phase's). The first form runs
 these phases, each printing one JSON line:
 
 1. env: torch/CUDA versions and ``nvidia-smi`` name and power limit (also
@@ -143,10 +145,32 @@ these phases, each printing one JSON line:
    card's resize within 1e-3 of the CPU's); ``generate_features`` of
    MOSAIC_TILES tiles a slide (no launch), the slide map and a 10 x 10
    mosaic.
+   serve: servables (``serve.py``, ``torch.export``) of hp.nature2022 at
+   K, seeded LeCun weights, ``decisive_logits_`` over the tissue tiles of
+   a SERVE_SLIDE_PX slide, saved at dropout 0.1 and 0: four artifacts at
+   batch TILES, each exported, loaded and timed over SERVE_REQUESTS
+   requests (a line each: export s, bytes, load s, tiles/s, host s a
+   request to the call's return): (a) the kernels' ops, default trunk,
+   with the feature program; (b) the kernels with ``fuse_blocks=True``;
+   (a0) as (a) from the dropout-0 save; (c) portable, exported on the
+   CPU and moved to the card, from the dropout-0 save. The live
+   ``UncertaintyInterface`` (both trunks) answers the same requests at
+   the same seeds beside them; (a) and (b) must equal it bit for bit,
+   repeat a seed and differ between two seeds; launches zeroed before
+   and read after each request (rows 1-3 once, row 4 four times in (b),
+   none in (c)); at dropout 0 (c) within 2e-2 of (a0) on the tissue
+   tiles (spread > 0.2); ``predict_tfrecords`` over phase predict's
+   tiles, written again (rows 1-3 once a batch; columns, rows, labels);
+   ``Heatmap`` of the slide from (a0) within 2e-2 of the model dir's;
+   the device time by kernel of one request of (a), (b) and the live
+   interface (``kernel_profile``);
+   ``generate_features`` from (a) (rows 1-3 once a batch). Phases main
+   and main_fused_blocks time a kernel's call through its registered op
+   against its wrapper (``op_dispatch``).
 6. the kernels line (launches: the serving phases for kernels 1-4, the
    depthwise entry phase, the training phase, with phases
-   train_project's, experiment's and slide's added to kernels 1-3 and
-   6); 7. the last line ``{"ok": true, "device": ...}``.
+   train_project's, experiment's, slide's and serve's added to kernels
+   1-4 and 6); 7. the last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. It needs one CUDA card; without one it exits 1 at once.
@@ -233,6 +257,8 @@ SLIDE_TIFF_TILE = 256
 GAN_TILES = 128
 GAN_PX = 512
 MOSAIC_TILES = 100
+SERVE_REQUESTS = 3    # counted requests a servable, and of the live paths
+SERVE_SLIDE_PX = 3000  # phase serve's slide: 9 x 9 positions at 302 um
 
 
 def emit(obj) -> None:
@@ -1117,6 +1143,20 @@ def main_path(torch, hp, model, requests, n_requests: int, card: str):
           "published configuration")
     outs, secs, launches = serve(torch, ui, requests, n_requests,
                                  {name: 1 for name in SERVING})
+    with torch.inference_mode():
+        from biscuit_torch.ops import library
+        from biscuit_torch.ops.mcd_head import seed_tensor
+
+        feats = torch.randn((TILES, 2048), device="cuda", generator=torch
+                            .Generator(device="cuda").manual_seed(SEED))
+        seed_t = seed_tensor(SEED)
+        dispatch = op_dispatch(
+            torch, lambda: library.mcd_head(feats, list(ui._head_wts), seed_t,
+                                            K, ui.model.dropout),
+            lambda: mcd_head(feats, *ui._head_wts, k=K,
+                             dropout=ui.model.dropout, seed=seed_t),
+            (), len(SERVING), secs)
+        del feats
     stage_ms = stage_breakdown(torch, ui, requests[1])
     prof = kernel_profile(torch, lambda: ui(requests[1]))
 
@@ -1145,7 +1185,7 @@ def main_path(torch, hp, model, requests, n_requests: int, card: str):
         "mean_of_std": outs[0][1].mean(0).tolist(),
         "features_max_abs_err": feat_err, "features_tol": 3e-2 * feat_scale,
         "features_max_abs": feat_scale, "dropout0_mean_max_abs_err": head_err,
-        "stage_ms": stage_ms, "profile": prof,
+        "op_dispatch": dispatch, "stage_ms": stage_ms, "profile": prof,
     }, launches
 
 
@@ -1216,6 +1256,21 @@ def main_fused_blocks(torch, hp, model, requests, n_requests: int,
     per_request = {name: 1 for name in SERVING}
     per_request["fused_block"] = BLOCKS_PER_REQUEST
     outs, secs, launches = serve(torch, ui, requests, n_requests, per_request)
+    with torch.inference_mode():
+        from biscuit_torch.ops import library
+        from biscuit_torch.ops.fused_block import fused_strided_block
+
+        x = torch.randn((TILES, 19, 19, 728), device="cuda", generator=torch
+                        .Generator(device="cuda").manual_seed(SEED)).to(
+                            torch.bfloat16)
+        exit_wts, relu = ui._block_wts[-1], trunk_blocks(
+            model.backbone)[-1].relu_first
+        dispatch = op_dispatch(
+            torch, lambda: library.fused_strided_block(x, list(exit_wts),
+                                                       int(relu)),
+            lambda: fused_strided_block(x, exit_wts, relu), (),
+            len(SERVING) + BLOCKS_PER_REQUEST, secs)
+        del x
     stage_ms = stage_breakdown_fused(torch, ui, requests[1])
     prof = kernel_profile(torch, lambda: ui(requests[1]))
 
@@ -1257,7 +1312,7 @@ def main_fused_blocks(torch, hp, model, requests, n_requests: int,
         "features_vs_default_max_abs_err": default_err,
         "features_vs_default_tol": 3e-2 * default_scale,
         "dropout0_mean_max_abs_err": head_err,
-        "stage_ms": stage_ms, "profile": prof,
+        "op_dispatch": dispatch, "stage_ms": stage_ms, "profile": prof,
     }, launches
 
 
@@ -2611,6 +2666,283 @@ def slide_phase(torch, tmp: str, card: str):
     return row, path_launches
 
 
+def serve_phase_on_predict_tiles(torch, tmp: str, card: str):
+    """Phase serve over phase predict's tiles, written again into
+    tfrecords under ``tmp`` (the same seed, so the same tiles)."""
+    import os
+
+    tiles = smooth_tiles(len(PREDICT_LABELS) * PREDICT_TILES, SEED)
+    paths, labels, _ = write_tfrecords(tiles, os.path.join(tmp, "tfr"))
+    del tiles
+    return serve_phase(torch, tmp, paths, labels, card)
+
+
+def op_dispatch(torch, op, direct, args, ops_a_request: int,
+                request_s, calls: int = 50) -> dict:
+    """Host time a call of a serving kernel through its registered op
+    (``ops/library.py``, the live path's route) and through its wrapper
+    directly, each over ``calls`` calls enqueued without a synchronize,
+    alternated twice (op, direct, direct, op); and what the difference
+    costs a request of ``ops_a_request`` op calls, in % of the median
+    request."""
+    runs = {"op": [], "direct": []}
+    for name in ("op", "direct", "direct", "op"):
+        fn = op if name == "op" else direct
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        runs[name].append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    op_us, direct_us = min(runs["op"]), min(runs["direct"])
+    return {"op_us": op_us, "direct_us": direct_us,
+            "ops_a_request": ops_a_request,
+            "overhead_pct": (op_us - direct_us) * ops_a_request
+            / (statistics.median(request_s) * 1e6) * 100}
+
+
+def serve_phase(torch, tmp: str, tfrecords, labels, card: str):
+    """Servables on the card (see the docstring, phase serve). Returns
+    (row, launches of rows 1-4 over the phase's counted runs)."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from biscuit_torch import serve as sv_mod
+    from biscuit_torch.data import native_loader
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.data.normalize import make_normalizer
+    from biscuit_torch.data.slide import WSI
+    from biscuit_torch.heatmap import Heatmap
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.mosaic import generate_features
+    from biscuit_torch.ops import _build
+    from biscuit_torch.train.trainer import save_checkpoint
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _build.launch_counts(), time.perf_counter() - t0
+
+    path_launches = {name: 0 for name in _build.KERNELS}
+
+    def check_launches(what, launches, per_kernel):
+        for name, count in launches.items():
+            want = per_kernel.get(name, 0)
+            check(count == want, f"{what}: {count} {name} launches, "
+                                 f"expected {want}")
+            path_launches[name] += count
+
+    row = {"phase": "serve", "card": card, "tiles_per_request": TILES,
+           "requests": SERVE_REQUESTS, "k": K}
+    # A slide for the heatmaps and the dropout-0 comparisons, and the
+    # model: seeded LeCun weights, its logits set from the plain features
+    # of the slide's tissue tiles so that the probabilities spread; saved
+    # at dropout 0.1 and 0.
+    slide = os.path.join(tmp, "serve_wsi.svs")
+    native_loader.write_tiled_tiff(slide, he_slide(SEED + 5, SERVE_SLIDE_PX),
+                                   tile=SLIDE_TIFF_TILE, jpeg=True)
+    hp = dataclasses.replace(nature2022_params(), uq=True, uq_samples=K)
+    hp0 = dataclasses.replace(hp, dropout=0.0)
+    tissue = np.stack([it["image"] for it in WSI(
+        slide, hp.tile_px, hp.tile_um, qc="otsu").build_generator()()])
+    check(32 <= len(tissue) <= TILES, f"{len(tissue)} tissue tiles")
+    model = build_model(hp)
+    init_random_(torch, model, SEED)
+    model = model.cuda().eval()
+    with torch.inference_mode():
+        feats = trunk_features(model, inference_preprocess(
+            torch.from_numpy(tissue).cuda().float(),
+            make_normalizer(hp.normalizer)), False)
+    decisive_logits_(torch, model, feats)
+    del feats
+    model_dir = save_checkpoint(os.path.join(tmp, "serve_models"), model,
+                                hp, 1, OUTCOME, "serve", None)
+    model0_dir = save_checkpoint(os.path.join(tmp, "serve_models"), model,
+                                 hp0, 1, OUTCOME, "serve0", None)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    requests = [torch.randint(0, 256, (TILES, TILE_PX, TILE_PX, 3),
+                              generator=gen, device="cuda",
+                              dtype=torch.uint8)
+                for _ in range(SERVE_REQUESTS + 1)]
+    seeds = [(SEED << 32) | i for i in range(SERVE_REQUESTS)]
+
+    def timed(call):
+        """Warm up on the last request, then the counted requests at
+        ``seeds``, the launch counts zeroed before each and read after:
+        (outputs, host seconds a request to the end of its synchronize,
+        host seconds to the call's return, launches a request)."""
+        call(requests[-1], 99)
+        torch.cuda.synchronize()
+        outs, secs, enq, launches = [], [], [], []
+        for tiles, seed in zip(requests, seeds):
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs.append(call(tiles, seed))
+            enq.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches.append(_build.launch_counts())
+        return outs, secs, enq, launches
+
+    # The live interface, both trunks, on the same requests and seeds.
+    live = {}
+    for fuse in (False, True):
+        ui = UncertaintyInterface.from_model(model, hp, device="cuda",
+                                             seed=SEED, fuse_blocks=fuse)
+        outs, secs, enq, _ = timed(lambda t, s: ui(t, seed=s))
+        live[fuse] = outs
+        row["live_fuse_blocks" if fuse else "live"] = {
+            "request_s": secs, "host_s": enq,
+            "tiles_per_s": TILES * len(secs) / sum(secs),
+            "profile": kernel_profile(torch, lambda: ui(requests[1],
+                                                        seed=seeds[1]),
+                                      top=20)}
+    del ui
+
+    specs = (("a", model_dir, dict(with_features=True)),
+             ("b", model_dir, dict(fuse_blocks=True, with_features=False)),
+             ("a0", model0_dir, dict(with_features=False)),
+             ("c", model0_dir, dict(use_kernels=False, device="cpu",
+                                    platforms=["cuda", "cpu"],
+                                    with_features=False)))
+    per_request = {"a": {n: 1 for n in SERVING}, "b": {n: 1 for n in SERVING},
+                   "a0": {n: 1 for n in SERVING}, "c": {}}
+    per_request["b"]["fused_block"] = BLOCKS_PER_REQUEST
+    servables, arts = {}, {}
+    for name, src, kw in specs:
+        t0 = time.perf_counter()
+        path = sv_mod.export_servable(
+            src, os.path.join(tmp, f"{name}.biscuit"), batch_size=TILES,
+            k=K, **kw)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sv = sv_mod.load_servable(path)
+        load_s = time.perf_counter() - t0
+        check(sv.device.type == "cuda", f"artifact {name} serves on the card")
+        outs, secs, enq, launches = timed(
+            lambda t, s: sv.call_exact(t, seed=s))
+        for i, got in enumerate(launches):
+            check_launches(f"artifact {name}, request {i}", got,
+                           per_request[name])
+        art = {"export_s": export_s, "bytes": os.path.getsize(path),
+               "programs": sorted(sv.header["programs"]), "load_s": load_s,
+               "request_s": secs, "host_s": enq,
+               "tiles_per_s": TILES * len(secs) / sum(secs),
+               "use_kernels": sv.header["use_kernels"],
+               "fuse_blocks": sv.header["fuse_blocks"],
+               "platforms": list(sv.platforms),
+               "launches_a_request": {n: c for n, c in launches[0].items()
+                                      if c}}
+        for mean, std in outs:
+            check(tuple(mean.shape) == tuple(std.shape) == (TILES, 2),
+                  f"artifact {name}: output shape")
+            check(bool(torch.isfinite(mean).all() and torch.isfinite(std)
+                       .all()), f"artifact {name}: finite outputs")
+            check(float((mean.sum(-1) - 1).abs().max()) <= 1e-3,
+                  f"artifact {name}: rows sum to 1")
+        if name in ("a", "b"):
+            # The live interface at the same seeds: the same kernels on
+            # the same inputs, so bit for bit.
+            err = max(float((g - w).abs().max())
+                      for o, lo in zip(outs, live[name == "b"])
+                      for g, w in zip(o, lo))
+            check(err == 0.0, f"artifact {name} vs the live interface: "
+                              f"max abs err {err}")
+            again = sv.call_exact(requests[0], seed=seeds[0])
+            other = sv.call_exact(requests[0], seed=seeds[0] + 1)
+            check(all(torch.equal(x, y) for x, y in zip(again, outs[0])),
+                  f"artifact {name}: one seed, equal outputs")
+            check(not torch.equal(other[0], outs[0][0]),
+                  f"artifact {name}: two seeds, different outputs")
+            art["vs_live_max_abs_err"] = err
+            art["mean_of_std"] = outs[0][1].mean(0).tolist()
+            art["profile"] = kernel_profile(
+                torch, lambda: sv.call_exact(requests[1], seed=seeds[1]),
+                top=20)
+        row[name] = art
+        servables[name], arts[name] = sv, path
+        emit({"phase": "serve_artifact", "artifact": name, **art})
+    del live, requests
+
+    # Dropout 0: the portable artifact (c) against the kernels' (a0) on
+    # the slide's tissue tiles, whose probabilities spread.
+    m0 = servables["a0"](tissue, seed=0)[0].cpu().numpy()
+    mc = servables["c"](tissue, seed=0)[0].cpu().numpy()
+    spread = float(np.ptp(m0[:, 1]))
+    err_c = float(np.abs(mc - m0).max())
+    check(spread > 0.2, f"dropout-0 probabilities spread {spread} <= 0.2")
+    check(err_c <= 2e-2, f"dropout 0: artifact c vs a0, max abs err {err_c}")
+    row.update(c_vs_a0_max_abs_err=err_c, dropout0_ptp=spread,
+               dropout0_tol=2e-2)
+
+    # predict_tfrecords over phase predict's tfrecords: rows 1-3 once a
+    # batch of TILES.
+    n = len(PREDICT_LABELS) * PREDICT_TILES
+    n_batches = -(-n // TILES)
+    df, launches, secs = counted(lambda: sv_mod.predict_tfrecords(
+        servables["a"], tfrecords, labels=labels, outcome=OUTCOME,
+        seed=SEED))
+    check_launches("predict_tfrecords", launches,
+                   {k: n_batches for k in SERVING})
+    check(list(df.columns) == [
+        "slide", "loc_x", "loc_y", f"{OUTCOME}_y_true0",
+        f"{OUTCOME}_y_pred0", f"{OUTCOME}_y_pred1",
+        f"{OUTCOME}_uncertainty0", f"{OUTCOME}_uncertainty1"],
+        f"predict_tfrecords columns {list(df.columns)}")
+    check(len(df) == n and list(df.slide) == [
+        f"slide{i // PREDICT_TILES}" for i in range(n)],
+        "predict_tfrecords rows in tfrecord order")
+    check(np.array_equal(df[f"{OUTCOME}_y_true0"].to_numpy(),
+                         np.repeat(PREDICT_LABELS, PREDICT_TILES)),
+          "predict_tfrecords y_true")
+    probs = df[[f"{OUTCOME}_y_pred0", f"{OUTCOME}_y_pred1"]].to_numpy()
+    check(bool(np.isfinite(probs).all())
+          and float(np.abs(probs.sum(1) - 1).max()) <= 1e-3,
+          "predict_tfrecords probabilities")
+    row["predict_tfrecords"] = {"tiles": n, "batches": n_batches,
+                                "seconds": secs, "tiles_per_s": n / secs}
+
+    # Heatmaps of the slide at dropout 0: from artifact a0 (one batch of
+    # TILES) and from the model dir (batches of 64).
+    hm_a, launches, secs_a = counted(lambda: Heatmap(slide, arts["a0"],
+                                                     qc="otsu"))
+    check_launches("Heatmap from artifact a0", launches,
+                   {k: hm_a.timings["batches"] for k in SERVING})
+    hm_d, launches, secs_d = counted(lambda: Heatmap(slide, model0_dir,
+                                                     qc="otsu"))
+    check_launches("Heatmap from the model dir", launches,
+                   {k: hm_d.timings["batches"] for k in SERVING})
+    check(np.array_equal(hm_a.logits == -99, hm_d.logits == -99),
+          "heatmap masks")
+    err_hm = float(np.abs(hm_a.logits - hm_d.logits).max())
+    check(err_hm <= 2e-2, f"heatmap from artifact vs model dir: {err_hm}")
+    row["heatmap"] = {"tiles": hm_a.timings["tiles"],
+                      "artifact_s": secs_a, "model_dir_s": secs_d,
+                      "artifact_batches": hm_a.timings["batches"],
+                      "model_dir_batches": hm_d.timings["batches"],
+                      "max_abs_err": err_hm, "tol": 2e-2}
+
+    # Features from artifact a: rows 1-3 once a batch.
+    (feats, meta, _), launches, secs = counted(lambda: generate_features(
+        servables["a"], tfrecords, max_tiles=PREDICT_TILES))
+    check_launches("generate_features from artifact a", launches,
+                   {k: n_batches for k in SERVING})
+    check(feats.shape == (n, 2048) and bool(np.isfinite(feats).all())
+          and len(meta) == n, f"features {feats.shape}")
+    row["features"] = {"tiles": n, "seconds": secs,
+                       "features_k": servables["a"].features_k}
+    row["launches"] = path_launches
+    return row, path_launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2623,6 +2955,8 @@ def main(argv=None) -> int:
                     help="only row 1 and one request's preprocess stage")
     ap.add_argument("--slide", action="store_true",
                     help="only the build and phase slide")
+    ap.add_argument("--serve", action="store_true",
+                    help="only the build and phase serve")
     ap.add_argument("--root", help="import biscuit_torch from this checkout "
                                    "(with --unit-bwd-passes or --preprocess)")
     opts = ap.parse_args(argv)
@@ -2709,6 +3043,10 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             emit(slide_phase(torch, tmp, card)[0])
         return 0
+    if opts.serve:
+        with tempfile.TemporaryDirectory() as tmp:
+            emit(serve_phase_on_predict_tiles(torch, tmp, card)[0])
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -2763,11 +3101,17 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         slide_row, slide_launches = slide_phase(torch, tmp, card)
     emit(slide_row)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_row, serve_launches = serve_phase_on_predict_tiles(torch, tmp,
+                                                                 card)
+    emit(serve_row)
     launches["fused_block"] = fused_launches["fused_block"]
     launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
-    for phase_launches in (tp_launches, ex_launches, slide_launches):
+    for phase_launches in (tp_launches, ex_launches, slide_launches,
+                           serve_launches):
         for name, count in phase_launches.items():
             launches[name] += count
 

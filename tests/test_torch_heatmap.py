@@ -2,7 +2,9 @@
 the CPU: ``Heatmap`` and ``export_tiles_by_uncertainty`` (over a tiled
 JPEG slide), ``umap_lite``, ``generate_features`` / ``generate_mosaic`` /
 ``SlideMap``, the GAN path (``resize_batch``, ``score_gan_tiles``,
-``add_gan_annotations``) and ``utils.truncate_colormap``.
+``add_gan_annotations``) and ``utils.truncate_colormap``; and the
+heatmap, tile export and feature dump from a servable artifact against
+the model dir's.
 
 One set of weights for both packages: an ``xception_tiny`` model in f32
 (32 px, 2 x 32 head, K=4, reinhard_fast), initialized by the port, its BN
@@ -185,15 +187,49 @@ def test_export_tiles_by_uncertainty(env, dropout):
 
 
 def test_servable_paths_raise_naming_item_6(env, tmp_path):
-    _, _, slide, tfrs, _ = env
-    art = tmp_path / "m.biscuit"
-    art.write_bytes(port_heatmap.SERVABLE_MAGIC + b"\x00" * 16)
-    for call in (lambda: port_heatmap.Heatmap(slide, str(art)),
-                 lambda: port_heatmap.export_tiles_by_uncertainty(
-                     slide, str(art), 0.1, str(tmp_path)),
-                 lambda: port_mosaic.generate_features(str(art), tfrs)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            call()
+    """Servable artifacts are ported (ROADMAP.md Queue 1 item 6): the
+    heatmap, the tile export and the feature dump from a portable artifact
+    of the dropout-0 model give the model dir's results. The artifact's
+    preprocess and trunk are the model dir's f32 path, so the features
+    are equal; its head is the MC head's plain version, whose bf16
+    operands move the probabilities by up to 1e-3 here, hence 2e-3 (one
+    flipped bf16 rounding, as ``tests/test_torch_mcd_head.py``); at
+    dropout 0 both uncertainties are 0."""
+    from biscuit_torch import serve
+
+    _, models, slide, tfrs, _ = env
+    art = serve.export_servable(models[0.0], str(tmp_path / "m.bin"),
+                                batch_size=16, use_kernels=False,
+                                device="cpu")
+    assert not art.endswith(".biscuit")       # found by its magic
+    kw = dict(qc="otsu", device="cpu")
+    got = port_heatmap.Heatmap(slide, art, **kw)
+    want = port_heatmap.Heatmap(slide, models[0.0], batch_size=16, **kw)
+    assert got.timings["batches"] == want.timings["batches"] == 2
+    np.testing.assert_array_equal(got.logits == -99, want.logits == -99)
+    np.testing.assert_allclose(got.logits, want.logits, rtol=0, atol=2e-3)
+    np.testing.assert_allclose(got.uncertainty, want.uncertainty, rtol=0,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="bakes K=4"):
+        port_heatmap.Heatmap(slide, art, k=8, **kw)
+
+    n = [port_heatmap.export_tiles_by_uncertainty(
+        slide, src, 0.01, str(tmp_path / name), **kw)
+        for name, src in (("art", art), ("dir", models[0.0]))]
+    assert n[0] == n[1] == (24, 0)
+    assert (sorted(os.listdir(tmp_path / "art" / "uq_incl"))
+            == sorted(os.listdir(tmp_path / "dir" / "uq_incl")))
+
+    f, meta, _ = port_mosaic.generate_features(art, tfrs, max_tiles=20,
+                                               device="cpu")
+    jf, jmeta, _ = port_mosaic.generate_features(
+        models[0.0], tfrs, max_tiles=20, batch_size=16, k=8, device="cpu")
+    assert f.shape == jf.shape == (20, 128)
+    np.testing.assert_array_equal(f, jf)
+    for m, j in zip(meta, jmeta):
+        assert (m["slide"], m["loc"]) == (j["slide"], j["loc"])
+        np.testing.assert_allclose(m["probs"], j["probs"], rtol=0,
+                                   atol=2e-3)
 
 
 @pytest.mark.parametrize("n,dim", [(2, 8), (40, 12), (90, 64)])

@@ -896,3 +896,130 @@ def test_resize_batch_on_the_card_matches_the_cpu(gen):
             assert (got.cpu() - want).abs().max().item() <= 1e-3
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def test_registered_ops_pass_opcheck_on_the_card(gen):
+    """The four serving kernels' registered ops (``ops/library.py``) on
+    CUDA tensors: schema, fake tensors, autograd registration and AOT
+    dispatch, each running the kernel."""
+    from biscuit_torch.ops import library
+    from biscuit_torch.ops.fused_block import stack_block_weights
+    from biscuit_torch.ops.fused_preprocess import coefficients
+    from biscuit_torch.ops.mcd_head import seed_tensor
+    from biscuit_torch.models.xception import XceptionBlock
+
+    x = torch.randint(0, 256, (2, 37, 37, 3), dtype=torch.uint8,
+                      device="cuda", generator=gen)
+    torch.library.opcheck(library.fused_preprocess, (
+        x, coefficients(ReinhardFastNormalizer(), "cuda")))
+    u, c = 3, 32
+    torch.library.opcheck(library.fused_middle_flow, (
+        torch.randn(2, 9, 9, c, device="cuda", generator=gen).to(
+            torch.bfloat16),
+        torch.randn(u, 9, c, device="cuda", generator=gen),
+        (torch.randn(u, c, c, device="cuda", generator=gen) * 0.1).to(
+            torch.bfloat16),
+        torch.rand(u, c, device="cuda", generator=gen) + 0.5,
+        torch.randn(u, c, device="cuda", generator=gen) * 0.1))
+    block = XceptionBlock(16, (32, 32), relu_first=True).cuda().eval()
+    torch.library.opcheck(library.fused_strided_block, (
+        torch.randn(2, 9, 9, 16, device="cuda", generator=gen).to(
+            torch.bfloat16), list(stack_block_weights(block)), 1))
+    head = Head(64, 2, 2, 32, 0.25).cuda()
+    torch.library.opcheck(library.mcd_head, (
+        torch.randn(5, 64, device="cuda", generator=gen),
+        list(head_weights(head)), seed_tensor((1 << 63) + 5), 4, 0.25))
+
+
+def _servable_model_dir(tmp_path, dropout):
+    """xception_tiny (bf16, 32 px, 2 x 32 head, K=4) with seeded random
+    weights, its logits spread over random tiles, saved as a model dir;
+    and 16 random tiles."""
+    import numpy as np
+
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.hp import ModelParams
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.train.trainer import save_checkpoint
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+    from chip_smoke import decisive_logits_, init_random_
+
+    hp = ModelParams(model="xception_tiny", tile_px=32, tile_um=32,
+                     hidden_layer_width=32, dropout=dropout, uq=True,
+                     uq_samples=4)
+    model = build_model(hp)
+    init_random_(torch, model, 0)
+    tiles = np.random.default_rng(0).integers(0, 256, (16, 32, 32, 3),
+                                              dtype=np.uint8)
+    norm = UncertaintyInterface.from_model(model, hp,
+                                           device="cpu").wsi_normalizer
+    with torch.no_grad():
+        feats = trunk_features(model, inference_preprocess(
+            torch.from_numpy(tiles), norm))
+    decisive_logits_(torch, model, feats)
+    return save_checkpoint(str(tmp_path / f"m{dropout}"), model, hp, 1,
+                           "cohort", "SV", None), tiles
+
+
+@pytest.mark.parametrize("fuse_blocks", [False, True])
+def test_kernels_artifact_equals_the_live_interface(gen, tmp_path,
+                                                    fuse_blocks):
+    """A servable exported on the card (``use_kernels=None`` puts the
+    kernels' ops in it) against ``UncertaintyInterface`` on the same model
+    dir at the same seeds, dropout 0.25: equal bit for bit (the same
+    kernels see the same inputs); rows 1-3 launch once a call, the
+    strided block 4 times with ``fuse_blocks``."""
+    from biscuit_torch import serve
+    from biscuit_torch.train.uq import UncertaintyInterface
+
+    model_dir, tiles = _servable_model_dir(tmp_path, 0.25)
+    path = serve.export_servable(model_dir, str(tmp_path / "a.biscuit"),
+                                 batch_size=16, fuse_blocks=fuse_blocks)
+    sv = serve.load_servable(path)
+    assert sv.device.type == "cuda" and sv.header["use_kernels"] is True
+    live = UncertaintyInterface(model_dir, fuse_blocks=fuse_blocks)
+    for seed in (3, (1 << 63) | 7):
+        before = _build.launch_counts()
+        got = sv.call_exact(tiles, seed=seed)
+        after = _build.launch_counts()
+        for name in after:
+            want = 1 if name in ("fused_preprocess", "fused_middle_flow",
+                                 "mcd_head") else 0
+            if fuse_blocks and name == "fused_block":
+                want = 4
+            assert after[name] - before[name] == want, name
+        want = live(tiles, seed=seed)
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w)
+    assert float(got[1].mean()) > 0
+    assert not torch.equal(sv.call_exact(tiles, seed=4)[0], got[0])
+    with pytest.raises(ValueError, match="runs on"):
+        serve.load_servable(path, device="cpu")
+
+
+def test_portable_artifact_on_the_card_matches_the_cpu(gen, tmp_path):
+    """A portable servable (``use_kernels=False``) exported on the CPU,
+    loaded on the card (moved there) and on the CPU, at dropout 0: the
+    card's means within 2e-2 of the CPU's (cuDNN's and the CPU's f32
+    convs in another order) over a spread of 0.2 or more, std within
+    1e-3; no kernel launches."""
+    import numpy as np
+
+    from biscuit_torch import serve
+
+    model_dir, tiles = _servable_model_dir(tmp_path, 0.0)
+    path = serve.export_servable(model_dir, str(tmp_path / "c.biscuit"),
+                                 batch_size=16, use_kernels=False,
+                                 platforms=["cuda", "cpu"], device="cpu",
+                                 with_features=False)
+    cpu = serve.load_servable(path, device="cpu")
+    card = serve.load_servable(path)
+    assert card.device.type == "cuda"
+    want = cpu.call_exact(tiles, seed=2)
+    before = _build.launch_counts()
+    got = card.call_exact(tiles, seed=2)
+    assert _build.launch_counts() == before
+    assert got[0].is_cuda
+    assert np.ptp(want[0][:, 1].numpy()) > 0.2
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=2e-2)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=1e-3)
