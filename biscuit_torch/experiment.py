@@ -506,6 +506,9 @@ class Experiment:
                 "plot": False,
                 "patients": patients,
             }
+        # The device statistics backend runs where the trainings do.
+        threshold_params = {"device": self.train_kwargs.get("device"),
+                            **threshold_params}
         all_tile_uq, all_slide_uq, all_slide_pred = [], [], []
         df = pd.DataFrame()
         for k in range(1, outer_k + 1):
@@ -546,7 +549,8 @@ class Experiment:
             def uq_auc_by_level(level):
                 results, _ = threshold.apply(
                     tile_pred_df.copy(), plot=False, patients=patients,
-                    level=level, **thresholds,
+                    level=level, device=threshold_params["device"],
+                    **thresholds,
                 )
                 return results["auc"], results["percent_incl"]
 
@@ -805,6 +809,7 @@ class Experiment:
                                     keep=keep,
                                     patients=val_patients,
                                     level=level,
+                                    device=self.train_kwargs.get("device"),
                                 )
 
                             s_res, _ = by_level("slide")

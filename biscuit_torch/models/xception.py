@@ -3,6 +3,9 @@
 Counterpart of ``biscuit_tpu/models/xception.py``: the same architecture
 presets, module names and stage seams, so a Flax parameter tree maps onto
 this module's ``state_dict`` name for name (``models/convert.py``).
+``build_model`` is the ``hp.model`` registry: these presets and the
+ResNet family of ``models/resnet.py`` (the classifier's backbone), and an
+unknown name falls back to 'xception' with a warning.
 
 Public functions and stage seams take and return NHWC tensors, as the
 JAX package does; inside, activations are NCHW views with channels-last
@@ -276,18 +279,24 @@ class XceptionClassifier(nn.Module):
                  dropout: float = 0.1,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if arch not in ARCHS:
+        from .resnet import RESNET_ARCHS, ResNetBackbone
+
+        if arch in ARCHS:
+            backbone = XceptionBackbone(arch, compute_dtype)
+        elif arch in RESNET_ARCHS:
+            backbone = ResNetBackbone(arch, compute_dtype)
+        else:
             raise ValueError(f"Unknown architecture {arch!r}; the port has "
-                             f"{sorted(ARCHS)}")
+                             f"{available_models()}")
         self.arch = arch
         self.num_classes = num_classes
         self.hidden_layers = hidden_layers
         self.hidden_width = hidden_width
         self.dropout = dropout
         self.compute_dtype = compute_dtype
-        self.backbone = XceptionBackbone(arch, compute_dtype)
-        self.head = Head(ARCHS[arch]["exit_convs"][-1], num_classes,
-                         hidden_layers, hidden_width, dropout)
+        self.backbone = backbone
+        self.head = Head(_feature_width(arch), num_classes, hidden_layers,
+                         hidden_width, dropout)
 
     def forward(self, x, mc_dropout: bool = False, generator=None):
         return self.head(self.features(x), mc_dropout, generator)
@@ -296,6 +305,8 @@ class XceptionClassifier(nn.Module):
         """Deterministic pooled f32 features of NHWC tiles."""
         return self.backbone(_nchw(x))
 
+    # The stage seams below are the Xception trunk's (its fused kernels'
+    # composition points); a ResNet backbone has none of them.
     def trunk_stem(self, x):
         """Entry convs only: tiles -> first entry-block input (NHWC)."""
         return _nhwc(self.backbone.stem(_nchw(x)))
@@ -321,10 +332,37 @@ class XceptionClassifier(nn.Module):
         return self.head(feats, mc_dropout, generator)
 
 
+def available_models():
+    """All registered backbone names (the hp.model selection surface)."""
+    from .resnet import RESNET_ARCHS
+
+    return sorted(ARCHS) + sorted(RESNET_ARCHS)
+
+
+def _feature_width(arch: str) -> int:
+    if arch in ARCHS:
+        return ARCHS[arch]["exit_convs"][-1]
+    from .resnet import resnet_feature_dim
+
+    return resnet_feature_dim(arch)
+
+
 def build_model(hp) -> XceptionClassifier:
-    """Model factory from a ModelParams (``hp.model`` names the arch)."""
+    """Model factory from a ModelParams: ``hp.model`` selects the backbone,
+    and an unknown name falls back to the published 'xception' with a
+    warning, as in the JAX package."""
+    if hp.model in available_models():
+        arch = hp.model
+    else:
+        from ..utils_log import log
+
+        log.warning(
+            f"Unknown model {hp.model!r}; falling back to 'xception'. "
+            f"Registered backbones: {available_models()}"
+        )
+        arch = "xception"
     return XceptionClassifier(
-        arch=hp.model,
+        arch=arch,
         num_classes=2,
         hidden_layers=hp.hidden_layers,
         hidden_width=hp.hidden_layer_width,
@@ -332,3 +370,10 @@ def build_model(hp) -> XceptionClassifier:
         compute_dtype=torch.bfloat16 if hp.compute_dtype == "bfloat16"
         else torch.float32,
     )
+
+
+def feature_dim(hp) -> int:
+    """Penultimate (backbone) feature width for the configured arch (the
+    fallback's, 'xception', for an unknown name)."""
+    return _feature_width(hp.model if hp.model in available_models()
+                          else "xception")

@@ -101,7 +101,9 @@ class _Program(torch.nn.Module):
                 self.register_buffer("coef",
                                      coefficients(normalizer, dev).clone())
             self.mid_wts = self.block_wts = self.head_wts = None
-            if use_kernels:
+            # The fused middle flow is Xception's; a ResNet program holds
+            # the preprocess and head ops only.
+            if use_kernels and model.arch in ARCHS:
                 from .ops.fused_sepconv import stack_middle_weights
 
                 self.mid_wts = self._hold("mid", stack_middle_weights(
@@ -143,7 +145,7 @@ class _Program(torch.nn.Module):
         from .train.uq import mc_dropout_head, mc_dropout_head_philox
 
         x = self.preprocess(tiles)
-        if self.use_kernels:
+        if self.mid_wts is not None:
             from .ops.fused_sepconv import trunk_features_fused
 
             blocks = (None if self.block_wts is None
@@ -228,6 +230,11 @@ def export_servable(
         raise ValueError("fuse_blocks=True runs the strided-block kernel; "
                          "it cannot be combined with use_kernels=False")
     model, hp, meta = load_checkpoint(model_path, dev)
+    from .models.xception import ARCHS
+
+    if fuse_blocks and model.arch not in ARCHS:
+        raise ValueError(f"fuse_blocks=True runs Xception's strided blocks; "
+                         f"{model.arch!r} has none")
     k = int(k if k is not None else hp.uq_samples)
     normalizer = make_normalizer(hp.normalizer)
     tiles = torch.zeros((batch_size, hp.tile_px, hp.tile_px, 3),

@@ -1,5 +1,5 @@
 """Uncertainty thresholds: derive them from cross-validated tile
-predictions and apply them to an external cohort, on the host.
+predictions and apply them to an external cohort.
 
 The port's copy of the host path of ``biscuit_tpu/threshold.py`` (the
 reference BISCUIT's ``threshold.py``): ``process_tile_predictions``,
@@ -15,8 +15,18 @@ raising, and ``apply(..., tile_uq=None)`` skips the tile filter.
 the numpy LOESS ``_loess_smooth``) where the JAX package draws it;
 matplotlib and seaborn are imported only then.
 
-Not ported yet: the device statistics backend (``backend="device"``
-raises; ROADMAP.md Queue 1 item 8).
+``detect``, ``apply`` and ``from_cv`` (through its keywords) take
+``backend`` ("host", "device" or None) and ``device``. The device backend
+(:mod:`biscuit_torch.ops.threshold_device`, on
+:mod:`biscuit_torch.ops.roc_device`) runs the tile-level searches and the
+tile->group reduction on ``device``, the card unless the caller passes
+``device="cpu"`` (without a card it raises, naming both ways out), and
+gives the host's thresholds. ``backend=None`` dispatches as the JAX
+package does: ``BISCUIT_DEVICE_STATS=1/0`` forces either way, else frames
+of at least ``BISCUIT_DEVICE_STATS_MIN_ROWS`` rows (default 1,000,000, the
+JAX package's default; ``PERF.md`` §5 has the H100's crossover) go to the
+device, except ``detect(..., plot=True)``, whose figure needs the host
+frame.
 """
 
 from __future__ import annotations
@@ -40,14 +50,29 @@ __all__ = [
 _FLOAT_TYPES = (float, np.float16, np.float32, np.float64)
 
 
-def _host_only(backend) -> None:
-    """Refuse what the port does not have yet: the device backend."""
+def _dispatch_device(df, backend, plot) -> bool:
+    """Whether this call runs on the device statistics backend.
+
+    An explicit ``backend`` wins; otherwise ``BISCUIT_DEVICE_STATS`` (1/0)
+    decides; otherwise frames of at least
+    ``BISCUIT_DEVICE_STATS_MIN_ROWS`` rows (default 1,000,000) go to the
+    device unless ``plot`` (module docstring).
+    """
+    import os
+
+    if backend == "host":
+        return False
     if backend == "device":
-        raise NotImplementedError(
-            "the device statistics backend is not ported yet (ROADMAP.md "
-            "Queue 1 item 8); use backend='host' or None")
-    if backend not in (None, "host"):
+        return True
+    if backend is not None:
         raise ValueError(f"backend must be 'host', 'device' or None: {backend}")
+    env = os.environ.get("BISCUIT_DEVICE_STATS")
+    if env is not None:
+        return env not in ("0", "", "false")
+    if plot:
+        return False
+    min_rows = int(os.environ.get("BISCUIT_DEVICE_STATS_MIN_ROWS", 1_000_000))
+    return len(df) >= min_rows
 
 
 # ---------------------------------------------------------------------------
@@ -180,18 +205,31 @@ def apply(
     patients=None,
     level="slide",
     backend=None,
+    device=None,
 ):
     """Apply pre-calculated tile- and group-level uncertainty thresholds.
 
     Mirrors threshold.py:248-361. Returns (results dict with keys auc,
     percent_incl, acc, sensitivity, specificity; thresholded group-level
     DataFrame). Zero/None thresholds skip the respective filter (reference
-    truthiness semantics). ``backend`` is None or "host" (module
-    docstring).
+    truthiness semantics). ``backend`` picks the host or device path and
+    ``device`` the device backend's device (module docstring); the two
+    paths agree to ~1e-6.
     """
     assert keep in ("high_confidence", "low_confidence")
     assert not (level == "patient" and patients is None)
-    _host_only(backend)
+
+    if _dispatch_device(df, backend, plot=False):
+        from .ops import threshold_device
+
+        try:
+            return threshold_device.apply_device(
+                df, tile_uq, slide_uq, tile_pred=tile_pred,
+                slide_pred=slide_pred, plot=plot, keep=keep, title=title,
+                patients=patients, level=level, device=device,
+            )
+        except threshold_device.HostFallback as e:
+            log.debug(f"Device stats backend fell back to host: {e}")
 
     if tile_uq:
         log.debug(f"Applying tile UQ threshold of {tile_uq:.5f}")
@@ -269,6 +307,7 @@ def detect(
     plot=False,
     patients=None,
     backend=None,
+    device=None,
 ):
     """Detect optimal tile- and slide-level uncertainty thresholds.
 
@@ -276,7 +315,8 @@ def detect(
     point of the ROC of uncertainty vs. incorrectness. Non-'detect',
     non-float ``tile_uq`` disables tile filtering; non-'detect' ``slide_uq``
     falls back to 0.5 (reference quirk, threshold.py:461-463).
-    ``backend`` is None or "host" (module docstring).
+    ``backend`` picks the host or device path and ``device`` the device
+    backend's device (module docstring).
 
     Returns:
         (thresholds dict with keys tile_uq/slide_uq/tile_pred/slide_pred,
@@ -285,7 +325,23 @@ def detect(
     log.debug("Detecting thresholds...")
     empty_thresh = {k: None for k in (
         "tile_uq", "slide_uq", "tile_pred", "slide_pred")}
-    _host_only(backend)
+    if _dispatch_device(df, backend, plot=plot):
+        from .ops import threshold_device
+
+        try:
+            return threshold_device.detect_device(
+                df, tile_uq=tile_uq, slide_uq=slide_uq, tile_pred=tile_pred,
+                slide_pred=slide_pred, plot=plot, patients=patients,
+                device=device,
+            )
+        except threshold_device.HostFallback as e:
+            log.debug(f"Device stats backend fell back to host: {e}")
+        except errors.PredsContainNaNError:
+            # The host path's degrade below: empty thresholds on NaN
+            # predictions (from_cv skips such a fold).
+            log.error(
+                "Tile-level predictions contain NaNs; unable to process.")
+            return empty_thresh, None
     try:
         df, detected_tile_pred = process_tile_predictions(
             df, pred_thresh=tile_pred, patients=patients

@@ -38,6 +38,7 @@ from ..data.pipeline import PrefetchBatcher, TileBatcher
 from ..device import resolve_device
 from ..hp import ModelParams
 from ..models.convert import from_flax, read_msgpack, to_flax, write_msgpack
+from ..models.resnet import BasicBlock, BottleneckBlock
 from ..models.xception import BatchNorm, Conv, build_model
 from ..stats.roc import auc_score, average_precision
 from ..utils_log import log
@@ -115,13 +116,13 @@ def init_model(model, hp: ModelParams, generator):
     seam a test replaces to start both packages from the same weights.
     (``chip_smoke.init_random_`` draws untruncated LeCun-normal convs and
     BatchNorm statistics away from identity, for kernel checks.)
+    A ResNet block's last BatchNorm starts at scale 0, as Flax's
+    ``scale_init=zeros`` in the JAX ``models/resnet.py``.
 
-    ``hp.pretrained`` raises: ``models/pretrained.py`` is not ported
-    (ROADMAP.md Queue 1 item 7)."""
-    if getattr(hp, "pretrained", None):
-        raise NotImplementedError(
-            "hp.pretrained needs models/pretrained.py, which is not ported "
-            "yet (ROADMAP.md Queue 1 item 7)")
+    With ``hp.pretrained`` ('imagenet' or a path), the trunk is then
+    grafted from the staged Keras weights
+    (``models/pretrained.resolve_pretrained_path``); the head keeps its
+    fresh initialization (``include_top=False``)."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, Conv):
@@ -131,6 +132,18 @@ def init_model(model, hp: ModelParams, generator):
                 mod.bias.zero_()
             elif isinstance(mod, BatchNorm):
                 mod.reset_parameters()
+        for mod in model.modules():
+            if isinstance(mod, (BasicBlock, BottleneckBlock)):
+                mod.last_bn.weight.zero_()
+    if getattr(hp, "pretrained", None):
+        from ..models.pretrained import (
+            load_pretrained,
+            resolve_pretrained_path,
+        )
+
+        path = resolve_pretrained_path(hp.pretrained)
+        load_pretrained(model, path)
+        log.info(f"Initialized backbone from staged weights: {path}")
     return model
 
 

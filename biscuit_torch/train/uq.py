@@ -19,8 +19,10 @@ XLA off the TPU; passing ``True`` runs the kernels' plain versions.
 ``fuse_blocks`` (default False, as the JAX package without
 ``BISCUIT_FUSED_BLOCKS=1``) opts into the fully fused trunk, whose entry
 and exit blocks go through the fused strided-block kernel
-(``ops/fused_block.py``); it implies the fused trunk. The opt-in int8
-trunk is not ported yet.
+(``ops/fused_block.py``); it implies the fused trunk. Both fused trunks
+are Xception's: a ResNet model (``models/resnet.py``) runs the module
+trunk and the head kernel, and asking it for a fused trunk raises. The
+opt-in int8 trunk is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,8 +36,17 @@ from ..device import resolve_device
 from ..models.xception import ARCHS
 
 
-def _fused(fused_trunk: Optional[bool], fuse_blocks: bool, on_card: bool):
-    """Whether the trunk is the fused one: ``fuse_blocks`` needs it."""
+def _fused(fused_trunk: Optional[bool], fuse_blocks: bool, on_card: bool,
+           arch: str):
+    """Whether the trunk is the fused one: ``fuse_blocks`` needs it. Only
+    an Xception arch has the fused middle flow, so by default it runs on
+    the card for those alone (``biscuit_tpu/train/uq.py:77-81``)."""
+    if arch not in ARCHS:
+        if fuse_blocks or fused_trunk:
+            raise ValueError(f"the fused trunk is Xception's; {arch!r} runs "
+                             "the module trunk (fused_trunk=False, "
+                             "fuse_blocks=False)")
+        return False
     if fuse_blocks:
         if fused_trunk is False:
             raise ValueError("fuse_blocks=True runs the fused trunk; it "
@@ -47,7 +58,7 @@ def _fused(fused_trunk: Optional[bool], fuse_blocks: bool, on_card: bool):
 def trunk_features(model, x, fused_trunk: Optional[bool] = None,
                    mid_wts=None, fuse_blocks: bool = False, block_wts=None):
     """Deterministic pooled f32 features of preprocessed NHWC tiles."""
-    if _fused(fused_trunk, fuse_blocks, x.is_cuda):
+    if _fused(fused_trunk, fuse_blocks, x.is_cuda, model.arch):
         from ..ops.fused_sepconv import trunk_features_fused
 
         return trunk_features_fused(model, x, mid_wts, fuse_blocks,
@@ -193,7 +204,7 @@ class UncertaintyInterface:
         self.seed = int(seed)
         self._calls = 0
         on_card = self.device.type == "cuda"
-        self._fused = _fused(fused_trunk, fuse_blocks, on_card)
+        self._fused = _fused(fused_trunk, fuse_blocks, on_card, model.arch)
         self._fuse_blocks = bool(fuse_blocks)
         self._use_kernel = (head_kernel_applicable(model.head, on_card)
                             if use_kernel is None else use_kernel)

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --preprocess [--root CHECKOUT]
     python3 chip_smoke.py --slide
     python3 chip_smoke.py --serve
+    python3 chip_smoke.py --stats | --pretrained | --resnet
 
 The second form only profiles the unit backward pass by pass at
 UNIT_PASS_GEOMETRIES (one line a geometry), the third only times the
@@ -14,7 +15,8 @@ kernel at PREPROCESS_VARIANTS too where the checkout's plan takes a
 cluster size (one line); both import ``biscuit_torch`` from CHECKOUT when given (to
 time another checkout's kernels in the same call). The fourth builds and
 runs phase slide alone (one line), the fifth phase serve alone (a line an
-artifact, then the phase's). The first form runs
+artifact, then the phase's), the sixth phase stats, pretrained or resnet
+alone (one line). The first form runs
 these phases, each printing one JSON line:
 
 1. env: torch/CUDA versions and ``nvidia-smi`` name and power limit (also
@@ -167,10 +169,46 @@ these phases, each printing one JSON line:
    ``generate_features`` from (a) (rows 1-3 once a batch). Phases main
    and main_fused_blocks time a kernel's call through its registered op
    against its wrapper (``op_dispatch``).
+   stats: the device statistics backend (``ops/threshold_device.py``) on
+   synthetic CV frames from ``stats_frame`` (f32 columns, slides of about
+   STATS_TILES tiles, scores on a 1/1024 grid so exact Youden ties occur):
+   ``detect`` with ``backend="host"`` and ``"device"`` at STATS_ROWS rows
+   (one warm-up each, then the median of 3; the host once at 4e6 rows),
+   ``tile_pred``/``tile_uq`` equal to the host's, the rest within 1e-6,
+   no HostFallback, the group table repeated bit for bit; ``from_cv``
+   over 3 folds and ``apply(level="patient")`` on an external frame of
+   STATS_CV_ROWS rows through both; no kernel launch. It prints each
+   size's seconds, their ratio and bytes each way, and the crossover.
+   pretrained: the Keras import at full width. Phase main's seeded model
+   at dropout 0, its logits spread (``decisive_logits_``), written as a
+   Keras full-model ``.npz`` (``keras_export``: the inverse of
+   ``models/pretrained.keras_layer_map`` plus the head's Dense layers),
+   imported by ``python -m biscuit_torch.cli.import_model`` into a model
+   dir whose arrays must equal the source's (a BN variance within one
+   f32 ulp); ``UncertaintyInterface`` over it answers REQUESTS requests
+   (rows 1-3 once each), its means within 2e-2 of the source model's at
+   the same seeds (spread > 0.2); the trunk staged as
+   ``xception_imagenet.npz`` under a temporary
+   ``BISCUIT_PRETRAINED_DIR`` with ``hp.pretrained="imagenet"``:
+   ``init_model`` grafts it (the trunk equals the file, the head the
+   fresh init), then 2 training steps at TRAIN_BATCH (34 row-6 launches
+   a step).
+   resnet: ``hp.model="resnet50"`` (299 px, 2x1024 head, dropout 0.1,
+   K) with seeded random weights: ``UncertaintyInterface`` answers
+   REQUESTS requests (rows 1 and 3 once each, nothing else), tiles/s and
+   ``stage_ms`` (preprocess, trunk, head); the pooled features within
+   3e-2 of the plain composition (the preprocess's plain version, the
+   f32 module trunk); the dropout-0 means within 2e-2 of
+   ``use_kernel=False`` (spread > 0.2); ``export_servable`` of its model
+   dir, loaded and called once, equal bit for bit to the live interface
+   (rows 1 and 3 once); 2 training steps at TRAIN_BATCH on the module
+   path (no launch), tiles/s and peak memory. No MFU: ``models/flops.py``
+   counts Xception only.
 6. the kernels line (launches: the serving phases for kernels 1-4, the
    depthwise entry phase, the training phase, with phases
-   train_project's, experiment's, slide's and serve's added to kernels
-   1-4 and 6); 7. the last line ``{"ok": true, "device": ...}``.
+   train_project's, experiment's, slide's, serve's, pretrained's and
+   resnet's added to kernels 1-4 and 6); 7. the last line
+   ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. It needs one CUDA card; without one it exits 1 at once.
@@ -259,6 +297,13 @@ GAN_PX = 512
 MOSAIC_TILES = 100
 SERVE_REQUESTS = 3    # counted requests a servable, and of the live paths
 SERVE_SLIDE_PX = 3000  # phase serve's slide: 9 x 9 positions at 302 um
+# Phase stats: detect at STATS_ROWS rows (STATS_CV_ROWS is a published
+# nested-CV fold, biscuit_tpu/threshold.py:30-32), slides of about
+# STATS_TILES tiles; from_cv over 3 folds and apply on an external frame
+# of STATS_CV_ROWS rows.
+STATS_ROWS = (100_000, 400_000, 1_000_000, 4_000_000)
+STATS_CV_ROWS = 400_000
+STATS_TILES = 1300
 
 
 def emit(obj) -> None:
@@ -2943,6 +2988,504 @@ def serve_phase(torch, tmp: str, tfrecords, labels, card: str):
     return row, path_launches
 
 
+# ---------------------------------------------------------------------------
+# Phases stats, pretrained and resnet
+# ---------------------------------------------------------------------------
+
+def stats_frame(seed: int, rows: int, tiles_per_slide: int = STATS_TILES):
+    """A synthetic cross-validation tile frame of ``rows`` rows, from
+    ``seed``: slides of about ``tiles_per_slide`` tiles in contiguous rows,
+    label = slide index % 2, a fifth of the slides hard (70% of their tiles
+    wrong, half of those confident), two slides of one label a patient; ``y_pred`` and ``uncertainty`` quantized
+    to 1/1024, so exact Youden ties occur, and held as f32 with
+    ``y_true``."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    n = max(4, round(rows / tiles_per_slide))
+    idx = np.repeat(np.arange(n), rng.multinomial(rows, np.full(n, 1.0 / n)))
+    label = idx % 2
+    hard = (rng.random(n) < 0.2)[idx]
+    ok = rng.random(rows) < np.where(hard, 0.3, 0.85)
+    pred = np.where(ok == label.astype(bool), rng.uniform(0.5, 1.0, rows),
+                    rng.uniform(0.0, 0.5, rows))
+    # Confident where right, mostly; on hard slides half the wrong tiles
+    # are confident too, so the tile filter leaves wrong slides.
+    confident = np.where(ok, rng.random(rows) < 0.9,
+                         hard & (rng.random(rows) < 0.5))
+    unc = np.where(confident, rng.uniform(0, 0.2, rows),
+                   rng.uniform(0.1, 0.5, rows))
+    names = np.array([f"slide{i:05d}" for i in range(n)], dtype=object)
+    # Slides i and i + 2 (one label) make a patient.
+    patients = np.array([f"pt{i // 4 * 2 + i % 2:05d}" for i in range(n)],
+                        dtype=object)
+    return pd.DataFrame({
+        "slide": names[idx], "patient": patients[idx],
+        "y_true": label.astype(np.float32),
+        "y_pred": (np.round(pred * 1024) / 1024).astype(np.float32),
+        "uncertainty": (np.round(unc * 1024) / 1024).astype(np.float32)})
+
+
+def same_thresholds(what: str, dev, host, exact=("tile_pred", "tile_uq")):
+    """Device results against the host's: the keys in ``exact`` equal,
+    every other number within 1e-6 (None where the host has None)."""
+    import math
+
+    for k, want in host.items():
+        got = dev[k]
+        if want is None or got is None:
+            check(got is None and want is None, f"{what}.{k}: {got} {want}")
+        elif k in exact:
+            check(got == want, f"{what}.{k}: {got!r} != {want!r}")
+        else:
+            check((math.isnan(got) and math.isnan(want))
+                  or abs(got - want) <= 1e-6, f"{what}.{k}: {got} {want}")
+
+
+def stats_phase(torch, card: str):
+    """The device statistics backend at published scale (see the
+    docstring, phase stats). Returns (row, launches)."""
+    from biscuit_torch import threshold as th
+    from biscuit_torch.ops import _build
+    from biscuit_torch.ops import threshold_device as td
+
+    def timed(fn, runs):
+        secs, out = [], None
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            out = fn()
+            secs.append(time.perf_counter() - t0)
+        return statistics.median(secs), out
+
+    _build.reset_launch_counts()
+    sizes = []
+    for i, rows in enumerate(STATS_ROWS):
+        df = stats_frame(SEED + i, rows)
+        n_slides = df["slide"].nunique()
+        host_runs = 1 if rows >= 4_000_000 else 3
+        th.detect(df.copy(), backend="device")              # warm-up
+        if host_runs > 1:
+            th.detect(df.copy(), backend="host")
+        dev_s, dev = timed(lambda: th.detect(df.copy(), backend="device"), 3)
+        host_s, host = timed(lambda: th.detect(df.copy(), backend="host"),
+                             host_runs)
+        # The timed device runs went through the dispatcher, which runs a
+        # HostFallback on the host: the backend alone must give the same.
+        direct = td.detect_device(df.copy(), device="cuda")
+        check(direct == dev, f"{rows} rows: a HostFallback was taken")
+        same_thresholds(f"detect {rows}", dev[0], host[0])
+        same_thresholds(f"detect {rows} auc", {"auc": dev[1]},
+                        {"auc": host[1]})
+        check(host[0]["slide_uq"] is not None, "a slide UQ threshold")
+        g1 = td._tile_stages(df, "detect", "detect", "slide", "cuda")[3]
+        g2 = td._tile_stages(df, "detect", "detect", "slide", "cuda")[3]
+        check(all((g1[k] == g2[k]).all() for k in g1),
+              f"{rows} rows: the group table repeats bit for bit")
+        sizes.append({
+            "rows": rows, "slides": n_slides, "host_s": host_s,
+            "device_s": dev_s, "host_over_device": host_s / dev_s,
+            "host_runs": host_runs, "thresholds": dev[0], "auc": dev[1],
+            "host_to_device_bytes": 16 * rows,
+            "device_to_host_bytes": 2 * 8 * (4 * td._CAND_K + 3)
+            + 4 * 8 * (n_slides + 1)})
+        del df
+    crossover = None
+    for a, b in zip(sizes, sizes[1:]):
+        ra, rb = a["host_over_device"], b["host_over_device"]
+        if ra < 1 <= rb:
+            import math
+
+            t = math.log(ra) / (math.log(ra) - math.log(rb))
+            crossover = a["rows"] * (b["rows"] / a["rows"]) ** t
+    if crossover is None:
+        crossover = (f"below {STATS_ROWS[0]}"
+                     if sizes[0]["host_over_device"] >= 1
+                     else f"above {STATS_ROWS[-1]}")
+
+    folds = [stats_frame(SEED + 10 + k, STATS_CV_ROWS) for k in range(3)]
+    cv = {}
+    for backend in ("host", "device"):
+        th.from_cv([d.copy() for d in folds], backend=backend)
+        cv[backend] = timed(lambda: th.from_cv([d.copy() for d in folds],
+                                               backend=backend), 1)
+    same_thresholds("from_cv", cv["device"][1], cv["host"][1])
+    ext = stats_frame(SEED + 20, STATS_CV_ROWS)
+    patients = dict(zip(ext["slide"], ext["patient"]))
+    applied = {}
+    for backend in ("host", "device"):
+        thresholds = cv[backend][1]
+        applied[backend] = timed(lambda: th.apply(
+            ext.copy(), level="patient", patients=patients,
+            backend=backend, **thresholds), 1)
+    same_thresholds("apply", applied["device"][1][0], applied["host"][1][0],
+                    exact=())
+    launches = _build.launch_counts()
+    check(not any(launches.values()),
+          f"the statistics launch no kernel of the path: {launches}")
+    return {"phase": "stats", "card": card, "tiles_per_slide": STATS_TILES,
+            "detect": sizes, "crossover_rows": crossover,
+            "from_cv": {"folds": 3, "rows": STATS_CV_ROWS,
+                        "host_s": cv["host"][0], "device_s": cv["device"][0],
+                        "thresholds": cv["device"][1]},
+            "apply_patient": {"rows": STATS_CV_ROWS,
+                              "host_s": applied["host"][0],
+                              "device_s": applied["device"][0],
+                              "results": applied["device"][1][0]},
+            "launches": launches}, launches
+
+
+def keras_export(model) -> dict:
+    """``model``'s weights as a Keras full-model export, {layer: {weight:
+    array}} in graph order: the trunk through the inverse of
+    ``models/pretrained.keras_layer_map`` (depthwise kernels back to
+    (H, W, I, 1), the BN variance shifted back by the eps difference), then
+    the head's Dense layers under Keras auto-names (dense, dense_1, ...)."""
+    from biscuit_torch.models.convert import to_flax
+    from biscuit_torch.models.pretrained import (
+        _FLAX_BN_EPS,
+        _KERAS_BN_EPS,
+        keras_layer_map,
+    )
+
+    params, stats = to_flax(model.state_dict())
+    out = {}
+    for path, (name, kind) in keras_layer_map(model.arch).items():
+        p, s = params["backbone"], stats["backbone"]
+        for k in path:
+            p, s = p[k], s.get(k, {})
+        if kind == "conv":
+            out[name] = {"kernel": p["kernel"]}
+        elif kind == "sepconv":
+            out[name] = {"depthwise_kernel": p["depthwise"]["kernel"]
+                         .transpose(0, 1, 3, 2),
+                         "pointwise_kernel": p["pointwise"]["kernel"]}
+        else:
+            out[name] = {"gamma": p["scale"], "beta": p["bias"],
+                         "moving_mean": s["mean"],
+                         "moving_variance": s["var"]
+                         - (_KERAS_BN_EPS - _FLAX_BN_EPS)}
+    head = params["head"]
+    for i in range(len(head)):
+        layer = head["logits" if i == len(head) - 1 else f"hidden{i}"]
+        out["dense" if i == 0 else f"dense_{i}"] = {
+            "kernel": layer["kernel"], "bias": layer["bias"]}
+    return out
+
+
+def save_keras(path: str, layers: dict) -> None:
+    import numpy as np
+
+    np.savez(path, **{f"{layer}/{w}": a for layer, ws in layers.items()
+                      for w, a in ws.items()})
+
+
+def same_trees(what: str, got, want) -> int:
+    """Every array of ``got`` equal to ``want``'s, except a BN variance,
+    within one f32 ulp (the eps shift and back); returns the count."""
+    import numpy as np
+
+    n = 0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            n += same_trees(f"{what}/{k}", g, w)
+            continue
+        g, w = np.asarray(g), np.asarray(w)
+        if k == "var":
+            ulp = np.spacing(np.abs(w).astype(np.float32))
+            check(bool((np.abs(g - w) <= ulp).all()), f"{what}/{k} ulp")
+        else:
+            check(np.array_equal(g, w), f"{what}/{k} equal")
+        n += 1
+    return n
+
+
+def pretrained_phase(torch, tmp: str, card: str):
+    """The Keras import at full width (see the docstring, phase
+    pretrained). Returns (row, launches)."""
+    import os
+
+    from biscuit_torch.data.normalize import (
+        inference_preprocess,
+        make_normalizer,
+    )
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.convert import read_msgpack, to_flax
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.ops import _build
+    from biscuit_torch.train.trainer import (
+        init_model,
+        make_optimizer,
+        make_train_step,
+    )
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+
+    hp, model, requests = serving_setup(torch, SEED, REQUESTS)
+    hp.dropout = model.dropout = model.head.dropout = 0.0
+    with torch.inference_mode():
+        feats = trunk_features(model, inference_preprocess(
+            requests[0], make_normalizer(hp.normalizer)))
+    decisive_logits_(torch, model, feats)
+    del feats
+    path = os.path.join(tmp, "full.npz")
+    t0 = time.perf_counter()
+    layers = keras_export(model)
+    save_keras(path, layers)
+    n_layers = len(layers)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "biscuit_torch.cli.import_model", path,
+         os.path.join(tmp, "models"), "--dropout", "0"],
+        capture_output=True, text=True, timeout=600)
+    import_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"import_model: {proc.stderr[-2000:]}")
+    model_dir = proc.stdout.strip().splitlines()[-1]
+    src_p, src_s = to_flax(model.state_dict())
+    saved = read_msgpack(os.path.join(model_dir, "model.msgpack"))
+    arrays = (same_trees("params", saved["params"], src_p)
+              + same_trees("batch_stats", saved["batch_stats"], src_s))
+
+    ui_src = UncertaintyInterface.from_model(model, hp, device="cuda",
+                                             seed=SEED)
+    ui = UncertaintyInterface(model_dir, device="cuda", seed=SEED)
+    check(ui.k == K and ui.hp.dropout == 0.0, "imported hp")
+    outs, secs, launches = serve(torch, ui, requests, REQUESTS,
+                                 {name: 1 for name in SERVING})
+    err = spread = 0.0
+    for tiles in requests[:REQUESTS]:
+        want, _ = ui_src(tiles, seed=SEED)
+        got, _ = ui(tiles, seed=SEED)
+        err = max(err, (got - want).abs().max().item())
+        spread = max(spread, float(want[:, 1].max() - want[:, 1].min()))
+    check(err <= 2e-2, f"imported means: max abs err {err}")
+    check(spread > 0.2, f"probabilities spread {spread}")
+    del ui, ui_src, requests
+    torch.cuda.empty_cache()
+
+    # hp.pretrained: init_model grafts the staged trunk, the head is fresh.
+    stage = os.path.join(tmp, "stage")
+    os.makedirs(stage)
+    save_keras(os.path.join(stage, "xception_imagenet.npz"),
+               {k: v for k, v in layers.items() if not k.startswith("dense")})
+    del layers
+    hp2 = nature2022_params()
+    fresh = to_flax(init_model(build_model(hp2), hp2,
+                               torch.Generator().manual_seed(SEED))
+                    .state_dict())[0]["head"]
+    old = os.environ.get("BISCUIT_PRETRAINED_DIR")
+    os.environ["BISCUIT_PRETRAINED_DIR"] = stage
+    try:
+        hp2.pretrained = "imagenet"
+        t0 = time.perf_counter()
+        model2 = init_model(build_model(hp2), hp2,
+                            torch.Generator().manual_seed(SEED))
+        init_s = time.perf_counter() - t0
+    finally:
+        if old is None:
+            del os.environ["BISCUIT_PRETRAINED_DIR"]
+        else:
+            os.environ["BISCUIT_PRETRAINED_DIR"] = old
+    got_p, got_s = to_flax(model2.state_dict())
+    same_trees("grafted params", got_p["backbone"], src_p["backbone"])
+    same_trees("grafted stats", got_s["backbone"], src_s["backbone"])
+    same_trees("fresh head", got_p["head"], fresh)
+    del model, src_p, src_s, saved
+    model2 = model2.cuda()
+    step = make_train_step(model2, make_optimizer(hp2, model2.parameters()),
+                           hp2, make_normalizer(hp2.normalizer))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batches = [train_batch(torch, gen, TRAIN_BATCH) for _ in range(2)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(*b, gen)["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    train_launches = _build.launch_counts()
+    for name, count in train_launches.items():
+        want = UNITS_PER_STEP * 2 if name == "unit_bwd_strips" else 0
+        check(count == want, f"{name}: {count} launches in 2 steps from "
+                             f"the grafted trunk, expected {want}")
+    import math
+
+    check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
+    del step, model2, batches
+    torch.cuda.empty_cache()
+    for name, count in train_launches.items():
+        launches[name] += count
+    return {"phase": "pretrained", "card": card, "model": "xception",
+            "tile_px": TILE_PX, "k": K, "requests": REQUESTS,
+            "keras_layers": n_layers,
+            "npz_bytes": os.path.getsize(path), "write_s": write_s,
+            "import_s": import_s, "arrays_checked": arrays,
+            "request_s": secs, "tiles_per_s": TILES * REQUESTS / sum(secs),
+            "dropout0_mean_max_abs_err": err, "spread": spread,
+            "graft_init_s": init_s, "train_step_s": step_s,
+            "train_losses": losses, "launches": launches}, launches
+
+
+def resnet_stage_ms(torch, ui, tiles, repeats: int = 3):
+    """Median device time of a ResNet request's stages (CUDA events):
+    preprocess (kernel 1), the module trunk, the head (kernel 3)."""
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.ops.mcd_head import mcd_head
+
+    names = ("preprocess", "trunk", "head")
+    runs = {name: [] for name in names}
+    with torch.inference_mode():
+        for _ in range(repeats):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            x = inference_preprocess(tiles, ui.wsi_normalizer)
+            ev[1].record()
+            f = ui.model.features(x)
+            ev[2].record()
+            mcd_head(f, *ui._head_wts, k=ui.k, dropout=ui.model.dropout)
+            ev[3].record()
+            torch.cuda.synchronize()
+            for i, name in enumerate(names):
+                runs[name].append(ev[i].elapsed_time(ev[i + 1]))
+    return {name: statistics.median(v) for name, v in runs.items()}
+
+
+def resnet_phase(torch, tmp: str, card: str):
+    """The ResNet family on the card (see the docstring, phase resnet).
+    Returns (row, launches)."""
+    import copy
+    import math
+    import os
+
+    from biscuit_torch import serve as sv_mod
+    from biscuit_torch.data.normalize import make_normalizer
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.ops import _build
+    from biscuit_torch.ops.fused_preprocess import (
+        fused_preprocess,
+        fused_preprocess_reference,
+    )
+    from biscuit_torch.train.trainer import (
+        make_optimizer,
+        make_train_step,
+        save_checkpoint,
+    )
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+
+    hp = nature2022_params()
+    hp.model = "resnet50"
+    model = build_model(hp)
+    check(model.arch == "resnet50" and hp.dropout == 0.1
+          and hp.hidden_layer_width == 1024, "resnet50 configuration")
+    init_random_(torch, model, SEED)
+    model = model.cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (TILES, TILE_PX, TILE_PX, 3)
+    requests = [torch.randint(0, 256, shape, generator=gen, device="cuda",
+                              dtype=torch.uint8)
+                for _ in range(REQUESTS + 1)]
+    ui = UncertaintyInterface.from_model(model, hp, device="cuda", seed=SEED)
+    check(not ui._fused and ui._use_kernel, "module trunk, head kernel")
+    per_request = {"fused_preprocess": 1, "mcd_head": 1}
+    outs, secs, launches = serve(torch, ui, requests, REQUESTS, per_request)
+    stage_ms = resnet_stage_ms(torch, ui, requests[1])
+
+    with torch.inference_mode():
+        tiles = requests[0]
+        fk = trunk_features(model, fused_preprocess(tiles, ui.wsi_normalizer))
+        f32 = copy.deepcopy(model)
+        f32.backbone.compute_dtype = torch.float32
+        fp = f32.features(fused_preprocess_reference(tiles,
+                                                     ui.wsi_normalizer))
+        del f32
+        feat_err, feat_scale = held_features("resnet features", fk, fp)
+        # Dropout 0, logits spread: the kernel path against the module
+        # head (use_kernel=False) on the same model.
+        decisive_logits_(torch, model, fk)
+        model.dropout = model.head.dropout = 0.0
+        hp0 = hp.copy()
+        hp0.dropout = 0.0
+        kern = UncertaintyInterface.from_model(model, hp0, device="cuda")
+        plain = UncertaintyInterface.from_model(model, hp0, device="cuda",
+                                                use_kernel=False)
+        km, _ = kern(tiles, seed=SEED)
+        pm, _ = plain(tiles, seed=SEED)
+        head_err = (km - pm).abs().max().item()
+        spread = float(pm[:, 1].max() - pm[:, 1].min())
+        check(head_err <= 2e-2, f"dropout-0 means: max abs err {head_err}")
+        check(spread > 0.2, f"probabilities spread {spread}")
+        model.dropout = model.head.dropout = hp.dropout
+
+    # The servable: rows 1 and 3 as ops in the program, equal to the live
+    # interface over the model dir bit for bit at the same seed.
+    model_dir = save_checkpoint(os.path.join(tmp, "models"), model, hp, 1,
+                                OUTCOME, "RN", None)
+    t0 = time.perf_counter()
+    art = sv_mod.export_servable(model_dir, os.path.join(tmp, "rn.biscuit"),
+                                 batch_size=TILES, with_features=False)
+    export_s = time.perf_counter() - t0
+    sv = sv_mod.load_servable(art)
+    live = UncertaintyInterface(model_dir, seed=SEED)
+    sv.call_exact(requests[1], seed=SEED)          # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    got = sv.call_exact(requests[0], seed=SEED)
+    torch.cuda.synchronize()
+    art_launches = _build.launch_counts()
+    for name, count in art_launches.items():
+        check(count == per_request.get(name, 0),
+              f"artifact: {count} launches of {name}")
+    want = live(requests[0], seed=SEED)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "the artifact equals the live interface bit for bit")
+    del sv, live, ui, kern, plain, requests, outs
+    torch.cuda.empty_cache()
+
+    # Two training steps, module path (no unit-backward kernel).
+    normalizer = make_normalizer(hp.normalizer)
+    tx = make_optimizer(hp, model.parameters())
+    model.train()
+    step = make_train_step(model, tx, hp, normalizer)
+    batches = [train_batch(torch, gen, TRAIN_BATCH) for _ in range(3)]
+    step(*batches[-1], gen)                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses, step_s = [], []
+    for b in batches[:2]:
+        t0 = time.perf_counter()
+        losses.append(float(step(*b, gen)["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    train_launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(train_launches.values()),
+          f"the ResNet step launches no kernel: {train_launches}")
+    check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
+    del step, tx, model, batches
+    torch.cuda.empty_cache()
+    for name, count in art_launches.items():
+        launches[name] += count
+    return {"phase": "resnet", "card": card, "model": hp.model,
+            "tile_px": TILE_PX, "k": K, "dropout": hp.dropout,
+            "hidden": [hp.hidden_layer_width] * 2, "requests": REQUESTS,
+            "tiles_per_request": TILES, "request_s": secs,
+            "tiles_per_s": TILES * REQUESTS / sum(secs), "stage_ms": stage_ms,
+            "features_max_abs_err": feat_err,
+            "features_tol": 3e-2 * feat_scale, "features_max_abs": feat_scale,
+            "dropout0_mean_max_abs_err": head_err, "spread": spread,
+            "servable": {"export_s": export_s, "bytes": os.path.getsize(art),
+                         "launches": art_launches},
+            "train": {"batch": TRAIN_BATCH, "steps": 2, "step_s": step_s,
+                      "tiles_per_s": TRAIN_BATCH * 2 / sum(step_s),
+                      "losses": losses, "max_memory_allocated_bytes": peak,
+                      "launches": train_launches},
+            "launches": launches}, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2957,6 +3500,12 @@ def main(argv=None) -> int:
                     help="only the build and phase slide")
     ap.add_argument("--serve", action="store_true",
                     help="only the build and phase serve")
+    ap.add_argument("--stats", action="store_true",
+                    help="only the build and phase stats")
+    ap.add_argument("--pretrained", action="store_true",
+                    help="only the build and phase pretrained")
+    ap.add_argument("--resnet", action="store_true",
+                    help="only the build and phase resnet")
     ap.add_argument("--root", help="import biscuit_torch from this checkout "
                                    "(with --unit-bwd-passes or --preprocess)")
     opts = ap.parse_args(argv)
@@ -3047,6 +3596,17 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             emit(serve_phase_on_predict_tiles(torch, tmp, card)[0])
         return 0
+    if opts.stats:
+        emit(stats_phase(torch, card)[0])
+        return 0
+    if opts.pretrained:
+        with tempfile.TemporaryDirectory() as tmp:
+            emit(pretrained_phase(torch, tmp, card)[0])
+        return 0
+    if opts.resnet:
+        with tempfile.TemporaryDirectory() as tmp:
+            emit(resnet_phase(torch, tmp, card)[0])
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -3106,12 +3666,23 @@ def main(argv=None) -> int:
         serve_row, serve_launches = serve_phase_on_predict_tiles(torch, tmp,
                                                                  card)
     emit(serve_row)
+    torch.cuda.empty_cache()
+    stats_row, stats_launches = stats_phase(torch, card)
+    emit(stats_row)
+    with tempfile.TemporaryDirectory() as tmp:
+        pt_row, pt_launches = pretrained_phase(torch, tmp, card)
+    emit(pt_row)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        rn_row, rn_launches = resnet_phase(torch, tmp, card)
+    emit(rn_row)
     launches["fused_block"] = fused_launches["fused_block"]
     launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
     for phase_launches in (tp_launches, ex_launches, slide_launches,
-                           serve_launches):
+                           serve_launches, stats_launches, pt_launches,
+                           rn_launches):
         for name, count in phase_launches.items():
             launches[name] += count
 

@@ -521,6 +521,34 @@ def test_thresholds_from_nested_cv(nested, tmp_path):
     assert_frame_equal(df, want_df, check_exact=False, rtol=0, atol=TOL)
 
 
+def test_thresholds_from_nested_cv_device_backend(nested, monkeypatch):
+    """The nested-CV ladder through the device statistics backend
+    (BISCUIT_DEVICE_STATS=1 sends every detect/apply there, on the device
+    the Experiment trains on, here the CPU) equals its host run within
+    1e-6, as tests/test_experiment.py holds the JAX package's."""
+    from biscuit_torch.ops import threshold_device
+
+    host_df, host = nested.thresholds_from_nested_cv("EXP_N_UQ", outer_k=2,
+                                                     inner_k=2)
+    served = []
+    for name in ("detect_device", "apply_device"):
+        real = getattr(threshold_device, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            served.append((_name, k.get("device")))
+            return _real(*a, **k)
+        monkeypatch.setattr(threshold_device, name, spy)
+    monkeypatch.setenv("BISCUIT_DEVICE_STATS", "1")
+    dev_df, dev = nested.thresholds_from_nested_cv("EXP_N_UQ", outer_k=2,
+                                                   inner_k=2)
+    assert {n for n, _ in served} == {"detect_device", "apply_device"}
+    assert {d for _, d in served} == {"cpu"}
+    for k in host:
+        assert dev[k] == pytest.approx(host[k], abs=1e-6), k
+    assert_frame_equal(dev_df, host_df, check_exact=False, rtol=0,
+                       atol=1e-6)
+
+
 # --- Step 4 through run, and the thresholded results -------------------------
 
 @pytest.fixture(scope="module")

@@ -1023,3 +1023,139 @@ def test_portable_artifact_on_the_card_matches_the_cpu(gen, tmp_path):
     assert np.ptp(want[0][:, 1].numpy()) > 0.2
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=2e-2)
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=1e-3)
+
+
+def test_device_statistics_on_the_card_match_the_cpu(gen):
+    """The device statistics backend on the card (its default device)
+    against itself on the CPU: equal thresholds, AUCs and apply results
+    (the tile thresholds come from integer counts; the group means are
+    rounded to f32 after f64 sums that differ only in order), the f64
+    group table within 1e-12, and bit for bit on a repeat."""
+    from biscuit_torch import threshold as th
+    from biscuit_torch.ops import roc_device as rd
+    from biscuit_torch.ops import threshold_device as td
+    from chip_smoke import stats_frame
+
+    df = stats_frame(0, 60_000, 500)
+    card = th.detect(df.copy(), backend="device")
+    assert card == th.detect(df.copy(), backend="device", device="cpu")
+    assert card[0]["slide_uq"] is not None
+    folds = [stats_frame(k, 30_000, 500) for k in (1, 2, 3)]
+    cv = th.from_cv([f.copy() for f in folds], backend="device")
+    assert cv == th.from_cv([f.copy() for f in folds], backend="device",
+                            device="cpu")
+    ext = stats_frame(4, 30_000, 500)
+    patients = dict(zip(ext["slide"], ext["patient"]))
+    got, got_df = th.apply(ext.copy(), level="patient", patients=patients,
+                           backend="device", **cv)
+    want, want_df = th.apply(ext.copy(), level="patient", patients=patients,
+                             backend="device", device="cpu", **cv)
+    assert got == want and got_df.equals(want_df)
+
+    yt, yp, u, seg, _levels, nseg = td._prepare(df, "slide", "cpu")
+    tables = [rd.group_reduce(*(t.to(dev) for t in (yt, yp, u, seg)), nseg,
+                              (u < 0.2).to(dev))
+              for dev in ("cpu", "cuda", "cuda")]
+    for k in tables[0]:
+        assert torch.equal(tables[1][k], tables[2][k]), k
+        torch.testing.assert_close(tables[1][k].cpu(), tables[0][k],
+                                   rtol=1e-12, atol=0)
+
+
+def test_resnet_tiny_on_the_card_matches_the_cpu(gen):
+    """resnet_tiny (f32, TF32 off for the call) on the card against the
+    CPU: pooled features within 1e-4 of the largest; served through
+    ``UncertaintyInterface``, rows 1 and 3 launch once a call and no other
+    kernel (the fused trunks are Xception's), means within 2e-2 of the
+    CPU's at dropout 0."""
+    import copy
+
+    import numpy as np
+
+    from biscuit_torch.hp import ModelParams
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.train.uq import UncertaintyInterface
+    from chip_smoke import init_random_
+
+    hp = ModelParams(model="resnet_tiny", tile_px=64, hidden_layer_width=32,
+                     dropout=0.0, compute_dtype="float32", uq=True,
+                     uq_samples=4)
+    model = build_model(hp)
+    init_random_(torch, model, 0)
+    model.eval()
+    x = torch.randn((8, 64, 64, 3), generator=torch.Generator()
+                    .manual_seed(1))
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        want = model.features(x)
+        got = copy.deepcopy(model).cuda().features(x.cuda()).cpu()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())
+    tiles = np.random.default_rng(2).integers(0, 256, (16, 64, 64, 3),
+                                              dtype=np.uint8)
+    cpu = UncertaintyInterface.from_model(copy.deepcopy(model), hp,
+                                          device="cpu")
+    card = UncertaintyInterface.from_model(model, hp)
+    assert not card._fused and card._use_kernel
+    before = _build.launch_counts()
+    mean, _ = card(tiles, seed=1)
+    after = _build.launch_counts()
+    for name in after:
+        want_n = 1 if name in ("fused_preprocess", "mcd_head") else 0
+        assert after[name] - before[name] == want_n, name
+    torch.testing.assert_close(mean.cpu(), cpu(tiles, seed=1)[0], rtol=0,
+                               atol=2e-2)
+
+
+def test_imported_model_serves_on_the_card(gen, tmp_path):
+    """An xception_tiny Keras full-model export (``chip_smoke.keras_export``
+    of a seeded model with spread logits), imported by
+    ``load_pretrained_full`` and saved as a model dir, served on the card
+    against the CPU at dropout 0: rows 1-3 once a call, means within 2e-2
+    over a spread of 0.2 or more."""
+    import numpy as np
+
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.hp import ModelParams
+    from biscuit_torch.models.pretrained import load_pretrained_full
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.train.trainer import init_model, save_checkpoint
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+    from chip_smoke import (
+        decisive_logits_,
+        init_random_,
+        keras_export,
+        save_keras,
+    )
+
+    hp = ModelParams(model="xception_tiny", tile_px=32, tile_um=32,
+                     hidden_layer_width=32, dropout=0.0, uq=True,
+                     uq_samples=4)
+    src = build_model(hp)
+    init_random_(torch, src, 0)
+    src.eval()
+    tiles = np.random.default_rng(0).integers(0, 256, (16, 32, 32, 3),
+                                              dtype=np.uint8)
+    norm = UncertaintyInterface.from_model(src, hp,
+                                           device="cpu").wsi_normalizer
+    with torch.no_grad():
+        decisive_logits_(torch, src, trunk_features(src, inference_preprocess(
+            torch.from_numpy(tiles), norm)))
+    path = str(tmp_path / "full.npz")
+    save_keras(path, keras_export(src))
+    model = load_pretrained_full(
+        init_model(build_model(hp), hp, torch.Generator()), path)
+    model_dir = save_checkpoint(str(tmp_path / "models"), model, hp, 1,
+                                "cohort", "imported", None)
+    card = UncertaintyInterface(model_dir)
+    cpu = UncertaintyInterface(model_dir, device="cpu")
+    before = _build.launch_counts()
+    got, _ = card(tiles, seed=1)
+    after = _build.launch_counts()
+    for name in after:
+        want_n = 1 if name in ("fused_preprocess", "fused_middle_flow",
+                               "mcd_head") else 0
+        assert after[name] - before[name] == want_n, name
+    want, _ = cpu(tiles, seed=1)
+    assert np.ptp(want[:, 1].numpy()) > 0.2
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-2)

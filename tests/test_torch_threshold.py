@@ -164,13 +164,22 @@ def test_from_cv_raises_where_the_jax_package_raises():
         port.from_cv([pd.DataFrame({"y_true": [1]})])
 
 
-def test_what_is_not_ported_raises():
+def test_what_is_not_ported_raises(monkeypatch):
+    """The device backend is ported: it runs on the card by default, so
+    without one it raises, naming device='cpu' and backend='host' (never
+    a quiet host run); an unknown backend raises as in the JAX package."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     df = make_preds()
     for call in (lambda: port.detect(df.copy(), backend="device"),
                  lambda: port.apply(df.copy(), 0.1, 0.1, backend="device"),
                  lambda: port.from_cv([df.copy()], backend="device")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(RuntimeError,
+                           match="device='cpu'.*backend='host'"):
             call()
+    got = port.detect(df.copy(), backend="device", device="cpu")
+    want = ref.detect(df.copy(), backend="host")
+    # f64 frame: the device's tile threshold is the host's rounded to f32.
+    assert got[0]["tile_uq"] == pytest.approx(want[0]["tile_uq"], abs=1e-6)
     with pytest.raises(ValueError, match="backend must be"):
         port.detect(df.copy(), backend="gpu")
 

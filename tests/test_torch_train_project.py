@@ -527,11 +527,12 @@ def test_dataset_kfold_split_matches_jax(tmp_path):
 # -------------------------------------------------------- init, JPEG, device
 
 
-def test_init_model_is_flax_lecun_normal():
+def test_init_model_is_flax_lecun_normal(tmp_path, monkeypatch):
     """The port's init has Flax's distribution: conv and dense kernels
     times sqrt(fan_in) a truncated normal of unit variance (within its
     standard error) bounded by 2 / 0.8796, zero biases, identity
-    BatchNorm; the same seed gives the same weights."""
+    BatchNorm; the same seed gives the same weights. With hp.pretrained
+    it grafts the staged Keras trunk and keeps the fresh head."""
     hp = _port_hp(_hp())
     a = ptr.init_model(port_build_model(hp), hp,
                        torch.Generator().manual_seed(3))
@@ -562,9 +563,31 @@ def test_init_model_is_flax_lecun_normal():
         assert abs(z.mean()) < 5 / np.sqrt(len(z))
     for leaf in jax.tree_util.tree_leaves(ours[1]):
         assert set(np.unique(leaf)) <= {0.0, 1.0}
+    from test_torch_pretrained import _to_keras
+
+    donor = to_flax(ptr.init_model(port_build_model(hp), hp,
+                                   torch.Generator().manual_seed(4))
+                    .state_dict())
+    np.savez(tmp_path / "xception_imagenet.npz", **{
+        f"{layer}/{w}": arr
+        for layer, ws in _to_keras(*donor, hp.model).items()
+        for w, arr in ws.items()})
+    monkeypatch.setenv("BISCUIT_PRETRAINED_DIR", str(tmp_path))
     hp.pretrained = "imagenet"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ptr.init_model(port_build_model(hp), hp, torch.Generator())
+    grafted = to_flax(ptr.init_model(port_build_model(hp), hp,
+                                     torch.Generator().manual_seed(3))
+                      .state_dict())
+    for tree, want, fresh in zip(grafted, donor, ours):
+        for (path, got), (_, w), (_, f) in zip(
+                *(jax.tree_util.tree_leaves_with_path(t)
+                  for t in (tree, want, fresh))):
+            name = jax.tree_util.keystr(path)
+            if name.startswith("['head']"):
+                np.testing.assert_array_equal(got, f, err_msg=name)
+            elif name.endswith("['var']"):
+                np.testing.assert_array_max_ulp(got, w, maxulp=1)
+            else:
+                np.testing.assert_array_equal(got, w, err_msg=name)
 
 
 def test_jpeg_augment_host_matches_jax():

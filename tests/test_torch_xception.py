@@ -121,6 +121,19 @@ def test_max_pool_same_matches_flax(size):
                                   np.asarray(want))
 
 
-def test_unknown_arch_raises():
-    with pytest.raises(ValueError):
-        torch_build_model(TorchModelParams(model="resnet50"))
+def test_unknown_arch_raises(caplog):
+    """As the JAX package: the classifier raises on an unknown arch, and
+    the ``hp.model`` registry (``build_model``) warns and builds the
+    published 'xception' instead; 'resnet50' is registered."""
+    import logging
+
+    from biscuit_torch.models.xception import XceptionClassifier
+
+    with pytest.raises(ValueError, match="Unknown architecture"):
+        XceptionClassifier(arch="nope")
+    with caplog.at_level(logging.WARNING, logger="biscuit_torch"):
+        model = torch_build_model(TorchModelParams(model="nope"))
+    assert model.arch == "xception"
+    assert "Unknown model 'nope'; falling back to 'xception'" in caplog.text
+    assert torch_build_model(TorchModelParams(model="resnet50")).arch == (
+        "resnet50")
