@@ -9,8 +9,13 @@ tile-prediction contract (slide, loc_x, loc_y,
     python -m biscuit_torch.cli.predict ARTIFACT tiles/*.tfrecords -o out.csv
 
 It serves on the card when the artifact lists it (``--device cpu`` off
-it). ``--sharded`` and ``--distributed`` (several cards, several hosts)
-are not ported yet (ROADMAP.md Queue 1 item 9).
+it). ``--sharded`` fans the artifact over every card of the process
+(the default when it has more than one; with ``--device`` over that
+device alone). ``--distributed WORKDIR`` scores across processes: run
+the command in every process of a runtime that torchrun's variables
+describe (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``);
+the processes claim the inputs through the store on ``MASTER_ADDR``,
+their shards meet in WORKDIR, and main writes the output.
 """
 
 from __future__ import annotations
@@ -81,10 +86,6 @@ def _labels_from_annotations(annotations, outcome, classes=None):
     return {s: index[v] for s, v in zip(sub["slide"], sub[outcome])}, unique
 
 
-_ITEM_9 = ("is not ported yet (ROADMAP.md Queue 1 item 9, parallelism); "
-           "score in one process")
-
-
 @click.command()
 @click.argument("artifact")
 @click.argument("tfrecords", nargs=-1, required=True)
@@ -97,8 +98,8 @@ _ITEM_9 = ("is not ported yet (ROADMAP.md Queue 1 item 9, parallelism); "
 @click.option("--outcome", default="cohort", show_default=True,
               help="Outcome name (column prefix + annotations column).")
 @click.option("--sharded/--no-sharded", default=None,
-              help="Fan the artifact over several cards: not ported yet "
-                   "(ROADMAP.md Queue 1 item 9).")
+              help="Fan the artifact over every card of this process "
+                   "(default: when it has more than one).")
 @click.option("--max-tiles", default=None, type=int,
               help="Per-tfrecord (or, with --slides, per-slide) tile cap.")
 @click.option("--classes", default=None,
@@ -123,8 +124,10 @@ _ITEM_9 = ("is not ported yet (ROADMAP.md Queue 1 item 9, parallelism); "
 @click.option("--qc", default="both", show_default=True,
               help="--slides tile QC: both|otsu|blur|none.")
 @click.option("--distributed", "dist_workdir", default=None,
-              help="Fleet scoring over several hosts: not ported yet "
-                   "(ROADMAP.md Queue 1 item 9).")
+              help="Score across the processes of a torchrun-style runtime: "
+                   "run this command in every process; they claim inputs "
+                   "through the store and their shards merge through this "
+                   "SHARED directory. Main alone writes the output.")
 @click.option("--device", default=None,
               help="Serving device (default: the card when the artifact "
                    "lists it).")
@@ -134,16 +137,32 @@ def main(artifact, tfrecords, out, annotations, outcome, sharded, max_tiles,
     """Score TFRECORDS (files or directories of {slide}.tfrecords, or
     slide images with --slides) with ARTIFACT and write a tile
     predictions frame."""
-    from ..serve import load_servable, predict_slides, predict_tfrecords
+    from ..parallel import distributed
+    from ..parallel.mesh import data_parallel_mesh, local_devices
+    from ..serve import (
+        load_servable,
+        load_sharded_servable,
+        predict_slides,
+        predict_slides_distributed,
+        predict_tfrecords,
+        predict_tfrecords_distributed,
+    )
 
-    if sharded:
-        raise NotImplementedError(f"--sharded {_ITEM_9}")
     if dist_workdir is not None:
-        raise NotImplementedError(f"--distributed {_ITEM_9}")
+        distributed.initialize()
     paths = _expand(tfrecords, slides=slides)
-    sv = load_servable(artifact, device=device)
-    log.info(f"servable: {sv.tile_px}px, K={sv.k}, {sv.batch_size} "
-             f"tiles/dispatch, platforms={sv.platforms}, on {sv.device}")
+    if sharded is None:
+        sharded = device is None and len(local_devices()) > 1
+    if sharded:
+        # A process-local mesh: claims are independent per process.
+        sv = load_sharded_servable(artifact, mesh=data_parallel_mesh(
+            None if device is None else [device]))
+    else:
+        sv = load_servable(artifact, device=device)
+    step = getattr(sv, "global_batch", sv.batch_size)
+    log.info(f"{'sharded ' if sharded else ''}servable: {sv.tile_px}px, "
+             f"K={sv.k}, {step} tiles/dispatch, platforms={sv.platforms}, "
+             f"on {sv.device}")
 
     labels = {}
     if annotations is not None:
@@ -163,14 +182,23 @@ def main(artifact, tfrecords, out, annotations, outcome, sharded, max_tiles,
         log.info(f"labels: {unique} (order from {src})")
 
     t0 = time.perf_counter()
-    if slides:
-        df = predict_slides(sv, paths, tile_um=tile_um, mpp=mpp,
-                            qc=None if qc == "none" else qc,
-                            outcome=outcome, max_tiles=max_tiles, seed=seed)
+    slide_kw = dict(tile_um=tile_um, mpp=mpp, qc=None if qc == "none" else qc,
+                    outcome=outcome, max_tiles=max_tiles, seed=seed)
+    tfr_kw = dict(labels=labels, outcome=outcome, max_tiles=max_tiles,
+                  seed=seed)
+    if slides and dist_workdir is not None:
+        df = predict_slides_distributed(sv, paths, dist_workdir, **slide_kw)
+    elif slides:
+        df = predict_slides(sv, paths, **slide_kw)
+    elif dist_workdir is not None:
+        df = predict_tfrecords_distributed(sv, paths, dist_workdir, **tfr_kw)
     else:
-        df = predict_tfrecords(sv, paths, labels=labels, outcome=outcome,
-                               max_tiles=max_tiles, seed=seed)
+        df = predict_tfrecords(sv, paths, **tfr_kw)
     dt = time.perf_counter() - t0
+    if dist_workdir is not None and not distributed.is_main():
+        # Every process holds the same merged frame; main writes it.
+        log.info(f"{len(df)} tiles merged; main writes {out}")
+        return
     if parquet:
         # Only an explicit .csv suffix (the default name among them) is
         # rewritten; any other -o value is written as given.

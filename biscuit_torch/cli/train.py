@@ -6,8 +6,11 @@ orderings), 3:1/10:1 class-ratio experiments on the 'AMDPGZ' subset, and
 GAN-fraction experiments (10-50%) — via Experiment.run, with the same
 ``--steps`` range parser. ``--device`` says where every training and
 evaluation runs (the card by default; ``cpu`` to run without one).
-``--submeshes`` greater than 1 raises until the port's parallelism
-(ROADMAP.md Queue 1 item 9).
+``--submeshes N`` trains the independent folds of each step on N device
+groups at once (``Experiment``'s ``n_submeshes``). Started in every
+process of a torchrun-style runtime (``MASTER_ADDR``, ``MASTER_PORT``,
+``RANK``, ``WORLD_SIZE``), the processes claim the folds through the
+store and each trains its claims on its own ``--submeshes`` groups.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ def num_range(s: str):
               help="Include the reverse/order2 orderings of the reg matrix.")
 @click.option("--submeshes", default=1, type=int,
               help="Train independent folds concurrently on N device "
-                   "groups (not ported yet: only 1).")
+                   "groups (of this process, under a multi-process "
+                   "runtime, whose processes share out the folds).")
 @click.option("--device", default=None,
               help="Where to train and evaluate: the CUDA card by default, "
                    "or e.g. 'cpu'.")
@@ -60,6 +64,9 @@ def train_models(train_project, eval_projects, outcome, outcome1, outcome2,
                  steps, reg, ratio, gan, subset, hp_json, orderings,
                  submeshes, device):
     """Train the published experiment grid (train.py:27-96)."""
+    from ..parallel import distributed
+
+    distributed.initialize()
     experiment = Experiment(
         train_project,
         eval_projects=list(eval_projects),
@@ -67,7 +74,7 @@ def train_models(train_project, eval_projects, outcome, outcome1, outcome2,
         outcome1=outcome1,
         outcome2=outcome2,
     )
-    if submeshes and submeshes > 1:
+    if submeshes > 1 or distributed.process_count() > 1:
         experiment.train_kwargs["n_submeshes"] = submeshes
     if device is not None:
         experiment.train_kwargs["device"] = device

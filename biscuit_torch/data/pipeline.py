@@ -14,7 +14,9 @@ Pillow-written 299-px tile about ten times slower than Pillow). With
 library's threaded reader (``data/native_loader.py``) with the GIL
 released, and a tile its decoder rejects is decoded in Python, as the
 JAX package's ``_gather_native`` does; both give the same bytes. The
-JAX package's multi-host sharding is not ported. With ``jpeg_aug`` each
+JAX package's sharding of the tile stream over processes belongs to
+lockstep data parallelism (ROADMAP.md Queue 1 item 9b) and is not
+ported. With ``jpeg_aug`` each
 training tile is re-compressed on the host after decoding
 (``data/augment.py`` ``jpeg_augment_host``, drawing from the batcher's
 shuffle generator, as the JAX package's Python path does), always in

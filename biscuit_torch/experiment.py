@@ -20,11 +20,17 @@ figure by its project. Resumes are idempotent: every step checks
 ``results_log.csv`` exists, and partial k-folds are completed fold by
 fold.
 
-One process only: ``train_kwargs["n_submeshes"] > 1`` and
-``train_nested_cv``'s ``scheduler``/``claim``/``collect`` (the JAX
-package's submesh and multi-host fold scheduling) raise until the port's
-parallelism (ROADMAP.md Queue 1 item 9). matplotlib, seaborn and scipy
-are imported only by the figure code.
+Fold scheduling: with ``train_kwargs["n_submeshes"] = N`` the
+independent (experiment, fold) trainings of a step run concurrently on
+N disjoint device groups (``parallel/scheduler.py``): this process's
+cards, or N copies of ``train_kwargs["device"]`` where that is given.
+Under a multi-process runtime (``parallel/distributed.py``) the same
+setting distributes the folds: each process claims folds through the
+store and trains them on its own devices, and every step ends with a
+status exchange, so one process's failure aborts all of them. Without
+``n_submeshes`` a multi-process run would train each fold in lockstep
+over all processes, which raises (ROADMAP.md Queue 1 item 9b).
+matplotlib, seaborn and scipy are imported only by the figure code.
 """
 
 from __future__ import annotations
@@ -284,16 +290,17 @@ class Experiment:
         """Nested cross-validation: for each outer fold's training slides,
         run an inner k-fold (experiment.py:1053-1090); idempotent.
 
-        ``scheduler``, ``claim`` and ``collect`` (the JAX package's
-        submesh and distributed fold scheduling) raise until ROADMAP.md
-        Queue 1 item 9."""
-        if scheduler is not None or claim is not None or collect is not None:
-            raise NotImplementedError(
-                "scheduled nested CV (scheduler/claim/collect) needs the "
-                "port's parallelism, ROADMAP.md Queue 1 item 9")
+        With a ``parallel.scheduler.SubmeshScheduler``, each (outer,
+        inner) fold is an independent task on its own submesh; inner
+        folds share nothing but the lock-guarded splits JSON. ``claim``
+        (a callable) keeps the tasks this process owns under distributed
+        fold scheduling; with ``collect`` (a list) the tasks are appended
+        to it instead of run, so that ``run`` dispatches step 4 of every
+        size with one status exchange."""
         k_models = utils.find_cv(
             self.train_project, label, k=outer_k, outcome=self.outcome
         )
+        tasks = []
         for ki, k_model in enumerate(k_models):
             inner_to_run = [
                 k for k in range(1, inner_k + 1)
@@ -315,15 +322,34 @@ class Experiment:
             train_slides = utils.get_slides_from_model_manifest(
                 k_model, dataset="training"
             )
-            self.train(
-                hp=hp,
-                label=f"{label}-k{ki + 1}",
-                filters={"slide": train_slides},
-                val_k_fold=inner_k,
-                val_k=inner_to_run,
-                save_model=False,
-                **kwargs,
-            )
+            if scheduler is None:
+                self.train(
+                    hp=hp,
+                    label=f"{label}-k{ki + 1}",
+                    filters={"slide": train_slides},
+                    val_k_fold=inner_k,
+                    val_k=inner_to_run,
+                    save_model=False,
+                    **kwargs,
+                )
+                continue
+            for k in inner_to_run:
+                if claim is not None and not claim(f"{label}-k{ki + 1}_k{k}"):
+                    continue  # a peer process owns this inner fold
+                tasks.append(
+                    lambda mesh, hp=hp.copy(), ki=ki, k=k, ts=train_slides,
+                    kw=dict(kwargs): self.train(
+                        hp=hp, label=f"{label}-k{ki + 1}",
+                        filters={"slide": ts}, val_k_fold=inner_k,
+                        val_k=[k], save_model=False, mesh=mesh, **kw,
+                    )
+                )
+        if collect is not None:
+            collect.extend(tasks)
+        elif scheduler is not None and tasks:
+            for r in scheduler.run(tasks):
+                if isinstance(r, Exception):
+                    raise r
 
     # ------------------------------------------------------------------
     # The 6-step protocol
@@ -335,24 +361,42 @@ class Experiment:
         Steps: 1 full-epoch sweep (AA/A/D/G at epochs [1,3,5,10]);
         2 remaining sizes at epoch 1; 3 same with UQ; 4 nested UQ CV;
         5 FULL models (val none, early-stop step budget); 6 external eval.
-        In one process, step by step and fold by fold; step 6 passes
-        ``train_kwargs``' ``max_tiles``, ``device`` and ``fuse_blocks``
-        on to ``Project.evaluate``.
+        Step 6 passes ``train_kwargs``' ``max_tiles``, ``device`` and
+        ``fuse_blocks`` on to ``Project.evaluate``. ``n_submeshes`` in
+        ``train_kwargs`` schedules the folds (see the module docstring).
         """
         print(bold("Initializing experiments..."))
-        n_submeshes = self.train_kwargs.get("n_submeshes", 1) or 1
-        if n_submeshes > 1:
-            raise NotImplementedError(
-                "n_submeshes > 1 (concurrent folds on device submeshes) "
-                "needs the port's parallelism, ROADMAP.md Queue 1 item 9")
+        from .parallel import distributed as dist
+
         P = self.train_project
+        # Under a multi-process runtime, n_submeshes means N submeshes
+        # over THIS process's devices, with (experiment, fold) tasks
+        # claimed across all processes and trained independently on the
+        # shared artifact tree.
+        multiproc = dist.process_count() > 1
+        distribute = multiproc and "n_submeshes" in self.train_kwargs
+        if multiproc and not distribute:
+            raise NotImplementedError(
+                "Experiment.run under a multi-process runtime without "
+                "train_kwargs['n_submeshes'] trains every fold in lockstep "
+                f"over all processes, which needs {dist.ITEM_9B}; set "
+                "n_submeshes to distribute the folds instead")
+        # Step barriers must outlive the longest peer's step: real ladder
+        # steps run for hours.
+        barrier_ms = int(os.environ.get(
+            "BISCUIT_STEP_BARRIER_MS", 48 * 3600 * 1000))
         exp_annotations = join(P.root, "experiments.csv")
-        if not exists(exp_annotations):
-            shutil.copy(P.annotations, exp_annotations)
-        existing_cols = pd.read_csv(exp_annotations, nrows=0).columns.tolist()
-        for exp in exp_to_run:
-            if f"include_{exp}" not in existing_cols:
-                self.add(exp_annotations, label=exp, **exp_to_run[exp])
+        if not distribute or dist.is_main():
+            if not exists(exp_annotations):
+                shutil.copy(P.annotations, exp_annotations)
+            existing_cols = pd.read_csv(
+                exp_annotations, nrows=0).columns.tolist()
+            for exp in exp_to_run:
+                if f"include_{exp}" not in existing_cols:
+                    self.add(exp_annotations, label=exp, **exp_to_run[exp])
+        if distribute:
+            # Peers wait for main's annotation writes before reading them.
+            dist.barrier("exp_annotations", barrier_ms)
         P.annotations = exp_annotations
 
         full_epoch_exp = [e for e in exp_to_run if e in FULL_EPOCH_EXPS]
@@ -377,7 +421,60 @@ class Experiment:
                 k for k in range(1, 4) if not _fold_complete(label, k)
             ]
 
+        # Experiment-level parallelism: with train_kwargs={'n_submeshes':
+        # N}, the independent (experiment, fold) trainings of a step run
+        # on N disjoint device groups (parallel/scheduler.py). Without it
+        # (N <= 1, one process) the reference's sequential order holds.
+        n_submeshes = self.train_kwargs.get("n_submeshes", 1) or 1
+        scheduler = None
+        claim_ns = None
+        if distribute or n_submeshes > 1:
+            import uuid
+
+            from .parallel.mesh import local_devices
+            from .parallel.scheduler import SubmeshScheduler
+
+            device = self.train_kwargs.get("device")
+            devices = (local_devices() if device is None
+                       else [device] * n_submeshes)
+            scheduler = SubmeshScheduler(n_submeshes=n_submeshes,
+                                         devices=devices)
+            if distribute:
+                # Claim tokens are namespaced per run() call: the store's
+                # counters live as long as the runtime, and a claim from
+                # an earlier call must not mask a fold still to train
+                # (completed folds are skipped by _fold_complete).
+                claim_ns = dist.broadcast_from_main(
+                    "exp_run_nonce",
+                    uuid.uuid4().hex[:12] if dist.is_main() else None,
+                    timeout_ms=barrier_ms)
+
+        def _claim(token):
+            """True when this process owns the task (always, alone)."""
+            return claim_ns is None or dist.try_claim(f"{claim_ns}_{token}")
+
+        def _dispatch(step_num, tasks):
+            """Run scheduler tasks and re-raise the first failure, as the
+            sequential order would. Distributed: every process meets at
+            the step boundary and learns whether any peer failed, so no
+            later step reads a half-written one."""
+            err = None
+            if tasks:
+                for r in scheduler.run(tasks):
+                    if isinstance(r, Exception):
+                        err = err or r
+            if distribute:
+                all_ok = dist.exchange_ok(
+                    f"{claim_ns}_step{step_num}", err is None, barrier_ms)
+                if err is None and not all_ok:
+                    raise RuntimeError(
+                        f"a peer process failed step {step_num} "
+                        "(distributed fold scheduling)")
+            if err is not None:
+                raise err
+
         def _cv_step(step_num, exps, uq):
+            tasks = []
             for exp in exps:
                 label = f"EXP_{exp}_UQ" if uq else f"EXP_{exp}"
                 val_k = _pending_folds(label)
@@ -388,12 +485,23 @@ class Experiment:
                 if val_k != [1, 2, 3]:
                     print(f"[Step {step_num}] Some k-folds done; running "
                           f"{val_k} for {exp}")
-                self.train(
-                    hp=exp_hp, val_k=val_k, label=label,
-                    filters={f"include_{exp}": ["include"]},
+                kwargs = dict(
+                    label=label, filters={f"include_{exp}": ["include"]},
                     splits=f"splits_{exp}.json", val_strategy="k-fold",
                     save_model=False,
                 )
+                if scheduler is None:
+                    self.train(hp=exp_hp, val_k=val_k, **kwargs)
+                    continue
+                for k in val_k:
+                    if not _claim(f"{label}_k{k}"):
+                        continue  # a peer process owns this fold
+                    tasks.append(
+                        lambda mesh, hp=exp_hp.copy(), k=k, kw=kwargs:
+                        self.train(hp=hp, val_k=[k], mesh=mesh, **kw)
+                    )
+            if scheduler is not None:
+                _dispatch(step_num, tasks)
 
         if 1 in steps:
             print(bold("[Step 1] Running full-epoch experiments..."))
@@ -418,6 +526,7 @@ class Experiment:
             print(bold("[Step 4] Running nested UQ experiments..."))
             exp_hp.epochs = [1]
             exp_hp.uq = True
+            step4_tasks = [] if distribute else None
             for exp in exp_to_run:
                 total = exp_to_run[exp]["out1"] + exp_to_run[exp]["out2"]
                 if total >= 50:
@@ -426,14 +535,20 @@ class Experiment:
                         label=f"EXP_{exp}_UQ",
                         val_strategy="k-fold",
                         splits=f"splits_{exp}_nested.json",
+                        scheduler=scheduler,
+                        claim=_claim if distribute else None,
+                        collect=step4_tasks,
                     )
                 else:
                     print(f"[Step 4] Skipping UQ for {exp}, need >=50 slides")
+            if distribute:
+                _dispatch(4, step4_tasks)
 
         if 5 in steps:
             print(bold("[Step 5] Training across full datasets..."))
             exp_hp.epochs = [1]
             exp_hp.uq = True
+            full_tasks = []
             for exp in exp_to_run:
                 if _fold_complete(f"EXP_{exp}_FULL", None):
                     print(f"Skipping Step 5 for experiment {exp}; "
@@ -446,38 +561,73 @@ class Experiment:
                 except (MatchError, FileNotFoundError):
                     stop_batch = None
                 print(f"Using detected early stop batch {stop_batch}")
-                self.train(
-                    hp=exp_hp, label=f"EXP_{exp}_FULL",
+                kwargs = dict(
+                    label=f"EXP_{exp}_FULL",
                     filters={f"include_{exp}": ["include"]},
                     save_model=True, val_strategy="none",
                     steps_per_epoch_override=stop_batch,
                 )
+                if scheduler is None:
+                    self.train(hp=exp_hp, **kwargs)
+                    continue
+                if not _claim(f"EXP_{exp}_FULL"):
+                    continue  # a peer process owns this FULL model
+                full_tasks.append(
+                    lambda mesh, hp=exp_hp.copy(), kw=kwargs:
+                    self.train(hp=hp, mesh=mesh, **kw)
+                )
+            if scheduler is not None:
+                _dispatch(5, full_tasks)
 
         if 6 in steps:
+            # Distributed: evaluations are claimed per (eval project,
+            # experiment) and run in the claiming process alone
+            # (collective=False); one status exchange closes the step.
             eval_kwargs = {k: v for k, v in self.train_kwargs.items()
                            if k in ("max_tiles", "device", "fuse_blocks")}
+            if distribute:
+                eval_kwargs["collective"] = False
+            step6_err = None
             for val_P in self.eval_projects:
                 print(bold(f"[Step 6] Running eval ({val_P.name})..."))
                 for exp in exp_to_run:
-                    full_model = utils.find_model(
-                        P, f"EXP_{exp}_FULL", outcome=self.outcome, epoch=1,
-                    )
-                    if utils.eval_exists(
-                        val_P, f"EXP_{exp}_FULL", outcome=self.outcome,
-                        epoch=1,
-                    ):
-                        print(f"Skipping eval for experiment {exp}; "
-                              "already done.")
-                        continue
-                    val_P.evaluate(
-                        full_model,
-                        self.outcome,
-                        filters={
-                            self.outcome: [self.outcome1, self.outcome2]
-                        },
-                        save_predictions=True,
-                        **eval_kwargs,
-                    )
+                    if distribute and not _claim(f"eval_{val_P.name}_{exp}"):
+                        continue  # a peer process owns this evaluation
+                    try:
+                        full_model = utils.find_model(
+                            P, f"EXP_{exp}_FULL", outcome=self.outcome,
+                            epoch=1,
+                        )
+                        if utils.eval_exists(
+                            val_P, f"EXP_{exp}_FULL", outcome=self.outcome,
+                            epoch=1,
+                        ):
+                            print(f"Skipping eval for experiment {exp}; "
+                                  "already done.")
+                            continue
+                        val_P.evaluate(
+                            full_model,
+                            self.outcome,
+                            filters={
+                                self.outcome: [self.outcome1, self.outcome2]
+                            },
+                            save_predictions=True,
+                            **eval_kwargs,
+                        )
+                    except Exception as e:
+                        if not distribute:
+                            raise
+                        step6_err = step6_err or e
+                        log.error(f"[Step 6] eval {exp} failed: {e}")
+            if distribute:
+                all_ok = dist.exchange_ok(
+                    f"{claim_ns}_step6", step6_err is None, barrier_ms)
+                if step6_err is not None:
+                    raise step6_err
+                if not all_ok:
+                    raise RuntimeError(
+                        "a peer process failed step 6 "
+                        "(distributed fold scheduling)")
 
     # ------------------------------------------------------------------
     # Nested-CV threshold derivation

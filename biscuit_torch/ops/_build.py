@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -50,10 +51,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _libs: dict = {}
 _fns: dict = {}
 _launches = {name: 0 for name in KERNELS}
+_launches_lock = threading.Lock()   # submesh trainings run in threads
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    with _launches_lock:
+        _launches[name] += 1
 
 
 def launch_counts() -> dict:

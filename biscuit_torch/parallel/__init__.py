@@ -1,0 +1,14 @@
+"""Parallelism that needs no collective: the devices a task runs on
+(``mesh.py``), independent trainings on disjoint device groups
+(``scheduler.py``) and the coordination of several processes through a
+key-value store (``distributed.py``). Counterpart of
+``biscuit_tpu/parallel/``."""
+
+from .mesh import (  # noqa: F401
+    Mesh,
+    batch_sharding,
+    data_parallel_mesh,
+    local_devices,
+    replicated,
+    shard_batch,
+)

@@ -39,6 +39,12 @@ the string ``"torch-1"``, so the JAX package's reader refuses a port
 artifact, and this one refuses the JAX package's versions 1 and 2.
 ``torch.export``'s file format is not promised across PyTorch versions:
 export where you serve, or with the same PyTorch.
+
+Several devices and processes: ``ShardedServable`` loads one artifact
+on each device of a process-local mesh (``parallel/mesh.py``) and splits
+each padded batch over them; ``predict_tfrecords_distributed`` and
+``predict_slides_distributed`` score a list across processes that claim
+its items through the store of ``parallel/distributed.py``.
 """
 
 from __future__ import annotations
@@ -55,9 +61,6 @@ import torch
 _MAGIC = b"BISCUIT-SERVABLE\n"
 FORMAT_VERSION = "torch-1"
 _JAX_VERSIONS = (1, 2)
-_ITEM_9 = ("is not ported yet (ROADMAP.md Queue 1 item 9, parallelism): "
-           "use load_servable and predict_tfrecords/predict_slides in one "
-           "process")
 
 
 def _weights_digest(model_path: str) -> Optional[str]:
@@ -424,7 +427,15 @@ class Servable:
     """
 
     def __init__(self, path: str, device=None):
-        header, programs = _read_container(path)
+        self._init(*_read_container(path), device)
+
+    @classmethod
+    def _from_container(cls, header: dict, programs: dict, device):
+        obj = cls.__new__(cls)
+        obj._init(header, programs, device)
+        return obj
+
+    def _init(self, header: dict, programs: dict, device) -> None:
         _unpack_header(self, header)
         self.device = _serving_device(header, device)
         self._programs = programs
@@ -505,16 +516,120 @@ def load_servable(path: str, device=None) -> Servable:
     return Servable(path, device=device)
 
 
+def _fold_seed(seed: int, i: int) -> int:
+    """An independent 32-bit seed for part ``i`` of the work seeded by
+    ``seed`` (shard i of a batch, item i of a list), the counterpart of
+    ``jax.random.fold_in(key, i)``."""
+    digest = hashlib.blake2b(f"{int(seed)}/{int(i)}".encode(),
+                             digest_size=4).digest()
+    return int.from_bytes(digest, "little")
+
+
 class ShardedServable:
-    """Data-parallel fan-out of a servable over several cards: not ported
-    yet (ROADMAP.md Queue 1 item 9)."""
+    """Data-parallel fan-out of a servable over the devices of a
+    process-local ``parallel.mesh.Mesh``.
 
-    def __init__(self, path: str, *args, **kwargs):
-        raise NotImplementedError(f"ShardedServable {_ITEM_9}")
+    One artifact (static per-device batch ``batch_size``) is loaded once
+    on each device of the mesh and serves ``batch_size x n_devices``
+    tiles a dispatch: the padded global batch is split over the mesh's
+    devices in order, each part runs its device's program, and the rows
+    are gathered back in order on the mesh's first device. The program
+    holds no collective, so the same artifact serves one card or many.
+
+    Shard ``i`` of a call draws its dropout masks from ``_fold_seed(seed,
+    i)``, so shards draw independent streams; passing ``seed=`` pins the
+    whole global batch. A call without one takes the next number of the
+    internal stream, as ``Servable`` does.
+    """
+
+    def __init__(self, path: str, mesh=None, axis: str = "data"):
+        from .parallel import distributed
+        from .parallel.mesh import data_parallel_mesh
+
+        header, programs = _read_container(path)
+        _unpack_header(self, header)  # batch_size is per device
+        if mesh is None:
+            mesh = data_parallel_mesh(axis=axis)
+        if distributed.mesh_spans_processes(mesh):
+            raise ValueError("a ShardedServable fans out over this "
+                             "process's devices; a mesh that spans "
+                             "processes needs "
+                             f"{distributed.ITEM_9B}")
+        self.mesh = mesh
+        self.axis = axis
+        self.n_shards = mesh.size
+        self.global_batch = self.batch_size * self.n_shards
+        self._programs = programs
+        self._calls = 0
+        loaded = {}
+        for dev in mesh.devices:
+            if dev not in loaded:
+                loaded[dev] = Servable._from_container(header, programs, dev)
+        self._shards = [loaded[dev] for dev in mesh.devices]
+        self.device = self._shards[0].device
+
+    @property
+    def platforms(self):
+        return tuple(self.header["platforms"])
+
+    @property
+    def has_features(self) -> bool:
+        return "features" in self._programs
+
+    def _shard_seeds(self, seed):
+        if seed is None:
+            seed = self._calls & 0xFFFFFFFF
+            self._calls += 1
+        return [_fold_seed(seed, i) for i in range(self.n_shards)]
+
+    def _check_exact(self, tiles):
+        tiles = torch.as_tensor(tiles)
+        want = (self.global_batch, self.tile_px, self.tile_px, 3)
+        if tuple(tiles.shape) != want or tiles.dtype != torch.uint8:
+            raise ValueError(
+                f"sharded servable expects uint8 tiles of shape {want} "
+                f"({self.n_shards} shards x batch {self.batch_size}), got "
+                f"{tuple(tiles.shape)} {tiles.dtype}; use __call__ for "
+                "any-n batches")
+        return tiles
+
+    def _fan_out(self, method: str, tiles, seed):
+        from .parallel.mesh import batch_sharding
+
+        parts = batch_sharding(self.mesh).place(self._check_exact(tiles))
+        outs = [getattr(shard, method)(part, seed=s) for shard, part, s in
+                zip(self._shards, parts, self._shard_seeds(seed))]
+        return tuple(torch.cat([o[j].to(self.device) for o in outs])
+                     for j in range(len(outs[0])))
+
+    def call_exact(self, tiles, seed=None):
+        """The program on every shard: tiles must be (global_batch, px,
+        px, 3) uint8 -> (mean, std), each (global_batch, C)."""
+        return self._fan_out("call_exact", tiles, seed)
+
+    def __call__(self, tiles, seed=None):
+        return _chunked_call(self.call_exact, self.global_batch, tiles, seed)
+
+    def features_exact(self, tiles, seed=None):
+        """The feature program on every shard: (global_batch, px, px, 3)
+        -> (feats, mean, std)."""
+        if not self.has_features:
+            raise ValueError(
+                "this artifact was exported without the feature program; "
+                "re-export with export_servable(..., with_features=True)")
+        return self._fan_out("features_exact", tiles, seed)
+
+    def features(self, tiles, seed=None):
+        """Any-n sharded feature extraction: (feats, mean, std)."""
+        return _chunked_call(self.features_exact, self.global_batch, tiles,
+                             seed)
 
 
-def load_sharded_servable(path: str, *args, **kwargs):
-    raise NotImplementedError(f"load_sharded_servable {_ITEM_9}")
+def load_sharded_servable(path: str, mesh=None,
+                          axis: str = "data") -> ShardedServable:
+    """Load a servable and fan it out over ``mesh`` (default: a 1-D mesh
+    over every card of this process)."""
+    return ShardedServable(path, mesh=mesh, axis=axis)
 
 
 def _batch_seed(seed, b: int):
@@ -529,7 +644,9 @@ def predict_tfrecords(servable, tfrecords, labels=None, outcome="cohort",
     ``{outcome}_uncertainty{i}``), as ``trainer.predict_tiles`` writes it.
 
     Args:
-        servable: a loaded servable (``load_servable``).
+        servable: a loaded servable (``load_servable``), or a
+            ``ShardedServable``, which scores ``global_batch`` tiles a
+            dispatch.
         tfrecords: per-slide ``{slide}.tfrecords`` paths.
         labels: optional slide -> int label map; other slides get -1.
         outcome: outcome name for the column prefix.
@@ -542,7 +659,9 @@ def predict_tfrecords(servable, tfrecords, labels=None, outcome="cohort",
 
     batcher = PrefetchBatcher(
         TileBatcher(
-            list(tfrecords), labels or {}, batch_size=servable.batch_size,
+            list(tfrecords), labels or {},
+            batch_size=int(getattr(servable, "global_batch",
+                                   servable.batch_size)),
             shuffle=False, infinite=False, max_tiles=max_tiles,
             tile_px=servable.tile_px,
         ),
@@ -566,8 +685,129 @@ def predict_tfrecords(servable, tfrecords, labels=None, outcome="cohort",
     return tile_predictions_frame(outcome, df, probs, unc)
 
 
-def predict_tfrecords_distributed(*args, **kwargs):
-    raise NotImplementedError(f"predict_tfrecords_distributed {_ITEM_9}")
+def predict_tfrecords_distributed(servable, tfrecords, workdir, labels=None,
+                                  outcome="cohort", max_tiles=None,
+                                  seed=None, timeout_ms=600_000):
+    """Score tfrecords across the processes of a multi-process runtime
+    (``parallel.distributed.initialize``).
+
+    Every process calls this with the SAME tfrecord list: claims and the
+    output order key on the list index. Each process claims whole
+    tfrecords (``parallel.distributed.try_claim``), scores its claims
+    through its own servable and writes one shard into ``workdir``, a
+    path all processes share. A status exchange closes the scoring, so
+    one process's failure aborts every process instead of leaving them
+    waiting at the merge; then every process reads all shards and
+    returns the same merged frame, in the input list's order.
+
+    With ``seed``, tfrecord ``i`` is scored with ``_fold_seed(seed, i)``
+    (its batch b from ``(that << 32) | b``) whichever process claims it,
+    so the merged frame is the same at any number of processes.
+    Single-process every claim is won here and the merge reads back the
+    one shard.
+    """
+    from .data.tfrecord import load_index
+
+    def score_one(i, path, sub):
+        if len(load_index(path)) == 0:
+            # A tfrecord that QC left empty contributes no rows (scored
+            # alone it would raise TileBatcher's no-tiles error).
+            return None
+        return predict_tfrecords(servable, [path], labels=labels,
+                                 outcome=outcome, max_tiles=max_tiles,
+                                 seed=sub)
+
+    return _distributed_claim_map(servable, tfrecords, workdir, score_one,
+                                  outcome, seed, timeout_ms)
+
+
+def _distributed_claim_map(servable, items, workdir, score_one, outcome,
+                           seed, timeout_ms):
+    """The claim, score and merge loop behind ``predict_*_distributed``:
+    item ``i`` is claimed across the processes and scored here by
+    ``score_one(i, item, _fold_seed(seed, i))`` (None: no rows); shards
+    meet in ``workdir``; a status exchange aborts every process when one
+    fails; every process returns the same merged frame, in list order.
+
+    Shards are pandas pickles (exact dtypes, no extra dependency) named
+    by a per-call nonce from main, so a reused workdir cannot leak an
+    earlier call's shards into the merge."""
+    import time
+    import uuid
+    from glob import glob
+
+    import pandas as pd
+
+    from .parallel import distributed as dist
+    from .utils import tile_predictions_frame
+
+    mesh = getattr(servable, "mesh", None)
+    if mesh is not None and dist.mesh_spans_processes(mesh):
+        raise ValueError(
+            "distributed scoring runs independent claims in each process; "
+            "a ShardedServable here must fan out over this process's "
+            "devices only (load_sharded_servable(path, "
+            "mesh=data_parallel_mesh(local_devices())))")
+    items = [str(p) for p in items]
+    os.makedirs(workdir, exist_ok=True)
+    # Claim tokens are namespaced per call: the store's counters outlive
+    # one call, and an earlier call's claims must not starve this one.
+    ns = dist.broadcast_from_main(
+        "predict_nonce", uuid.uuid4().hex[:12] if dist.is_main() else None,
+        timeout_ms=timeout_ms)
+    pid = dist.process_index()
+
+    err = None
+    wrote_shard = False
+    try:
+        frames = []
+        for i, item in enumerate(items):
+            if not dist.try_claim(f"{ns}_item{i}"):
+                continue
+            sub = None if seed is None else _fold_seed(seed, i)
+            df = score_one(i, item, sub)
+            if df is None:
+                continue
+            df.insert(0, "_src", i)
+            frames.append(df)
+        if frames:
+            shard = pd.concat(frames, ignore_index=True)
+            tmp = os.path.join(workdir, f".{ns}_shard_{pid}.tmp")
+            shard.to_pickle(tmp)
+            os.replace(tmp, os.path.join(workdir, f"{ns}_shard_{pid}.pkl"))
+            wrote_shard = True
+    except Exception as e:
+        err = e
+    all_ok = dist.exchange_ok(f"{ns}_scored", err is None, timeout_ms)
+    if err is not None:
+        raise err
+    if not all_ok:
+        raise RuntimeError("a peer process failed distributed scoring")
+    # Each process says whether it wrote a shard, so the merge checks the
+    # count instead of trusting a listing that a shared filesystem's
+    # attribute cache can leave short for a moment.
+    n_expect = sum(int(v) for v in dist.exchange_values(
+        f"{ns}_wrote", "1" if wrote_shard else "0", timeout_ms))
+    pattern = os.path.join(workdir, f"{ns}_shard_*.pkl")
+    deadline = time.monotonic() + 30.0
+    shards = sorted(glob(pattern))
+    while len(shards) < n_expect and time.monotonic() < deadline:
+        time.sleep(0.2)
+        shards = sorted(glob(pattern))
+    if len(shards) != n_expect:
+        raise RuntimeError(
+            f"distributed scoring merge expected {n_expect} shard files "
+            f"under {workdir} but sees {len(shards)}: is workdir shared "
+            "by every process?")
+    if not shards:
+        empty = pd.DataFrame({"slide": [], "loc_x": [], "loc_y": [],
+                              "y_true": []})
+        return tile_predictions_frame(outcome, empty,
+                                      np.zeros((0, 2), np.float32), None)
+    merged = pd.concat([pd.read_pickle(p) for p in shards],
+                       ignore_index=True)
+    merged = merged.sort_values("_src", kind="stable").drop(columns="_src")
+    return merged.reset_index(drop=True)
 
 
 def predict_slides(servable, slides, tile_um=None, mpp=None, qc="both",
@@ -596,7 +836,7 @@ def predict_slides(servable, slides, tile_um=None, mpp=None, qc="both",
     tile_um = tile_um if tile_um is not None else servable.tile_um
     if tile_um is None:
         raise ValueError("this artifact records no tile_um; pass tile_um=")
-    step = servable.batch_size
+    step = int(getattr(servable, "global_batch", servable.batch_size))
     rows = {"slide": [], "loc_x": [], "loc_y": [], "y_true": []}
     probs_all, unc_all = [], []
     batches = 0
@@ -640,5 +880,23 @@ def predict_slides(servable, slides, tile_um=None, mpp=None, qc="both",
     return tile_predictions_frame(outcome, pd.DataFrame(rows), probs, unc)
 
 
-def predict_slides_distributed(*args, **kwargs):
-    raise NotImplementedError(f"predict_slides_distributed {_ITEM_9}")
+def predict_slides_distributed(servable, slides, workdir, tile_um=None,
+                               mpp=None, qc="both", stride_div=1,
+                               roi_method="ignore", outcome="cohort",
+                               max_tiles=None, seed=None,
+                               timeout_ms=600_000):
+    """Score whole-slide images across processes: the
+    :func:`predict_slides` loop with the claim, merge and abort protocol
+    of :func:`predict_tfrecords_distributed`, one claim a slide. Every
+    process returns the same merged frame, in the input list's order,
+    independent of the number of processes (slide ``i`` is scored with
+    ``_fold_seed(seed, i)``)."""
+
+    def score_one(i, path, sub):
+        return predict_slides(servable, [path], tile_um=tile_um, mpp=mpp,
+                              qc=qc, stride_div=stride_div,
+                              roi_method=roi_method, outcome=outcome,
+                              max_tiles=max_tiles, seed=sub)
+
+    return _distributed_claim_map(servable, slides, workdir, score_one,
+                                  outcome, seed, timeout_ms)

@@ -9,9 +9,12 @@ so the JAX package's readers (``utils.find_eval``, whose slice of the
 first 11 characters the prefix matches, and the results readers) read
 what this writes.
 
-Single process only: the JAX package's multi-process branch, where the
-main process evaluates and publishes the metrics to the others, waits
-for the port's parallelism (ROADMAP.md Queue 1 item 9).
+Under a multi-process runtime (``parallel/distributed.py``) the main
+process evaluates and publishes the metrics through the store; the
+others wait for them instead of racing for the eval dir and its CSVs.
+``collective=False`` opts out, for an evaluation that only this process
+runs (the fold scheduling of ``Experiment.run`` claims evaluations one
+by one).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ def evaluate_project(
     max_tiles: Optional[int] = None,
     device=None,
     fuse_blocks: bool = False,
+    collective: bool = True,
 ):
     """Evaluate a saved model over this project's dataset.
 
@@ -55,10 +59,25 @@ def evaluate_project(
         model_path: path to a saved ``..._epoch{E}`` model dir.
         device: where the model runs (the card unless ``"cpu"``).
         fuse_blocks: the fully fused trunk, as in ``score_tiles``.
+        collective: under a multi-process runtime, True (default) means
+            every process calls this together: main evaluates and
+            publishes the metrics. False: only this process evaluates,
+            with no exchange.
     Returns:
         dict with ``eval_dir`` and level -> (auc, ap) for ``tile``,
         ``slide`` and ``patient``; writes the eval dir.
     """
+    from ..parallel import distributed as dist
+
+    # One hour covers an external evaluation of the full cohort.
+    multiproc = dist.process_count() > 1 and collective
+    if multiproc and not dist.is_main():
+        results = json.loads(dist.broadcast_from_main(
+            "eval_results", None, timeout_ms=3_600_000))
+        # JSON turns the (auc, ap) tuples into lists; restore them.
+        return {k: tuple(v) if isinstance(v, list) else v
+                for k, v in results.items()}
+
     model, hp, meta = load_checkpoint(model_path, device)
     label = meta["label"]
     epoch_name = basename(model_path.rstrip("/"))
@@ -119,9 +138,13 @@ def evaluate_project(
         ]
     ).to_csv(join(out_dir, "results_log.csv"), index=False)
 
-    return {
+    results = {
         "eval_dir": out_dir,
         "tile": (t_auc, t_ap),
         "slide": (s_auc, s_ap),
         "patient": (p_auc, p_ap),
     }
+    if multiproc:
+        dist.broadcast_from_main("eval_results", json.dumps(results),
+                                 timeout_ms=3_600_000)
+    return results

@@ -468,9 +468,11 @@ def train_project(
     checkpoint_every: Optional[int] = None,
     device=None,
     fuse_blocks: bool = False,
+    mesh=None,
 ):
     """Train model(s) for an experiment label; ``sf.Project.train``'s
-    counterpart, as the JAX package's ``train_project`` in one process.
+    counterpart, as the JAX package's ``train_project`` over a
+    process-local device.
 
     ``val_strategy`` 'k-fold' trains fold k of ``val_k`` (all
     ``val_k_fold`` folds by default) with seed ``seed + k`` on the
@@ -486,9 +488,21 @@ def train_project(
         fuse_blocks: validation predictions through the fully fused
             trunk (``UncertaintyInterface``'s ``fuse_blocks``; the JAX
             package's ``BISCUIT_FUSED_BLOCKS``).
+        mesh: a one-device ``parallel.mesh.Mesh`` (a submesh of the
+            ``SubmeshScheduler``) to train on instead of ``device``. A
+            mesh of several devices, or one that spans processes, is
+            lockstep data parallelism, which raises (ROADMAP.md Queue 1
+            item 9b).
 
     Returns the list of model directories it wrote.
     """
+    if mesh is not None:
+        from ..parallel import distributed
+
+        if distributed.mesh_spans_processes(mesh) or mesh.size > 1:
+            raise NotImplementedError(
+                f"train_project over {mesh} needs {distributed.ITEM_9B}")
+        device = mesh.devices[0]
     dev = resolve_device(device)
     hp = params if params is not None else ModelParams()
     dataset = project.dataset(hp.tile_px, hp.tile_um, filters=filters)

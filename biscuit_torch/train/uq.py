@@ -21,12 +21,22 @@ XLA off the TPU; passing ``True`` runs the kernels' plain versions.
 and exit blocks go through the fused strided-block kernel
 (``ops/fused_block.py``); it implies the fused trunk. Both fused trunks
 are Xception's: a ResNet model (``models/resnet.py``) runs the module
-trunk and the head kernel, and asking it for a fused trunk raises. The
-opt-in int8 trunk is not ported yet.
+trunk and the head kernel, and asking it for a fused trunk raises.
+
+The opt-in w8a8 trunk (``ops/int8_trunk.py``; ``int8_qw=`` here,
+``int8_trunk=True`` or ``BISCUIT_INT8_TRUNK=1`` on the interface) is
+Xception's too: its stem, entry and exit convs run int8 products, its
+middle flow the bf16 fused kernel (``fused_trunk`` picks the backend as
+above) unless the weights were calibrated with the middle quantized.
+The interface calibrates on its first ``_CALIB_MIN_TILES`` tiles, which
+it answers through the path it runs without int8, and can save and load
+the scales (``calibration_path``) in the JSON the JAX package writes.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional
 
 import torch
@@ -146,12 +156,29 @@ def mc_dropout_predict(model, x, seed: int = 0, k: int = 30,
                        use_kernel: Optional[bool] = None,
                        fused_trunk: Optional[bool] = None,
                        mid_wts=None, head_wts=None, fuse_blocks: bool = False,
-                       block_wts=None):
+                       block_wts=None, int8_qw=None):
     """(mean softmax, std softmax) over k dropout samples; trunk runs once.
-    ``x`` is a preprocessed (normalized + standardized) NHWC batch."""
+    ``x`` is a preprocessed (normalized + standardized) NHWC batch.
+    ``int8_qw``: calibrated w8a8 trunk weights (``ops/int8_trunk.py``,
+    ``prepare_int8_trunk`` or ``place_int8_trunk`` of it); the trunk then
+    runs int8, ``fused_trunk`` still choosing the middle flow's
+    backend."""
+    if int8_qw is not None:
+        from ..ops.int8_trunk import trunk_features_int8
+
+        if model.arch not in ARCHS:
+            raise ValueError("int8 trunk requires an Xception arch")
+        if fuse_blocks:
+            raise ValueError(_INT8_FUSE_BLOCKS)
+        feats = trunk_features_int8(model, x, int8_qw, fused_trunk, mid_wts)
+        return mc_dropout_head(model, feats, seed, k, use_kernel, head_wts)
     feats = trunk_features(model, x, fused_trunk, mid_wts, fuse_blocks,
                            block_wts)
     return mc_dropout_head(model, feats, seed, k, use_kernel, head_wts)
+
+
+_INT8_FUSE_BLOCKS = ("the int8 trunk runs its own strided blocks; it cannot "
+                     "be combined with fuse_blocks=True")
 
 
 def mc_dropout_full(model, x, seed: int = 0, k: int = 30):
@@ -171,32 +198,54 @@ class UncertaintyInterface:
 
     Each call draws its dropout stream from (seed, call number), so calls
     differ and a run repeats from the same seed.
+
+    ``int8_trunk`` (default ``BISCUIT_INT8_TRUNK=1``) serves through the
+    w8a8 trunk once calibrated: the first ``calib_tiles`` tiles (default
+    ``_CALIB_MIN_TILES``) accumulate the activation ranges and are
+    answered exactly as without it. With ``calibration_path``, scales
+    saved there for these weights (and the current
+    ``BISCUIT_INT8_MIDDLE``) are loaded and the int8 trunk answers from
+    the first call; otherwise the frozen scales are saved there.
     """
+
+    _CALIB_MIN_TILES = 256
 
     def __init__(self, model_path: str, k: Optional[int] = None,
                  device=None, seed: int = 0,
                  use_kernel: Optional[bool] = None,
                  fused_trunk: Optional[bool] = None,
-                 fuse_blocks: bool = False):
+                 fuse_blocks: bool = False,
+                 int8_trunk: Optional[bool] = None,
+                 calib_tiles: Optional[int] = None,
+                 calibration_path: Optional[str] = None):
         from .trainer import load_checkpoint
 
         model, hp, meta = load_checkpoint(model_path, device)
+        self._model_path = model_path
         self._setup(model, hp, meta, k, seed, use_kernel, fused_trunk,
-                    fuse_blocks)
+                    fuse_blocks, int8_trunk, calib_tiles, calibration_path)
 
     @classmethod
     def from_model(cls, model, hp, k: Optional[int] = None, device=None,
                    seed: int = 0, use_kernel: Optional[bool] = None,
                    fused_trunk: Optional[bool] = None,
-                   fuse_blocks: bool = False):
-        """Build from an in-memory model and its ModelParams."""
+                   fuse_blocks: bool = False,
+                   int8_trunk: Optional[bool] = None,
+                   calib_tiles: Optional[int] = None,
+                   calibration_path: Optional[str] = None):
+        """Build from an in-memory model and its ModelParams (no model
+        dir, so a saved calibration carries no weights digest)."""
         obj = cls.__new__(cls)
+        obj._model_path = None
         obj._setup(model.to(resolve_device(device)).eval(), hp, {}, k, seed,
-                   use_kernel, fused_trunk, fuse_blocks)
+                   use_kernel, fused_trunk, fuse_blocks, int8_trunk,
+                   calib_tiles, calibration_path)
         return obj
 
     def _setup(self, model, hp, meta, k, seed, use_kernel, fused_trunk,
-               fuse_blocks):
+               fuse_blocks, int8_trunk, calib_tiles, calibration_path):
+        from ..ops.int8_trunk import use_int8_trunk
+
         self.model, self.hp, self.meta = model, hp, meta
         self.device = next(model.parameters()).device
         self.k = k if k is not None else hp.uq_samples
@@ -204,6 +253,13 @@ class UncertaintyInterface:
         self.seed = int(seed)
         self._calls = 0
         on_card = self.device.type == "cuda"
+        self._int8 = bool(use_int8_trunk() if int8_trunk is None
+                          else int8_trunk)
+        if self._int8 and model.arch not in ARCHS:
+            raise ValueError(f"the int8 trunk is Xception's; {model.arch!r} "
+                             "runs the module trunk (int8_trunk=False)")
+        if self._int8 and fuse_blocks:
+            raise ValueError(_INT8_FUSE_BLOCKS)
         self._fused = _fused(fused_trunk, fuse_blocks, on_card, model.arch)
         self._fuse_blocks = bool(fuse_blocks)
         self._use_kernel = (head_kernel_applicable(model.head, on_card)
@@ -225,6 +281,124 @@ class UncertaintyInterface:
                 from ..ops.mcd_head import head_weights
 
                 self._head_wts = head_weights(model.head)
+        self._qw = self._calib = self._scales = None
+        self._digest = None
+        self._calibration_path = calibration_path
+        if calib_tiles is not None:
+            self._CALIB_MIN_TILES = int(calib_tiles)
+        if self._int8 and calibration_path is not None and os.path.exists(
+                calibration_path):
+            scales = self._load_calibration(calibration_path)
+            if scales is not None:
+                self._freeze(scales, save=False)
+
+    def _freeze(self, scales, save: bool) -> None:
+        """Quantize the weights at ``scales`` and serve int8 from now on;
+        a saved blob that passed the format and digest checks can still
+        lack a site or hold a non-number, and is then recalibrated."""
+        from ..ops.int8_trunk import place_int8_trunk, prepare_int8_trunk
+        from ..utils_log import log
+
+        try:
+            qw = prepare_int8_trunk(self.model, scales)
+        except (KeyError, TypeError, ValueError) as e:
+            if save:
+                raise
+            log.warning("int8 calibration at %s is unusable (%s); "
+                        "recalibrating", self._calibration_path, e)
+            return
+        self._scales = scales
+        self._qw = place_int8_trunk(qw, self.device)
+        self._calib = None
+        if save and self._calibration_path is not None:
+            try:
+                self.save_calibration(self._calibration_path)
+            except OSError as e:
+                # An unwritable path must not stop serving: the weights
+                # are frozen in memory either way.
+                log.warning("could not save int8 calibration to %s: %s",
+                            self._calibration_path, e)
+
+    def _int8_weights(self, x):
+        """Accumulating w8a8 calibration over preprocessed batches
+        (``ops/int8_trunk.Int8Calibrator``). Returns None while this
+        batch calibrates (the caller answers it without int8)."""
+        if self._qw is not None:
+            return self._qw
+        from ..ops.int8_trunk import Int8Calibrator
+
+        if self._calib is None:
+            self._calib = Int8Calibrator(self.model, fused_trunk=self._fused,
+                                         mid_wts=self._mid_wts)
+        self._calib.update(x)
+        if self._calib.n_tiles >= self._CALIB_MIN_TILES:
+            self._freeze(self._calib.scales(), save=True)
+        return None
+
+    def _weights_digest(self) -> Optional[str]:
+        """blake2b of the checkpoint weights (``model.msgpack``), which
+        ties saved scales to the weights they were derived from."""
+        if self._digest is None and self._model_path is not None:
+            from ..serve import _weights_digest
+
+            self._digest = _weights_digest(self._model_path)
+        return self._digest
+
+    def _load_calibration(self, path: str):
+        """The saved scales, or None (recalibrate) if the file is
+        unreadable or unrecognized, was made for other weights, or
+        disagrees with the current ``BISCUIT_INT8_MIDDLE``."""
+        from ..ops.int8_trunk import use_int8_middle
+        from ..utils_log import log
+
+        try:
+            with open(path) as f:
+                blob = json.load(f)
+        except (OSError, ValueError, UnicodeDecodeError) as e:
+            log.warning("could not read int8 calibration at %s (%s); "
+                        "recalibrating", path, e)
+            return None
+        if (not isinstance(blob, dict) or
+                not isinstance(blob.get("scales"), dict)):
+            log.warning("unrecognized int8 calibration format at %s; "
+                        "recalibrating", path)
+            return None
+        if blob.get("weights_blake2b") != self._weights_digest():
+            log.warning("int8 calibration at %s was made for different "
+                        "weights; recalibrating", path)
+            return None
+        saved_middle = any(n.startswith("middle") for n in blob["scales"])
+        if saved_middle != use_int8_middle():
+            log.warning("int8 calibration at %s was made with "
+                        "quant_middle=%s but BISCUIT_INT8_MIDDLE is %s; "
+                        "recalibrating", path, saved_middle,
+                        use_int8_middle())
+            return None
+        return blob["scales"]
+
+    def save_calibration(self, path: str) -> None:
+        """Write the frozen activation scales as JSON (atomically), tagged
+        with the weights' digest, for ``calibration_path=`` of another
+        process (of either package)."""
+        if self._scales is None:
+            raise ValueError("int8 calibration has not been frozen yet")
+        blob = {
+            "version": 1,
+            "arch": self.model.arch,
+            "weights_blake2b": self._weights_digest(),
+            "scales": self._scales,
+        }
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(blob, f, indent=1)
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
 
     def __call__(self, tiles, seed: Optional[int] = None):
         """tiles: (B, H, W, 3) or (H, W, 3) uint8/float RGB [0,255] ->
@@ -237,8 +411,9 @@ class UncertaintyInterface:
             tiles = tiles[None]
         with torch.inference_mode():
             x = inference_preprocess(tiles, self.wsi_normalizer)
+            qw = self._int8_weights(x) if self._int8 else None
             return mc_dropout_predict(
                 self.model, x, seed, self.k, use_kernel=self._use_kernel,
                 fused_trunk=self._fused, mid_wts=self._mid_wts,
                 head_wts=self._head_wts, fuse_blocks=self._fuse_blocks,
-                block_wts=self._block_wts)
+                block_wts=self._block_wts, int8_qw=qw)

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --slide
     python3 chip_smoke.py --serve
     python3 chip_smoke.py --stats | --pretrained | --resnet
+    python3 chip_smoke.py --int8 | --parallel
 
 The second form only profiles the unit backward pass by pass at
 UNIT_PASS_GEOMETRIES (one line a geometry), the third only times the
@@ -16,7 +17,8 @@ cluster size (one line); both import ``biscuit_torch`` from CHECKOUT when given 
 time another checkout's kernels in the same call). The fourth builds and
 runs phase slide alone (one line), the fifth phase serve alone (a line an
 artifact, then the phase's), the sixth phase stats, pretrained or resnet
-alone (one line). The first form runs
+alone (one line), the seventh phase int8 or parallel alone (one line).
+The first form runs
 these phases, each printing one JSON line:
 
 1. env: torch/CUDA versions and ``nvidia-smi`` name and power limit (also
@@ -88,6 +90,38 @@ these phases, each printing one JSON line:
    tfrecords in a Project built in a temporary directory, its four
    files checked, then ``threshold.apply`` on its tile frame at the
    median uncertainty; where it is not, one line saying so.
+   int8: the opt-in w8a8 trunk (``ops/int8_trunk.py``) on phase main's
+   model, its logits spread over request 0's features
+   (``decisive_logits_``), with ``int8_trunk=True`` and a
+   ``calibration_path``: the calibration request (request 0, 256 tiles:
+   rows 1 and 3 once, row 2 twice, the answer's and the calibrator's f32
+   forward's; equal bit for bit to the bf16 interface's answer), then
+   REQUESTS int8 requests (rows 1-3 once each) timed beside the bf16
+   default's in the same call, each stage's device time (preprocess,
+   trunk, head) and peak memory, and the device time by kernel of one
+   int8 request; on request 1 (not calibrated on) the pooled features'
+   cosine against the bf16 trunk (> 0.98) and the dropout-0 means within
+   INT8_MEAN_TOL of the bf16 path's (spread > 0.2); a second interface
+   from the saved scales serving int8 from its first request, equal to
+   the first bit for bit; with ``BISCUIT_INT8_MIDDLE=1`` a calibration
+   request and REQUESTS int8 requests with no row-2 launch; and
+   ``torch._int_mm`` (cuBLASLt) at INT8_MM_SHAPES equal to the f64
+   product, timed beside a bf16 matmul of the same shape.
+   parallel: two processes (this script with ``--parallel-child``, each
+   bounded by CHILD_TIMEOUT_S and killed at it) share the card and meet
+   through a ``TCPStore`` on localhost (``parallel/distributed.py``).
+   ``predict_tfrecords_distributed`` of phase predict's 300 tiles,
+   written as PAR_TFRECORDS tfrecords, through a kernels servable of
+   hp.nature2022 at batch PAR_BATCH: each process's merged frame equals
+   the single-process call's bit for bit (each tfrecord in its own
+   batches at the same seeds), its rows those of ``predict_tfrecords``
+   over the whole list, rows 1-3 once a tfrecord in all; then
+   ``Experiment.run`` of ZD's step 2 with ``n_submeshes=1`` in each
+   process over a project of PAR_SLIDES slides: the 3 folds, PAR_STEPS
+   steps each, claimed through the store, each trained once (34 strip
+   launches a step in all); then ``load_sharded_servable`` over this
+   process's cards, equal to ``Servable`` at the shard's seed bit for
+   bit. It prints each stage's seconds and each process's.
    depthwise_entry: one forward and backward through
    ``depthwise_conv3x3``, the standalone op's own entry point.
 5. train: ``make_train_step`` of ``hp.nature2022`` (Xception-299 bf16,
@@ -205,9 +239,10 @@ these phases, each printing one JSON line:
    path (no launch), tiles/s and peak memory. No MFU: ``models/flops.py``
    counts Xception only.
 6. the kernels line (launches: the serving phases for kernels 1-4, the
-   depthwise entry phase, the training phase, with phases
-   train_project's, experiment's, slide's, serve's, pretrained's and
-   resnet's added to kernels 1-4 and 6); 7. the last line
+   depthwise entry phase, the training phase, with phases int8's,
+   parallel's, train_project's, experiment's, slide's, serve's,
+   pretrained's and resnet's added to kernels 1-4 and 6); 7. the last
+   line
    ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no last
@@ -304,6 +339,15 @@ SERVE_SLIDE_PX = 3000  # phase serve's slide: 9 x 9 positions at 302 um
 STATS_ROWS = (100_000, 400_000, 1_000_000, 4_000_000)
 STATS_CV_ROWS = 400_000
 STATS_TILES = 1300
+INT8_MM_SHAPES = ((TILES * 74 * 74, 128, 256), (TILES * 19 * 19, 728, 728),
+                  (TILES * 10 * 10, 1536, 2048))
+INT8_MEAN_TOL = 0.05     # tests/test_int8_trunk.py's bound against f32
+PAR_TFRECORDS = 6        # phase predict's 300 tiles, 50 a tfrecord
+PAR_BATCH = 64           # the parallel phase's servable batch
+PAR_STEPS = 2            # training steps a fold, cross-process scheduling
+PAR_SLIDES = 10
+PAR_TILES = 32
+CHILD_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -3486,6 +3530,411 @@ def resnet_phase(torch, tmp: str, card: str):
             "launches": launches}, launches
 
 
+def int8_stage_ms(torch, ui, tiles, int8: bool, repeats: int = 3):
+    """Median device time of a request's preprocess, trunk and head
+    (CUDA events between the request's own calls), with the int8 trunk
+    or the bf16 one."""
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.ops.int8_trunk import trunk_features_int8
+    from biscuit_torch.train.uq import mc_dropout_head, trunk_features
+
+    names = ("preprocess", "trunk", "head")
+    runs = {name: [] for name in names}
+    with torch.inference_mode():
+        for _ in range(repeats):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            x = inference_preprocess(tiles, ui.wsi_normalizer)
+            ev[1].record()
+            if int8:
+                f = trunk_features_int8(ui.model, x, ui._qw, True, ui._mid_wts)
+            else:
+                f = trunk_features(ui.model, x, True, ui._mid_wts)
+            ev[2].record()
+            mc_dropout_head(ui.model, f, 0, ui.k, True, ui._head_wts)
+            ev[3].record()
+            torch.cuda.synchronize()
+            for i, name in enumerate(names):
+                runs[name].append(ev[i].elapsed_time(ev[i + 1]))
+    return {name: statistics.median(v) for name, v in runs.items()}
+
+
+def counted(torch, fn, want: dict, what: str):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after; fails unless each kernel launched ``want.get(name, 0)``
+    times. Returns (fn's result, seconds, launches)."""
+    from biscuit_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    for name, count in launches.items():
+        check(count == want.get(name, 0),
+              f"{what}: {name} launched {count} times, expected "
+              f"{want.get(name, 0)}")
+    return out, secs, launches
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for name, count in launches.items():
+        total[name] = total.get(name, 0) + count
+
+
+def cosine_min(torch, a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))).min())
+
+
+def int8_phase(torch, hp, model, requests, tmp: str, card: str):
+    """The opt-in w8a8 trunk at full width (see the docstring, phase
+    int8). Returns (row, launches of the counted requests)."""
+    import os
+
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.ops.int8_trunk import int8_matmul, trunk_features_int8
+    from biscuit_torch.ops.mcd_head import mcd_head
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+
+    t_phase = time.perf_counter()
+    head = model.head.logits
+    saved_head = (head.weight.detach().clone(), head.bias.detach().clone())
+    ui = UncertaintyInterface.from_model(model, hp, device="cuda")
+    with torch.inference_mode():
+        x0 = inference_preprocess(requests[0], ui.wsi_normalizer)
+        f0 = trunk_features(model, x0, True, ui._mid_wts).clone()
+    decisive_logits_(torch, model, f0)
+    del ui, x0, f0
+    cal_path = os.path.join(tmp, "int8_calibration.json")
+    plain = UncertaintyInterface.from_model(model, hp, device="cuda",
+                                            seed=SEED)
+    q8 = UncertaintyInterface.from_model(model, hp, device="cuda", seed=SEED,
+                                         int8_trunk=True,
+                                         calibration_path=cal_path)
+    check(q8._CALIB_MIN_TILES == TILES, "one request calibrates")
+    launches = {}
+    once = {name: 1 for name in SERVING}
+    # The calibration request: answered as without int8 (rows 1-3 once),
+    # plus the calibrator's f32 forward through the middle-flow kernel.
+    torch.cuda.reset_peak_memory_stats()
+    cal_out, cal_s, got = counted(
+        torch, lambda: q8(requests[0]),
+        {**once, "fused_middle_flow": 2}, "calibration request")
+    cal_peak = torch.cuda.max_memory_allocated()
+    add_launches(launches, got)
+    check(q8._qw is not None and os.path.exists(cal_path),
+          "calibrated and saved after one request")
+    for a, b in zip(cal_out, plain(requests[0])):
+        check(torch.equal(a, b), "the calibration request equals the bf16 "
+                                 "path bit for bit")
+
+    torch.cuda.reset_peak_memory_stats()
+    outs8, secs8, got = serve(torch, q8, requests, REQUESTS, once)
+    peak8 = torch.cuda.max_memory_allocated()
+    add_launches(launches, got)
+    torch.cuda.reset_peak_memory_stats()
+    _, secs16, _ = serve(torch, plain, requests, REQUESTS, once)
+    peak16 = torch.cuda.max_memory_allocated()
+    stage8 = int8_stage_ms(torch, q8, requests[1], True)
+    stage16 = int8_stage_ms(torch, plain, requests[1], False)
+    prof8 = kernel_profile(torch, lambda: q8(requests[1]))
+
+    # Features and dropout-0 means of a request that did not calibrate.
+    with torch.inference_mode():
+        x1 = inference_preprocess(requests[1], q8.wsi_normalizer)
+        f8 = trunk_features_int8(model, x1, q8._qw, True, q8._mid_wts)
+        f16 = trunk_features(model, x1, True, q8._mid_wts)
+        cos = cosine_min(torch, f8, f16)
+        check(cos > 0.98, f"int8 features: min cosine {cos} <= 0.98")
+        m8, _ = mcd_head(f8, *q8._head_wts, k=K, dropout=0.0, seed=0)
+        m16, _ = mcd_head(f16, *q8._head_wts, k=K, dropout=0.0, seed=0)
+        spread = float(m16[:, 1].max() - m16[:, 1].min())
+        check(spread > 0.2, f"dropout-0 probabilities spread {spread}")
+        mean_err = float((m8 - m16).abs().max())
+        check(mean_err <= INT8_MEAN_TOL,
+              f"int8 dropout-0 means: max abs err {mean_err}")
+        del x1, f8, f16
+
+    # A second interface from the saved scales: int8 from its first call,
+    # equal to the first interface bit for bit.
+    q8b = UncertaintyInterface.from_model(model, hp, device="cuda", seed=SEED,
+                                          int8_trunk=True,
+                                          calibration_path=cal_path)
+    check(q8b._qw is not None, "the saved calibration loads")
+    out_b, _, got = counted(torch, lambda: q8b(requests[1], seed=77), once,
+                            "first request from a saved calibration")
+    add_launches(launches, got)
+    for a, b in zip(out_b, q8(requests[1], seed=77)):
+        check(torch.equal(a, b), "saved scales serve bit for bit")
+    del q8b
+
+    # The middle quantized too: no middle-flow launch once calibrated.
+    os.environ["BISCUIT_INT8_MIDDLE"] = "1"
+    try:
+        qm = UncertaintyInterface.from_model(model, hp, device="cuda",
+                                             seed=SEED, int8_trunk=True)
+        _, qm_cal_s, got = counted(torch, lambda: qm(requests[0]), once,
+                                   "calibration request, int8 middle")
+        add_launches(launches, got)
+        outs_m, secs_m, got = serve(torch, qm, requests, REQUESTS,
+                                    {"fused_preprocess": 1, "mcd_head": 1})
+        add_launches(launches, got)
+        check(any(n.startswith("middle") for n in qm._scales),
+              "middle sites calibrated")
+        with torch.inference_mode():
+            x1 = inference_preprocess(requests[1], qm.wsi_normalizer)
+            cos_m = cosine_min(torch, trunk_features_int8(
+                model, x1, qm._qw, True), trunk_features(
+                model, x1, True, plain._mid_wts))
+        check(cos_m > 0.98, f"int8-middle features: min cosine {cos_m}")
+        stage_m = int8_stage_ms(torch, qm, requests[1], True)
+        del qm, x1
+    finally:
+        del os.environ["BISCUIT_INT8_MIDDLE"]
+
+    # The int8 product alone: exact against f64 at three of the trunk's
+    # shapes, and its time beside a bf16 matmul of the same shape.
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mm = []
+    for rows, k, n in INT8_MM_SHAPES:
+        a = torch.randint(-127, 128, (rows, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        wt = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        got_mm = int8_matmul(a, wt)
+        exact = torch.equal(got_mm.double(), a.double() @ wt.double().t())
+        check(exact, f"_int_mm at {rows}x{k}x{n} equals the f64 product")
+        ab, wb = a.bfloat16(), wt.bfloat16()
+        mm.append({"rows": rows, "k": k, "n": n, "exact": exact,
+                   "int8_ms": cuda_ms(torch, lambda _: int8_matmul(a, wt),
+                                      [None] * N_TIMED),
+                   "bf16_ms": cuda_ms(torch, lambda _: ab @ wb.t(),
+                                      [None] * N_TIMED)})
+        del a, wt, ab, wb, got_mm
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        head.weight.copy_(saved_head[0])
+        head.bias.copy_(saved_head[1])
+    return {
+        "phase": "int8", "model": "xception", "tile_px": TILE_PX, "k": K,
+        "dropout": hp.dropout, "requests": REQUESTS,
+        "tiles_per_request": TILES, "card": card,
+        "phase_s": time.perf_counter() - t_phase,
+        "calibration_request_s": cal_s,
+        "calibration_peak_bytes": cal_peak,
+        "int8": {"request_s": secs8,
+                 "tiles_per_s": TILES * REQUESTS / sum(secs8),
+                 "stage_ms": stage8, "max_memory_allocated_bytes": peak8,
+                 "mean_of_mean": outs8[0][0].mean(0).tolist(),
+                 "profile": prof8},
+        "bf16": {"request_s": secs16,
+                 "tiles_per_s": TILES * REQUESTS / sum(secs16),
+                 "stage_ms": stage16, "max_memory_allocated_bytes": peak16},
+        "int8_middle": {"calibration_request_s": qm_cal_s,
+                        "request_s": secs_m,
+                        "tiles_per_s": TILES * REQUESTS / sum(secs_m),
+                        "stage_ms": stage_m, "features_min_cosine": cos_m},
+        "features_min_cosine": cos, "dropout0_ptp": spread,
+        "dropout0_mean_max_abs_err": mean_err,
+        "dropout0_tol": INT8_MEAN_TOL, "int_mm": mm, "launches": launches,
+    }, launches
+
+
+def parallel_child(rank: int, args_path: str) -> int:
+    """One of the two processes of phase parallel: joins the store, scores
+    its claims of the tfrecords, then trains its claims of the folds;
+    writes its frame (pickle) and a JSON line of seconds and launches."""
+    import os
+
+    import torch
+
+    from biscuit_torch import serve as sv_mod
+    from biscuit_torch.experiment import Experiment
+    from biscuit_torch.ops import _build
+    from biscuit_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(args_path) as f:
+        args = json.load(f)
+    t0 = time.perf_counter()
+    distributed.initialize(args["addr"], 2, rank, timeout_s=120)
+    torch.zeros(1, device="cuda")
+    sv = sv_mod.load_servable(args["artifact"])
+    out = {"rank": rank, "init_s": time.perf_counter() - t0}
+    distributed.barrier("ready")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    df = sv_mod.predict_tfrecords_distributed(sv, args["tfrecords"],
+                                              args["workdir"], seed=SEED)
+    torch.cuda.synchronize()
+    out["score_s"] = time.perf_counter() - t0
+    out["score_launches"] = _build.launch_counts()
+    df.to_pickle(f"{args['out']}_{rank}.pkl")
+    exp = Experiment(args["train_root"], outdir=os.path.join(
+        args["train_root"], f"results{rank}"))
+    exp.train_kwargs = {"n_submeshes": 1,
+                        "steps_per_epoch_override": PAR_STEPS}
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp.run({"ZD": {"out1": PAR_SLIDES // 2, "out2": PAR_SLIDES // 2}},
+            steps=[2])
+    torch.cuda.synchronize()
+    out["folds_s"] = time.perf_counter() - t0
+    out["fold_launches"] = _build.launch_counts()
+    with open(f"{args['out']}_{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def parallel_phase(torch, tmp: str, card: str):
+    """Two processes sharing the card through a TCPStore on localhost (see
+    the docstring, phase parallel). Returns (row, launches)."""
+    import dataclasses
+    import os
+    import socket
+
+    import pandas as pd
+
+    from biscuit_torch import serve as sv_mod
+    from biscuit_torch.data.tfrecord import TFRecordWriter
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.ops import _build
+    from biscuit_torch.train.trainer import save_checkpoint
+
+    stage = {}
+    t_phase = t0 = time.perf_counter()
+    hp = dataclasses.replace(nature2022_params(), uq=True, uq_samples=K)
+    model = build_model(hp)
+    init_random_(torch, model, SEED + 7)
+    model_dir = save_checkpoint(os.path.join(tmp, "pmodel"), model, hp,
+                                epoch=1, outcome=OUTCOME, label="PAR",
+                                kfold=None)
+    del model
+    art = sv_mod.export_servable(model_dir, os.path.join(tmp, "p.biscuit"),
+                                 batch_size=PAR_BATCH, with_features=False)
+    stage["export_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    per = len(PREDICT_LABELS) * PREDICT_TILES // PAR_TFRECORDS
+    tiles = smooth_tiles(per * PAR_TFRECORDS, SEED)
+    tfr = os.path.join(tmp, "ptfr")
+    os.makedirs(tfr)
+    paths = []
+    for s in range(PAR_TFRECORDS):
+        paths.append(os.path.join(tfr, f"pslide{s}.tfrecords"))
+        with TFRecordWriter(paths[-1]) as w:
+            for t in range(per):
+                w.write_tile(f"pslide{s}", encode_png(tiles[s * per + t]),
+                             loc_x=TILE_PX * t, loc_y=0)
+    del tiles
+    train_P, _ = write_project(tmp, "ptrain", PAR_SLIDES, PAR_TILES,
+                               SEED + 4, ("LUAD", "LUSC"))
+    stage["write_s"] = time.perf_counter() - t0
+
+    # One process: the same call, the same seed (each tfrecord alone in
+    # its batches, as in the group), and the whole list in one call.
+    sv = sv_mod.load_servable(art)
+    single_wd = os.path.join(tmp, "scored_single")
+    single, stage["single_score_s"], single_launches = counted(
+        torch, lambda: sv_mod.predict_tfrecords_distributed(
+            sv, paths, single_wd, seed=SEED),
+        {name: PAR_TFRECORDS for name in SERVING}, "single-process scoring")
+    whole = sv_mod.predict_tfrecords(sv, paths, seed=SEED)
+    check(whole[["slide", "loc_x", "loc_y"]].equals(
+        single[["slide", "loc_x", "loc_y"]]), "rows of the merged frame")
+    launches = dict(single_launches)
+
+    # The group.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    args = {"addr": f"127.0.0.1:{port}", "artifact": art, "tfrecords": paths,
+            "workdir": os.path.join(tmp, "scored"),
+            "train_root": train_P.root, "out": os.path.join(tmp, "child")}
+    args_path = os.path.join(tmp, "child_args.json")
+    with open(args_path, "w") as f:
+        json.dump(args, f)
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(tmp, f"child{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-child",
+         str(r), args_path], stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__))) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=CHILD_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    stage["group_s"] = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"child{r}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        check(p.returncode == 0, f"child {r} exited {p.returncode}")
+    children = []
+    for r in range(2):
+        with open(f"{args['out']}_{r}.json") as f:
+            children.append(json.load(f))
+    frames = [pd.read_pickle(f"{args['out']}_{r}.pkl") for r in range(2)]
+    for r, frame in enumerate(frames):
+        check(frame.equals(single), f"process {r}'s merged frame equals the "
+                                    "single-process one bit for bit")
+    for name in SERVING:
+        n = sum(c["score_launches"][name] for c in children)
+        check(n == PAR_TFRECORDS, f"{name}: {n} launches in the group's "
+                                  f"scoring, expected {PAR_TFRECORDS}")
+    dirs = sorted(os.listdir(train_P.models_dir))
+    check(sorted(d[6:] for d in dirs) == [
+        f"{OUTCOME}-EXP_ZD-HP0-kfold{k}" for k in (1, 2, 3)],
+        f"each fold trained once: {dirs}")
+    for d in dirs:
+        check(os.path.exists(os.path.join(train_P.models_dir, d,
+                                          "results_log.csv")),
+              f"{d} completed")
+    strips = sum(c["fold_launches"]["unit_bwd_strips"] for c in children)
+    want = UNITS_PER_STEP * PAR_STEPS * 3
+    check(strips == want, f"unit_bwd_strips: {strips} launches for 3 folds "
+                          f"of {PAR_STEPS} steps, expected {want}")
+    for c in children:
+        add_launches(launches, c["score_launches"])
+        add_launches(launches, c["fold_launches"])
+
+    # The sharded servable over this process's one card.
+    sh = sv_mod.load_sharded_servable(art)
+    check(sh.n_shards == torch.cuda.device_count(), "one shard a card")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    req = torch.randint(0, 256, (sh.global_batch, TILE_PX, TILE_PX, 3),
+                        generator=gen, device="cuda", dtype=torch.uint8)
+    got, stage["sharded_call_s"], sh_launches = counted(
+        torch, lambda: sh.call_exact(req, seed=5),
+        {name: sh.n_shards for name in SERVING}, "sharded servable")
+    add_launches(launches, sh_launches)
+    want_out = sv.call_exact(req[:PAR_BATCH], seed=sv_mod._fold_seed(5, 0))
+    for a, b in zip(got, want_out):
+        check(torch.equal(a[:PAR_BATCH], b),
+              "sharded servable equals the servable bit for bit")
+    return {
+        "phase": "parallel", "processes": 2, "card": card,
+        "phase_s": time.perf_counter() - t_phase,
+        "tfrecords": PAR_TFRECORDS, "tiles": len(single),
+        "servable_batch": PAR_BATCH, "folds": 3, "steps_a_fold": PAR_STEPS,
+        "stage_s": stage, "children": children,
+        "merged_equals_single": "bit for bit (each tfrecord in its own "
+                                "batches, at the same seeds)",
+        "launches": launches,
+    }, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3506,6 +3955,12 @@ def main(argv=None) -> int:
                     help="only the build and phase pretrained")
     ap.add_argument("--resnet", action="store_true",
                     help="only the build and phase resnet")
+    ap.add_argument("--int8", action="store_true",
+                    help="only the build and phase int8")
+    ap.add_argument("--parallel", action="store_true",
+                    help="only the build and phase parallel")
+    ap.add_argument("--parallel-child", nargs=2, metavar=("RANK", "ARGS"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--root", help="import biscuit_torch from this checkout "
                                    "(with --unit-bwd-passes or --preprocess)")
     opts = ap.parse_args(argv)
@@ -3516,6 +3971,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if opts.parallel_child:
+        return parallel_child(int(opts.parallel_child[0]),
+                              opts.parallel_child[1])
     from biscuit_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3607,6 +4065,15 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             emit(resnet_phase(torch, tmp, card)[0])
         return 0
+    if opts.int8:
+        hp, model, requests = serving_setup(torch, SEED, REQUESTS)
+        with tempfile.TemporaryDirectory() as tmp:
+            emit(int8_phase(torch, hp, model, requests, tmp, card)[0])
+        return 0
+    if opts.parallel:
+        with tempfile.TemporaryDirectory() as tmp:
+            emit(parallel_phase(torch, tmp, card)[0])
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -3637,7 +4104,16 @@ def main(argv=None) -> int:
                   "skipped": "pandas is not installed on this machine"})
         else:
             emit(evaluate_phase(torch, hp, model, tmp, card))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        int8_row, int8_launches = int8_phase(torch, hp, model, requests, tmp,
+                                             card)
+    emit(int8_row)
     del model, requests
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        par_row, par_launches = parallel_phase(torch, tmp, card)
+    emit(par_row)
     torch.cuda.empty_cache()
     dw_row, dw_launches = depthwise_entry(torch, gen, card)
     emit(dw_row)
@@ -3680,9 +4156,9 @@ def main(argv=None) -> int:
     launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
-    for phase_launches in (tp_launches, ex_launches, slide_launches,
-                           serve_launches, stats_launches, pt_launches,
-                           rn_launches):
+    for phase_launches in (int8_launches, par_launches, tp_launches,
+                           ex_launches, slide_launches, serve_launches,
+                           stats_launches, pt_launches, rn_launches):
         for name, count in phase_launches.items():
             launches[name] += count
 

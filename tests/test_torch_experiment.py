@@ -432,19 +432,18 @@ def test_display_prints_the_jax_ttests(ran, tmp_path, capsys):
 
 # --- What is not ported, and the card ----------------------------------------
 
-def test_what_is_not_ported_raises(exp_env):
-    saved = dict(exp_env.train_kwargs)
-    exp_env.train_kwargs["n_submeshes"] = 2
-    try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            exp_env.run({"ZC": {"out1": 10, "out2": 10}}, steps=[2],
-                        hp=tiny_hp())
-    finally:
-        exp_env.train_kwargs = saved
-    for kw in ({"scheduler": object()}, {"claim": lambda t: True},
-               {"collect": []}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            exp_env.train_nested_cv(tiny_hp(), "EXP_ZC", **kw)
+def test_what_is_not_ported_raises(exp_env, monkeypatch):
+    """Under a multi-process runtime, a run without ``n_submeshes`` would
+    train each fold in lockstep over the processes (ROADMAP.md Queue 1
+    item 9b); it raises before it writes anything."""
+    from biscuit_torch.parallel import distributed
+
+    monkeypatch.setitem(distributed._state, "world", 2)
+    before = sorted(os.listdir(exp_env.train_project.models_dir))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
+        exp_env.run({"ZC": {"out1": 10, "out2": 10}}, steps=[2],
+                    hp=tiny_hp())
+    assert sorted(os.listdir(exp_env.train_project.models_dir)) == before
 
 
 def test_run_needs_a_card_unless_cpu(tmp_path):

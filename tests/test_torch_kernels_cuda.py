@@ -1159,3 +1159,86 @@ def test_imported_model_serves_on_the_card(gen, tmp_path):
     want, _ = cpu(tiles, seed=1)
     assert np.ptp(want[:, 1].numpy()) > 0.2
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-2)
+
+
+# (rows-making input shape N, H, W, Cin; kernel size; stride; Cout): a
+# 1x1 conv of fewer than 17 rows (padded for cuBLASLt), the 1x1/s2
+# residual, the stem convs (inner size 27 padded to 32) and an output
+# width that is no multiple of 8.
+INT8_CONVS = [((1, 4, 4, 16), 1, 1, 24), ((2, 9, 9, 32), 1, 2, 48),
+              ((2, 33, 33, 3), 3, 2, 8), ((2, 16, 16, 8), 3, 1, 12)]
+
+
+@pytest.mark.parametrize("shape,k,stride,cout", INT8_CONVS)
+def test_int8_products_on_the_card_equal_the_cpu(gen, shape, k, stride,
+                                                 cout):
+    """``torch._int_mm`` on the card (cuBLASLt) against the CPU: the int32
+    accumulators of an int8 conv equal exactly, the padded rows, inner
+    size and output channels included."""
+    import numpy as np
+
+    from biscuit_torch.ops.int8_trunk import _int8_conv, place_int8_trunk
+
+    rng = np.random.default_rng(0)
+    w = {"k": rng.integers(-127, 128, (k, k, shape[-1], cout),
+                           dtype=np.int8),
+         "inv_s_in": np.float32(1.0), "eff": np.ones(cout, np.float32),
+         "shift": np.zeros(cout, np.float32)}
+    q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8))
+    want = _int8_conv(q, place_int8_trunk({"c": w}, "cpu")["c"], stride)
+    got = _int8_conv(q.cuda(), place_int8_trunk({"c": w}, "cuda")["c"],
+                     stride)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int8_interface_on_the_card_matches_the_cpu(gen):
+    """The int8 trunk of ``xception_tiny`` on the card against the CPU at
+    the same scales and preprocessed input (the middle flow the fused
+    kernel on the card, its plain version on the CPU): pooled features
+    within 3e-2 of the largest, chip_smoke's bound for the bf16 trunks (a
+    bf16 rounding that flips early moves them by about 1e-2, and the
+    quantizer can carry it one int8 code further); an
+    interface calibrated on the card serves int8 requests with rows 1-3
+    launched once each."""
+    import copy
+
+    import numpy as np
+
+    from biscuit_torch.hp import ModelParams
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.ops.int8_trunk import (
+        calibrate_int8_trunk,
+        prepare_int8_trunk,
+        trunk_features_int8,
+    )
+    from biscuit_torch.train.uq import UncertaintyInterface
+    from chip_smoke import init_random_
+
+    hp = ModelParams(model="xception_tiny", tile_px=64, hidden_layer_width=32,
+                     dropout=0.0, uq=True, uq_samples=4)
+    model = build_model(hp)
+    init_random_(torch, model, 0)
+    model.eval()
+    x = torch.randn((8, 64, 64, 3), generator=torch.Generator()
+                    .manual_seed(1))
+    qw = prepare_int8_trunk(model, calibrate_int8_trunk(model, x))
+    want = trunk_features_int8(model, x, qw, fused_trunk=True)
+    card_model = copy.deepcopy(model).cuda()
+    got = trunk_features_int8(card_model, x.cuda(), qw).cpu()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=3e-2 * want.abs().max().item())
+    tiles = np.random.default_rng(2).integers(0, 256, (8, 64, 64, 3),
+                                              dtype=np.uint8)
+    ui = UncertaintyInterface.from_model(card_model, hp, int8_trunk=True,
+                                         calib_tiles=8)
+    ui(tiles)                                   # calibrates
+    assert ui._qw is not None
+    before = _build.launch_counts()
+    mean, _ = ui(tiles, seed=1)
+    after = _build.launch_counts()
+    for name in after:
+        want_n = 1 if name in ("fused_preprocess", "fused_middle_flow",
+                               "mcd_head") else 0
+        assert after[name] - before[name] == want_n, name
+    assert torch.isfinite(mean).all()

@@ -493,18 +493,24 @@ def test_results_cli_heatmap_and_umap_wait_for_item_4(cli_tree, flag,
 
 
 def test_train_cli_refuses_submeshes_and_needs_a_card(cli_tree, tmp_path):
-    train_P, eval_P, _, _ = cli_tree
+    """Without a card and without ``--device`` the CLI raises before it
+    trains; ``--submeshes 2 --device cpu`` trains step 3's folds on two
+    CPU threads."""
+    train_P, eval_P, tmp, _ = cli_tree
     root = shutil.copytree(train_P.root, str(tmp_path / "copy"))
     args = ["--train_project", root, "--eval_project", eval_P.root,
             "--subset", "ZD", "--steps", "3", "--ratio", "False",
             "--orderings", "False"]
-    res = CliRunner().invoke(port_train.train_models,
-                             args + ["--submeshes", "2", "--device", "cpu"])
-    assert isinstance(res.exception, NotImplementedError)
-    assert "Queue 1 item 9" in str(res.exception)
     if not torch.cuda.is_available():
         res = CliRunner().invoke(port_train.train_models, args)
         assert isinstance(res.exception, RuntimeError)
         assert "device='cpu'" in str(res.exception)
     assert not any("EXP_ZD_UQ" in d for d in os.listdir(join(root,
                                                               "models")))
+    res = CliRunner().invoke(port_train.train_models, args + [
+        "--submeshes", "2", "--device", "cpu",
+        "--hp_json", str(tmp / "tiny.json")])
+    assert res.exit_code == 0, (res.output, res.exception)
+    uq = sorted(d[6:] for d in os.listdir(join(root, "models"))
+                if "EXP_ZD_UQ" in d)
+    assert uq == [f"cohort-EXP_ZD_UQ-HP0-kfold{k}" for k in (1, 2, 3)]

@@ -21,6 +21,7 @@ Tolerances:
   model dir's: in ``tests/test_torch_heatmap.py``.
 """
 
+import io
 import json
 import os
 import shutil
@@ -48,6 +49,7 @@ from biscuit_torch.models.xception import BatchNorm, Head, build_model
 from biscuit_torch.mosaic import generate_features
 from biscuit_torch.ops import library
 from biscuit_torch.ops.fused_preprocess import coefficients, fused_preprocess
+from biscuit_torch.parallel.mesh import data_parallel_mesh
 from biscuit_torch.ops.mcd_head import (
     head_weights,
     mcd_head_reference,
@@ -577,18 +579,73 @@ class TestPredict:
     @pytest.mark.parametrize("flag", [["--sharded"],
                                       ["--distributed", "workdir"]])
     def test_cli_multi_device_flags_raise_naming_item_9(self, env, corpus,
-                                                         flag):
+                                                         flag, tmp_path):
+        """``--sharded`` (over the one ``--device``) and ``--distributed``
+        (one process) write the frame that their library calls give."""
+        art = env[2][0.0, "ops"]
+        out = str(tmp_path / "p.csv")
+        args = list(flag)
+        if flag[0] == "--distributed":
+            args[1] = str(tmp_path / "workdir")
         r = CliRunner().invoke(predict_cli, [
-            env[2][0.5, "ops"], corpus[0][0], "--device", "cpu", *flag])
-        assert isinstance(r.exception, NotImplementedError)
-        assert "Queue 1 item 9" in str(r.exception)
+            art, os.path.dirname(corpus[0][0]), "-o", out, "--device", "cpu",
+            "--seed", "3", *args])
+        assert r.exit_code == 0, r.output
+        if flag[0] == "--sharded":
+            sv = serve.load_sharded_servable(art, mesh=data_parallel_mesh(
+                ["cpu"]))
+            want = serve.predict_tfrecords(sv, corpus[0], seed=3)
+        else:
+            sv = serve.load_servable(art, device="cpu")
+            want = serve.predict_tfrecords_distributed(
+                sv, corpus[0], str(tmp_path / "again"), seed=3)
+        pd.testing.assert_frame_equal(pd.read_csv(out),
+                                      pd.read_csv(io.StringIO(
+                                          want.to_csv(index=False))))
+        assert len(want) == 21
 
     @pytest.mark.parametrize("name", [
         "ShardedServable", "load_sharded_servable",
         "predict_tfrecords_distributed", "predict_slides_distributed"])
-    def test_multi_device_entry_points_raise_naming_item_9(self, name):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            getattr(serve, name)("artifact.biscuit", [], "workdir")
+    def test_multi_device_entry_points_raise_naming_item_9(self, name, env,
+                                                           corpus, tmp_path):
+        """The several-device and several-process entry points in one
+        process: a shard, and an item of a distributed list, equal the
+        single servable at their own seeds, bit for bit."""
+        art = env[2][0.5, "ops"]
+        sv = serve.load_servable(art, device="cpu")
+        if name in ("ShardedServable", "load_sharded_servable"):
+            mesh = data_parallel_mesh(["cpu"] * 3)
+            sh = getattr(serve, name)(art, mesh=mesh)
+            tiles = _tiles(3 * BATCH, seed=4)
+            got = sh(tiles[:-2], seed=9)
+            for i in range(3):
+                rows = slice(i * BATCH, min((i + 1) * BATCH, 3 * BATCH - 2))
+                part = tiles[i * BATCH:(i + 1) * BATCH].copy()
+                part[rows.stop - i * BATCH:] = 0     # the padding rows
+                want = sv.call_exact(part, seed=serve._fold_seed(9, i))
+                for g, w in zip(got, want):
+                    assert torch.equal(g[rows], w[:rows.stop - rows.start])
+            return
+        workdir = str(tmp_path / "scored")
+        if name == "predict_tfrecords_distributed":
+            got = serve.predict_tfrecords_distributed(sv, corpus[0], workdir,
+                                                      seed=2)
+            want = pd.concat([serve.predict_tfrecords(
+                sv, [p], seed=serve._fold_seed(2, i))
+                for i, p in enumerate(corpus[0])], ignore_index=True)
+        else:
+            rng = np.random.default_rng(1)
+            slide = str(tmp_path / "slideB.png")
+            Image.fromarray(rng.integers(60, 200, (96, 96, 3),
+                                         dtype=np.uint8)).save(slide)
+            got = serve.predict_slides_distributed(sv, [slide], workdir,
+                                                   mpp=1.0, qc=None, seed=2)
+            want = serve.predict_slides(sv, [slide], mpp=1.0, qc=None,
+                                        seed=serve._fold_seed(2, 0))
+            assert len(got) == 9
+        pd.testing.assert_frame_equal(got, want)
+        assert len(os.listdir(workdir)) == 1
 
 
 class TestPredictSlides:
