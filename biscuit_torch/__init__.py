@@ -8,22 +8,44 @@ slides); the JAX package stays the reference it is tested against.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 the hand-written kernels under ``csrc/`` are built at first use
 (``ops/_build.py``), and so is the native data plane under
-``csrc/native/``, with g++ (``data/native_loader.py``). ``Experiment``
-(the 6-step protocol, ``experiment.py``) and ``serve`` (the single-file
-servables) load on first access, so that importing the package imports
-no pandas.
+``csrc/native/``, with g++ (``data/native_loader.py``).
+
+The public names are ``biscuit_tpu``'s (reference
+``biscuit/__init__.py``: hp, experiment, utils, errors, delong, find_cv,
+get_model_results, Experiment; then Project, Heatmap, serve and the
+subpackages). All but ``hp``, ``errors`` and ``delong`` load on first
+access, so that importing the package imports no pandas.
 """
 
+from . import delong, errors, hp  # noqa: F401
 from .device import resolve_device  # noqa: F401
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "threshold": ".threshold",
+    "utils": ".utils",
+    "find_cv": ".utils",
+    "get_model_results": ".utils",
+    "experiment": ".experiment",
+    "Experiment": ".experiment",
+    "project": ".project",
+    "Project": ".project",
+    "models": ".models",
+    "ops": ".ops",
+    "data": ".data",
+    "train": ".train",
+    "parallel": ".parallel",
+    "heatmap": ".heatmap",
+    "Heatmap": ".heatmap",
+    "serve": ".serve",
+}
 
 
 def __getattr__(name):
-    if name == "Experiment":
-        from .experiment import Experiment
-
-        return Experiment
-    if name == "serve":
+    if name in _LAZY:
         import importlib
 
-        return importlib.import_module(".serve", __name__)
+        mod = importlib.import_module(_LAZY[name], __name__)
+        return mod if _LAZY[name] == "." + name else getattr(mod, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

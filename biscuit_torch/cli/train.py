@@ -9,8 +9,10 @@ evaluation runs (the card by default; ``cpu`` to run without one).
 ``--submeshes N`` trains the independent folds of each step on N device
 groups at once (``Experiment``'s ``n_submeshes``). Started in every
 process of a torchrun-style runtime (``MASTER_ADDR``, ``MASTER_PORT``,
-``RANK``, ``WORLD_SIZE``), the processes claim the folds through the
-store and each trains its claims on its own ``--submeshes`` groups.
+``RANK``, ``WORLD_SIZE``), with ``--submeshes`` the processes claim the
+folds through the store and each trains its claims on its own groups;
+without it, every fold is trained by all the processes in lockstep
+(``parallel/lockstep.py``).
 """
 
 from __future__ import annotations
@@ -53,10 +55,12 @@ def num_range(s: str):
                    "fields); default is the published nature2022 config.")
 @click.option("--orderings", default=True, type=bool,
               help="Include the reverse/order2 orderings of the reg matrix.")
-@click.option("--submeshes", default=1, type=int,
+@click.option("--submeshes", default=None, type=int,
               help="Train independent folds concurrently on N device "
                    "groups (of this process, under a multi-process "
-                   "runtime, whose processes share out the folds).")
+                   "runtime, whose processes share out the folds); "
+                   "without it a multi-process runtime trains each fold "
+                   "in lockstep over the processes.")
 @click.option("--device", default=None,
               help="Where to train and evaluate: the CUDA card by default, "
                    "or e.g. 'cpu'.")
@@ -74,7 +78,8 @@ def train_models(train_project, eval_projects, outcome, outcome1, outcome2,
         outcome1=outcome1,
         outcome2=outcome2,
     )
-    if submeshes > 1 or distributed.process_count() > 1:
+    if submeshes is not None and (
+            submeshes > 1 or distributed.process_count() > 1):
         experiment.train_kwargs["n_submeshes"] = submeshes
     if device is not None:
         experiment.train_kwargs["device"] = device

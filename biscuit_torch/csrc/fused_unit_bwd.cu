@@ -67,6 +67,16 @@
 // zeros (never copied, read as zeros), and a ragged last strip or column
 // range stops at the image's edge.
 //
+// Under lockstep data parallelism the BN statistics are the group's: a
+// rank holds M of the group's m pixels, and mean(g), mean(g*xh) are taken
+// over all m. Then the work is split at the BN sums into two entries
+// around the caller's all-reduce of one (2, CO) f32 vector:
+// `unit_bwd_sums_launch` runs pass 1 and sums its partials into (sum g,
+// sum g*xh) in the order pass 2 sums them; `unit_bwd_{plane,strips}_
+// global_launch` takes that vector, summed over the group, with m, and
+// runs passes 2-6 (its pass 2 also casts Wpw). At one rank the two entries
+// give the one-call route's outputs bit for bit.
+//
 // The launch plan (every grid, tile, split, ring depth and shared-memory
 // size) is computed by the wrapper, biscuit_torch/ops/fused_unit_bwd.py
 // `launch_plan`, and passed in as PLAN_FIELDS ints; this file checks it
@@ -158,8 +168,26 @@ __global__ void __launch_bounds__(BN_THREADS)
 // Block (32, 8): threadIdx.x owns channel c; threadIdx.y sums a contiguous
 // range of the P partials, and the 8 ranges are added in order. Then
 // vec rows: A = gamma*inv, B = A*sum(g)/m, C = A*sum(g*xh)/m, inv, mu*inv.
+//
+// MODE says where the two sums come from and what is written:
+//   BN_ONE_CALL   the partials of pass 1 (sum g, sum g*p), summed here; vec,
+//                 dgamma and dbeta are written (the one-call route);
+//   BN_SUMS       the same partials, summed in the same order; only
+//                 sums = (sum g, sum g*xh) of this rank's pixels is written,
+//                 for the caller to all-reduce over its group;
+//   BN_GIVEN      sums as BN_SUMS wrote them, already summed over the group,
+//                 read as they are; only vec is written, from them with the
+//                 group's pixel count m (a rank's dgamma and dbeta are its
+//                 own BN_SUMS, which the caller keeps). Its blocks also cast
+//                 Wpw (nw values) to the bf16 copy that the dgrad reads,
+//                 which the one-call route's pass 1 casts.
+// At one rank BN_SUMS then BN_GIVEN compute what BN_ONE_CALL computes, bit
+// for bit (dbeta, dgamma being the sums): the sums come from the same
+// additions in the same order.
 constexpr int RED_Y = 8;
+enum BnMode { BN_ONE_CALL, BN_SUMS, BN_GIVEN };
 
+template <int MODE>
 __global__ void ub_bn_finalize_kernel(const float* __restrict__ part, int P,
                                       const float* __restrict__ gamma,
                                       const float* __restrict__ mu,
@@ -167,37 +195,64 @@ __global__ void ub_bn_finalize_kernel(const float* __restrict__ part, int P,
                                       float eps, float m, int CO,
                                       float* __restrict__ vec,
                                       float* __restrict__ dgamma,
-                                      float* __restrict__ dbeta) {
-  __shared__ float red[RED_Y][2][32];
+                                      float* __restrict__ dbeta,
+                                      float* __restrict__ sums,
+                                      const float* __restrict__ w32,
+                                      bf16* __restrict__ w16, size_t nw) {
   const int c = blockIdx.x * 32 + threadIdx.x;
-  const int chunk = (P + RED_Y - 1) / RED_Y;
-  const int p0 = threadIdx.y * chunk, p1 = min(P, p0 + chunk);
-  float sg = 0.f, sgp = 0.f;
-  if (c < CO)
-    for (int q = p0; q < p1; ++q) {
-      sg += part[(size_t)q * 2 * CO + c];
-      sgp += part[(size_t)q * 2 * CO + CO + c];
+  float sum_g, sum_gx, inv;
+  if constexpr (MODE == BN_GIVEN) {
+    const size_t threads = (size_t)gridDim.x * 32 * RED_Y;
+    for (size_t i = ((size_t)blockIdx.x * RED_Y + threadIdx.y) * 32 +
+                    threadIdx.x;
+         8 * i < nw; i += threads) {
+      float v[8];
+      bt::load8(w32 + 8 * i, v);
+      bt::store8(w16 + 8 * i, v);
     }
-  red[threadIdx.y][0][threadIdx.x] = sg;
-  red[threadIdx.y][1][threadIdx.x] = sgp;
-  __syncthreads();
-  if (threadIdx.y != 0 || c >= CO) return;
-  float sum_g = 0.f, sum_gp = 0.f;
+    if (threadIdx.y != 0 || c >= CO) return;
+    sum_g = part[c];
+    sum_gx = part[CO + c];
+    inv = 1.f / sqrtf(var[c] + eps);
+  } else {
+    __shared__ float red[RED_Y][2][32];
+    const int chunk = (P + RED_Y - 1) / RED_Y;
+    const int p0 = threadIdx.y * chunk, p1 = min(P, p0 + chunk);
+    float sg = 0.f, sgp = 0.f;
+    if (c < CO)
+      for (int q = p0; q < p1; ++q) {
+        sg += part[(size_t)q * 2 * CO + c];
+        sgp += part[(size_t)q * 2 * CO + CO + c];
+      }
+    red[threadIdx.y][0][threadIdx.x] = sg;
+    red[threadIdx.y][1][threadIdx.x] = sgp;
+    __syncthreads();
+    if (threadIdx.y != 0 || c >= CO) return;
+    float sum_gp = 0.f;
+    sum_g = 0.f;
 #pragma unroll
-  for (int i = 0; i < RED_Y; ++i) {
-    sum_g += red[i][0][threadIdx.x];
-    sum_gp += red[i][1][threadIdx.x];
+    for (int i = 0; i < RED_Y; ++i) {
+      sum_g += red[i][0][threadIdx.x];
+      sum_gp += red[i][1][threadIdx.x];
+    }
+    inv = 1.f / sqrtf(var[c] + eps);
+    sum_gx = (sum_gp - mu[c] * sum_g) * inv;
+    if constexpr (MODE == BN_SUMS) {
+      sums[c] = sum_g;
+      sums[CO + c] = sum_gx;
+      return;
+    }
   }
-  const float inv = 1.f / sqrtf(var[c] + eps);
-  const float sum_gx = (sum_gp - mu[c] * sum_g) * inv;
   const float a = gamma[c] * inv;
   vec[c] = a;
   vec[CO + c] = a * (sum_g / m);
   vec[2 * CO + c] = a * (sum_gx / m);
   vec[3 * CO + c] = inv;
   vec[4 * CO + c] = mu[c] * inv;
-  dgamma[c] = sum_gx;
-  dbeta[c] = sum_g;
+  if constexpr (MODE == BN_ONE_CALL) {
+    dgamma[c] = sum_gx;
+    dbeta[c] = sum_g;
+  }
 }
 
 // ------------------------------------------------- 3, 4. the two GEMMs
@@ -686,15 +741,10 @@ struct Args {
   int N, H, W, CI, CO, relu_first;
 };
 
-int run(const Args& a, const int* pl, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const int M = a.N * a.H * a.W;
-  if (M == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  // The plan is launched as it is; these are the limits the kernels hold
-  // it to.
-  if (pl[P_BN_TX] < 1 || pl[P_BN_TX] > 32 ||
+// The plan is launched as it is; these are the limits the kernels hold it
+// to.
+bool plan_ok(const Args& a, const int* pl, int M) {
+  return !(pl[P_BN_TX] < 1 || pl[P_BN_TX] > 32 ||
       (long long)pl[P_BN_GX] * pl[P_BN_TX] * 8 < a.CO ||
       (long long)pl[P_BN_PARTS] * pl[P_BN_ROWS] < M ||
       pl[P_FIN_GRID] * 32 < a.CO || pl[P_RED_GRID] < 1 ||
@@ -703,18 +753,45 @@ int run(const Args& a, const int* pl, int device, void* stream) {
       pl[P_DW_RING] < 1 || pl[P_DW_RING] > DB_BARRIERS / 16 ||
       pl[P_DW_CONSUMERS] > (pl[P_DW_CPT] == 2 ? db_max_consumers<2>()
                                               : db_max_consumers<1>()) ||
-      pl[P_DW_CONSUMERS] % 32)
-    return (int)cudaErrorInvalidValue;
+      pl[P_DW_CONSUMERS] % 32);
+}
 
-  // 1, 2. BN sums (and Wpw in bf16), then the coefficients.
+// Pass 1, the BN sums' partials; with nw > 0 its blocks also cast Wpw.
+cudaError_t bn_sums(const Args& a, const int* pl, int M, size_t nw,
+                    cudaStream_t s) {
   ub_bn_sums_kernel<<<dim3(pl[P_BN_GX], pl[P_BN_PARTS]),
                       dim3(pl[P_BN_TX], BN_THREADS / pl[P_BN_TX]), 0, s>>>(
-      a.gy, a.p, a.bn_part, M, a.CO, pl[P_BN_ROWS], a.wpw, a.wpw16,
-      (size_t)a.CO * a.CI);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ub_bn_finalize_kernel<<<pl[P_FIN_GRID], dim3(32, RED_Y), 0, s>>>(
-      a.bn_part, pl[P_BN_PARTS], a.gamma, a.mu, a.var, a.eps, (float)M, a.CO,
-      a.vec, a.dgamma, a.dbeta);
+      a.gy, a.p, a.bn_part, M, a.CO, pl[P_BN_ROWS], a.wpw, a.wpw16, nw);
+  return cudaGetLastError();
+}
+
+// Passes 1-6 of one unit backward. With `given` null, the one-call route:
+// the BN sums of this call's M pixels. Otherwise `given` holds (sum g,
+// sum g*xh) over m pixels of a group, as `run_sums` wrote them and the
+// caller all-reduced them, and pass 1 is not run.
+int run(const Args& a, const int* pl, int device, void* stream,
+        const float* given, float m) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int M = a.N * a.H * a.W;
+  if (M == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!plan_ok(a, pl, M)) return (int)cudaErrorInvalidValue;
+
+  // 1, 2. BN sums (and Wpw in bf16), then the coefficients.
+  const size_t nw = (size_t)a.CO * a.CI;
+  if (given == nullptr) {
+    if ((e = bn_sums(a, pl, M, nw, s)) != cudaSuccess) return (int)e;
+    ub_bn_finalize_kernel<BN_ONE_CALL><<<pl[P_FIN_GRID], dim3(32, RED_Y), 0,
+                                         s>>>(
+        a.bn_part, pl[P_BN_PARTS], a.gamma, a.mu, a.var, a.eps, (float)M,
+        a.CO, a.vec, a.dgamma, a.dbeta, nullptr, nullptr, nullptr, 0);
+  } else {
+    ub_bn_finalize_kernel<BN_GIVEN><<<pl[P_FIN_GRID], dim3(32, RED_Y), 0,
+                                      s>>>(
+        given, 1, a.gamma, a.mu, a.var, a.eps, m, a.CO, a.vec, a.dgamma,
+        a.dbeta, nullptr, a.wpw, a.wpw16, nw);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   // 3. dgrad (and bf16(gp)): M x CI, k = CO.
@@ -765,6 +842,23 @@ int run(const Args& a, const int* pl, int device, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// Pass 1 and the first half of pass 2: sums = (sum g, sum g*xh) over this
+// call's M pixels, (2, CO) f32.
+int run_sums(const Args& a, const int* pl, int device, void* stream,
+             float* sums) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int M = a.N * a.H * a.W;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!plan_ok(a, pl, M)) return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaMemsetAsync(sums, 0, 2 * a.CO * sizeof(float), s);
+  if ((e = bn_sums(a, pl, M, 0, s)) != cudaSuccess) return (int)e;
+  ub_bn_finalize_kernel<BN_SUMS><<<pl[P_FIN_GRID], dim3(32, RED_Y), 0, s>>>(
+      a.bn_part, pl[P_BN_PARTS], a.gamma, a.mu, a.var, a.eps, (float)M, a.CO,
+      nullptr, nullptr, nullptr, sums, nullptr, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
 Args make_args(const void* gy, const void* p, const void* r, const void* d,
                const void* taps, const void* wpw, const void* gamma,
                const void* mu, const void* var, float eps, void* da,
@@ -804,22 +898,71 @@ Args make_args(const void* gy, const void* p, const void* r, const void* d,
             dgamma, dbeta, bn_part, vec, wpw16, gpb, gd, wg_part, dw_part, N, \
             H, W, CI, CO, relu_first)
 
+bool plane_ok(int H, const int* plan) {
+  return plan[P_DW_ROWS] == H && plan[P_DW_NSTRIPS] == 1;
+}
+
+bool strips_ok(int H, const int* plan) {
+  return plan[P_DW_ROWS] >= 1 &&
+         plan[P_DW_NSTRIPS] == (H + plan[P_DW_ROWS] - 1) / plan[P_DW_ROWS];
+}
+
 // Whole planes: each depthwise-backward block walks all H rows of its
 // images, with no halo rows.
 extern "C" int unit_bwd_plane_launch(UNIT_BWD_PARAMS, int device,
                                      void* stream) {
-  if (plan[P_DW_ROWS] != H || plan[P_DW_NSTRIPS] != 1)
-    return (int)cudaErrorInvalidValue;
-  return run(UNIT_BWD_ARGS, plan, device, stream);
+  if (!plane_ok(H, plan)) return (int)cudaErrorInvalidValue;
+  return run(UNIT_BWD_ARGS, plan, device, stream, nullptr, 0.f);
 }
 
 // Strips of plan[P_DW_ROWS] rows, each with its two halo rows.
 extern "C" int unit_bwd_strips_launch(UNIT_BWD_PARAMS, int device,
                                       void* stream) {
-  if (plan[P_DW_ROWS] < 1 ||
-      plan[P_DW_NSTRIPS] != (H + plan[P_DW_ROWS] - 1) / plan[P_DW_ROWS])
-    return (int)cudaErrorInvalidValue;
-  return run(UNIT_BWD_ARGS, plan, device, stream);
+  if (!strips_ok(H, plan)) return (int)cudaErrorInvalidValue;
+  return run(UNIT_BWD_ARGS, plan, device, stream, nullptr, 0.f);
+}
+
+// The route of a group of ranks (lockstep data parallelism), in two
+// entries around the caller's all-reduce. unit_bwd_sums_launch: pass 1 and
+// the sums of this rank's pixels into sums (2, CO) f32, (sum g, sum g*xh),
+// from gy, p (N, H, W, CO) bf16 and mu, var (CO,) f32, with bn_part as
+// scratch; of the plan (`launch_plan` at CI = CO) it reads the BN fields.
+extern "C" int unit_bwd_sums_launch(const void* gy, const void* p,
+                                    const void* mu, const void* var,
+                                    float eps, void* bn_part, void* sums,
+                                    int N, int H, int W, int CO,
+                                    const int* plan, int device,
+                                    void* stream) {
+  Args a{};
+  a.gy = (const bf16*)gy;
+  a.p = (const bf16*)p;
+  a.mu = (const float*)mu;
+  a.var = (const float*)var;
+  a.eps = eps;
+  a.bn_part = (float*)bn_part;
+  a.N = N;
+  a.H = H;
+  a.W = W;
+  a.CI = CO;
+  a.CO = CO;
+  return run_sums(a, plan, device, stream, (float*)sums);
+}
+
+// Then passes 2-6 from sums summed over the group, whose pixels number m.
+// dgamma and dbeta are not written (they may be null): a rank's share of
+// them is its own sums, from unit_bwd_sums_launch.
+extern "C" int unit_bwd_plane_global_launch(UNIT_BWD_PARAMS,
+                                            const void* sums, float m,
+                                            int device, void* stream) {
+  if (!plane_ok(H, plan)) return (int)cudaErrorInvalidValue;
+  return run(UNIT_BWD_ARGS, plan, device, stream, (const float*)sums, m);
+}
+
+extern "C" int unit_bwd_strips_global_launch(UNIT_BWD_PARAMS,
+                                             const void* sums, float m,
+                                             int device, void* stream) {
+  if (!strips_ok(H, plan)) return (int)cudaErrorInvalidValue;
+  return run(UNIT_BWD_ARGS, plan, device, stream, (const float*)sums, m);
 }
 
 // The plan's field count, for the wrapper to check against its own.

@@ -159,6 +159,16 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the library loads in this process, built first where it
+    is not yet: False when g++ fails or the result does not load."""
+    try:
+        load()
+        return True
+    except (OSError, RuntimeError):
+        return False
+
+
 def loaded() -> bool:
     """Whether this process has loaded the library (nothing is built)."""
     return _lib is not None

@@ -95,6 +95,11 @@ class ReinhardFastNormalizer:
         out = self._lab_transfer((rgb[None] if single else rgb).float())
         return out[0] if single else out
 
+    def rgb_to_rgb(self, rgb: torch.Tensor) -> torch.Tensor:
+        """slideflow's name for the call (the UncertaintyInterface of
+        results.py:251-254 calls it)."""
+        return self(rgb)
+
 
 class ReinhardNormalizer(ReinhardFastNormalizer):
     """Full Reinhard: brightness-standardize (scale so the 95th percentile

@@ -13,10 +13,10 @@ Pillow-written 299-px tile about ten times slower than Pillow). With
 ``use_native=True`` each batch is read, parsed and decoded by the native
 library's threaded reader (``data/native_loader.py``) with the GIL
 released, and a tile its decoder rejects is decoded in Python, as the
-JAX package's ``_gather_native`` does; both give the same bytes. The
-JAX package's sharding of the tile stream over processes belongs to
-lockstep data parallelism (ROADMAP.md Queue 1 item 9b) and is not
-ported. With ``jpeg_aug`` each
+JAX package's ``_gather_native`` does; both give the same bytes. Under
+lockstep data parallelism each rank reads its shard of the tile stream
+(``shard``, ``num_shards``), as the JAX package's processes do. With
+``jpeg_aug`` each
 training tile is re-compressed on the host after decoding
 (``data/augment.py`` ``jpeg_augment_host``, drawing from the batcher's
 shuffle generator, as the JAX package's Python path does), always in
@@ -74,6 +74,9 @@ class TileBatcher:
             threaded reader (built and loaded here, or raising) where
             ``tile_px`` is given and ``jpeg_aug`` is off; the default
             decodes in Python. Either way the batches are the same.
+        shard, num_shards: read every ``num_shards``-th tile from the
+            ``shard``-th (``entries[shard::num_shards]``, after
+            ``max_tiles``); every shard shuffles with ``seed``.
     """
 
     def __init__(
@@ -88,7 +91,11 @@ class TileBatcher:
         max_tiles: Optional[int] = None,
         tile_px: Optional[int] = None,
         use_native: bool = False,
+        shard: int = 0,
+        num_shards: int = 1,
     ):
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} outside [0, {num_shards})")
         if use_native:
             from .native_loader import load
 
@@ -109,6 +116,7 @@ class TileBatcher:
             if max_tiles is not None:
                 offsets = offsets[:max_tiles]
             entries.extend((pi, int(off)) for off in offsets)
+        entries = entries[shard::num_shards]
         self.entries = np.asarray(entries, dtype=np.int64).reshape(-1, 2)
         self._slide_names = [splitext(basename(p))[0] for p in self.paths]
         self._files = {}

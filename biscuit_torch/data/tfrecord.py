@@ -4,8 +4,10 @@
 The TFRecord on-disk framing, ``uint64le length, uint32le
 masked_crc32c(length), payload, uint32le masked_crc32c(payload)``, so
 tile archives written by either package (or by slideflow) load in the
-other. Readers skip the CRCs, and a ``.index.npy`` sidecar of record
-offsets gives O(1) random access, as slideflow's index files do.
+other. The readers by index skip the CRCs, and a ``.index.npy`` sidecar
+of record offsets gives O(1) random access, as slideflow's index files
+do; the sequential readers (``read_records``, ``read_examples``) check
+them on request.
 
 CRC32C (Castagnoli) runs through the native library
 (``data/native_loader.py``, SSE4.2 or slicing-by-8) once this process has
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -111,6 +113,32 @@ class TFRecordWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def read_records(path: str, verify: bool = False) -> Iterator[bytes]:
+    """Each record's payload in file order; with ``verify``, each header
+    and payload CRC is checked, and a mismatch raises ``IOError``."""
+    with open(path, "rb") as f:
+        while True:
+            header = f.read(8)
+            if len(header) < 8:
+                return
+            (length,) = struct.unpack("<Q", header)
+            (crc_h,) = struct.unpack("<I", f.read(4))
+            payload = f.read(length)
+            (crc_p,) = struct.unpack("<I", f.read(4))
+            if verify:
+                if masked_crc(header) != crc_h:
+                    raise IOError(f"Corrupt record header in {path}")
+                if masked_crc(payload) != crc_p:
+                    raise IOError(f"Corrupt record payload in {path}")
+            yield payload
+
+
+def read_examples(path: str, verify: bool = False) -> Iterator[Dict]:
+    """Each record decoded (``proto.decode_example``), in file order."""
+    for payload in read_records(path, verify=verify):
+        yield decode_example(payload)
 
 
 def load_index(path: str) -> np.ndarray:

@@ -28,8 +28,12 @@ Under a multi-process runtime (``parallel/distributed.py``) the same
 setting distributes the folds: each process claims folds through the
 store and trains them on its own devices, and every step ends with a
 status exchange, so one process's failure aborts all of them. Without
-``n_submeshes`` a multi-process run would train each fold in lockstep
-over all processes, which raises (ROADMAP.md Queue 1 item 9b).
+``n_submeshes`` a multi-process run trains each fold in lockstep over all
+processes (``parallel/lockstep.py``): every process runs the protocol,
+each training's ranks are this process's devices (``train_kwargs
+["device"]`` where that is given) on a mesh that spans the processes,
+main writes the annotations and the model directories, and step 6 is
+evaluated by main and published to the others.
 matplotlib, seaborn and scipy are imported only by the figure code.
 """
 
@@ -262,11 +266,25 @@ class Experiment:
 
     def train(self, hp, label, filters=None, save_predictions="csv",
               validate_on_batch=32, validation_steps=32, **kwargs):
-        """Train one experiment label (experiment.py:1028-1051)."""
+        """Train one experiment label (experiment.py:1028-1051); under a
+        multi-process runtime without ``n_submeshes``, in lockstep over
+        the processes."""
+        from .parallel import distributed as dist
+
         merged = dict(self.train_kwargs)
         merged.update(kwargs)
         # Read by run(), not by the trainer.
-        merged.pop("n_submeshes", None)
+        scheduled = merged.pop("n_submeshes", None) is not None
+        if dist.process_count() > 1 and not scheduled and (
+                merged.get("mesh") is None):
+            # One model trained in lockstep by every process, each on its
+            # own devices (train_kwargs["device"] where that is given).
+            from .parallel.mesh import Mesh, local_devices
+
+            device = merged.get("device")
+            merged["mesh"] = Mesh(
+                local_devices() if device is None else [device],
+                spans_processes=True)
         # train_kwargs may override the named defaults (passing e.g.
         # {'validate_on_batch': 2} must not collide with the explicit
         # keyword below).
@@ -375,18 +393,14 @@ class Experiment:
         # shared artifact tree.
         multiproc = dist.process_count() > 1
         distribute = multiproc and "n_submeshes" in self.train_kwargs
-        if multiproc and not distribute:
-            raise NotImplementedError(
-                "Experiment.run under a multi-process runtime without "
-                "train_kwargs['n_submeshes'] trains every fold in lockstep "
-                f"over all processes, which needs {dist.ITEM_9B}; set "
-                "n_submeshes to distribute the folds instead")
+        # Without n_submeshes, each training is one model trained in
+        # lockstep by every process (``train``).
         # Step barriers must outlive the longest peer's step: real ladder
         # steps run for hours.
         barrier_ms = int(os.environ.get(
             "BISCUIT_STEP_BARRIER_MS", 48 * 3600 * 1000))
         exp_annotations = join(P.root, "experiments.csv")
-        if not distribute or dist.is_main():
+        if not multiproc or dist.is_main():
             if not exists(exp_annotations):
                 shutil.copy(P.annotations, exp_annotations)
             existing_cols = pd.read_csv(
@@ -394,7 +408,7 @@ class Experiment:
             for exp in exp_to_run:
                 if f"include_{exp}" not in existing_cols:
                     self.add(exp_annotations, label=exp, **exp_to_run[exp])
-        if distribute:
+        if multiproc:
             # Peers wait for main's annotation writes before reading them.
             dist.barrier("exp_annotations", barrier_ms)
         P.annotations = exp_annotations

@@ -19,14 +19,20 @@ pool rounds to the compute dtype before the f32 features, and the head
 runs in f32. In train mode (``model.train()``) BatchNorm normalizes with
 the batch's own statistics and updates the running ones as Flax does
 (``batch_norm_train``), and the head samples dropout from an explicit
-``torch.Generator``. Padding: the two stem convs are VALID, every other
+``torch.Generator``. Under lockstep data parallelism the batch is the
+group's: inside ``bn_group(group)`` a train-mode BatchNorm takes its
+statistics over every rank's rows (``parallel/lockstep.py``), and the
+head draws its dropout masks at the group's batch shape and keeps this
+rank's rows (``rows``). Padding: the two stem convs are VALID, every other
 conv is SAME, and the stride-2 SAME max-pool pads asymmetrically on even
 sizes (explicit -inf pad, never ``MaxPool2d(padding=1)``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import threading
+from contextlib import contextmanager
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,15 +82,50 @@ class Conv(nn.Conv2d):
 
 MOMENTUM = 0.99     # Flax BatchNorm's running-statistics momentum
 
+_BN_GROUP = threading.local()   # each rank of a group is its own thread
 
-def batch_norm_train(x, weight, bias, eps: float, dims):
+
+@contextmanager
+def bn_group(group):
+    """Train-mode ``BatchNorm`` modules called in this thread inside the
+    block take their statistics over ``group`` (a ``parallel/lockstep.
+    Group``; None is this rank alone)."""
+    prev = getattr(_BN_GROUP, "group", None)
+    _BN_GROUP.group = group
+    try:
+        yield
+    finally:
+        _BN_GROUP.group = prev
+
+
+def current_bn_group():
+    """The group of the innermost ``bn_group`` block of this thread, or
+    None."""
+    return getattr(_BN_GROUP, "group", None)
+
+
+def batch_norm_train(x, weight, bias, eps: float, dims, group=None):
     """Train-mode BatchNorm as Flax computes it: statistics over ``dims``
     in f32, the biased fast variance ``max(0, E[x^2] - E[x]^2)``, and the
     output rounded once to x's dtype. ``weight`` and ``bias`` broadcast
-    against x. Returns (y, mean, var), mean and var of shape (C,)."""
+    against x. Returns (y, mean, var), mean and var of shape (C,).
+
+    With a ``group`` of several ranks, each holding as many rows as the
+    others, the statistics are over every rank's rows: the f32 (sum x,
+    sum x^2) are all-reduced, through an all-reduce whose backward
+    all-reduces their cotangents, so that the input's gradient sees the
+    whole group's batch while gamma's and beta's stay this rank's
+    share."""
     xf = x.float()
-    mu = xf.mean(dim=dims, keepdim=True)
-    mu2 = xf.square().mean(dim=dims, keepdim=True)
+    if group is None or group.size == 1:
+        mu = xf.mean(dim=dims, keepdim=True)
+        mu2 = xf.square().mean(dim=dims, keepdim=True)
+    else:
+        sums = group.all_reduce_sum_differentiable(torch.stack(
+            [xf.sum(dim=dims, keepdim=True),
+             xf.square().sum(dim=dims, keepdim=True)]))
+        count = xf.numel() // sums[0].numel() * group.size
+        mu, mu2 = sums[0] / count, sums[1] / count
     var = torch.clamp_min(mu2 - mu.square(), 0.0)
     inv = torch.rsqrt(var + eps)
     y = ((xf - mu) * (inv * weight.float()) + bias.float()).to(x.dtype)
@@ -115,7 +156,8 @@ class BatchNorm(nn.BatchNorm2d):
                                 self.weight, self.bias, False, 0.0, self.eps)
         y, mu, var = batch_norm_train(x, self.weight[:, None, None],
                                       self.bias[:, None, None], self.eps,
-                                      (0, 2, 3))
+                                      (0, 2, 3),
+                                      current_bn_group())
         with torch.no_grad():
             self.running_mean.copy_(running_update(self.running_mean, mu))
             self.running_var.copy_(running_update(self.running_var, var))
@@ -256,17 +298,22 @@ class Head(nn.Module):
             c = hidden_width
         self.logits = nn.Linear(c, num_classes)
 
-    def forward(self, feats, mc_dropout: bool = False, generator=None):
+    def forward(self, feats, mc_dropout: bool = False, generator=None,
+                rows: Optional[Tuple[int, int]] = None):
         """``mc_dropout``, or train mode, samples inverted dropout (keep
         with 1-rate, divide by 1-rate, as Flax ``Dropout``) from
-        ``generator``."""
+        ``generator``. ``rows`` (start, total): the masks are drawn for a
+        batch of ``total`` rows, of which these features are the rows
+        from ``start`` (a rank's share of a group's batch)."""
         h = feats.float()
         keep = 1.0 - self.dropout
         use_dropout = mc_dropout or self.training
+        start, total = rows if rows is not None else (0, h.shape[0])
         for i in range(self.hidden_layers):
             h = F.relu(getattr(self, f"hidden{i}")(h))
             if use_dropout and self.dropout > 0:
-                u = torch.rand(h.shape, generator=generator, device=h.device)
+                u = torch.rand((total,) + h.shape[1:], generator=generator,
+                               device=h.device)[start:start + h.shape[0]]
                 h = torch.where(u < keep, h / keep, torch.zeros_like(h))
         return self.logits(h)
 
@@ -298,8 +345,9 @@ class XceptionClassifier(nn.Module):
         self.head = Head(_feature_width(arch), num_classes, hidden_layers,
                          hidden_width, dropout)
 
-    def forward(self, x, mc_dropout: bool = False, generator=None):
-        return self.head(self.features(x), mc_dropout, generator)
+    def forward(self, x, mc_dropout: bool = False, generator=None,
+                rows: Optional[Tuple[int, int]] = None):
+        return self.head(self.features(x), mc_dropout, generator, rows)
 
     def features(self, x):
         """Deterministic pooled f32 features of NHWC tiles."""

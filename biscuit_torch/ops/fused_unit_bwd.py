@@ -29,6 +29,21 @@ taps as ``(9, CI)`` f32 in (dy, dx) row-major order and the pointwise
 weight as ``(CI, CO)``, which are the JAX ``(3, 3, 1, CI)`` and
 ``(1, 1, CI, CO)`` kernels without their unit dimensions.
 
+Under lockstep data parallelism (``group``, ``parallel/lockstep.py``)
+the BatchNorm statistics are the group's, as under the JAX package's jit
+over a sharded batch: ``unit_fwd`` all-reduces its f32 (sum p, sum p^2),
+and the backward takes mean(g) and mean(g*xhat) over every rank's pixels.
+It is then split at the BN sums: ``unit_bwd_sums`` gives this rank's
+(2, CO) f32 (sum g, sum g*xhat), the group all-reduces it, and the
+backward runs from the summed vector and the group's pixel count m
+(``sums=``, ``m=``; the kernel's second entry). That entry, and its plain
+version, return no dgamma and dbeta (None): a rank's share of them is its
+own (sum g*xhat, sum g), which ``sep_bn_unit`` under a group returns, so
+that the gradient all-reduce of the step counts each rank's share once.
+At one rank the two entries give the one-call kernel's outputs bit for
+bit; one unit backward counts one launch either way, taken by the entry
+that finishes it.
+
 Backends of ``sep_bn_unit``'s backward: ``'auto'`` (the strip kernel),
 ``'plane'`` or ``'reference'`` (the plain version, named explicitly). The kernel wrappers ``unit_bwd_plane`` and
 ``unit_bwd_strips`` compute the plain version for CPU tensors; for CUDA
@@ -55,10 +70,12 @@ DEFAULT_HS = 24       # strip height (rows), as the JAX strip kernel's default
 
 # ---------------------------------------------------------------- forward
 
-def unit_fwd(a, taps, wpw, gamma, beta, eps: float, relu_first: bool):
+def unit_fwd(a, taps, wpw, gamma, beta, eps: float, relu_first: bool,
+             group=None):
     """Forward of the unit on NHWC ``a`` with library convs (cast to a's
     dtype, as Flax casts its f32 kernels). Returns (y, mean, var,
-    (r, d, p)); r, d and p are contiguous NHWC."""
+    (r, d, p)); r, d and p are contiguous NHWC. With a ``group`` of
+    several ranks, mean and var are over every rank's pixels."""
     n, h, w, ci = a.shape
     co = wpw.shape[1]
     r = torch.relu(a) if relu_first else a
@@ -69,8 +86,13 @@ def unit_fwd(a, taps, wpw, gamma, beta, eps: float, relu_first: bool):
     d = d.permute(0, 2, 3, 1).contiguous()
     p = p.permute(0, 2, 3, 1).contiguous()
     pf = p.float()
-    mu = pf.mean(dim=(0, 1, 2))
-    mu2 = pf.square().mean(dim=(0, 1, 2))
+    if group is None or group.size == 1:
+        mu = pf.mean(dim=(0, 1, 2))
+        mu2 = pf.square().mean(dim=(0, 1, 2))
+    else:
+        s = group.all_reduce_sum([torch.stack(
+            [pf.sum(dim=(0, 1, 2)), pf.square().sum(dim=(0, 1, 2))])])[0]
+        mu, mu2 = s / (n * h * w * group.size)
     var = torch.clamp_min(mu2 - mu.square(), 0.0)
     inv = torch.rsqrt(var + eps)
     y = ((pf - mu) * (inv * gamma.float()) + beta.float()).to(a.dtype)
@@ -79,25 +101,39 @@ def unit_fwd(a, taps, wpw, gamma, beta, eps: float, relu_first: bool):
 
 # ---------------------------------------------------------- plain version
 
+def unit_bwd_sums_reference(gy, p, mu, var, eps: float):
+    """(2, CO) f32 (sum g, sum g*xhat) over the pixels of gy and p, the
+    plain version of ``unit_bwd_sums``."""
+    g = gy.float()
+    xhat = (p.float() - mu) * torch.rsqrt(var.float() + eps)
+    return torch.stack([g.sum(dim=(0, 1, 2)), (g * xhat).sum(dim=(0, 1, 2))])
+
+
 def unit_bwd_reference(gy, r, d, p, taps, wpw, gamma, mu, var, eps: float,
-                       relu_first: bool):
+                       relu_first: bool, sums=None, m=None):
     """The backward as plain torch ops (the JAX ``unit_bwd_reference``).
     Returns (da, dwdw (9, CI), dwpw (CI, CO), dgamma, dbeta), f32 but da
-    in gy's dtype."""
+    in gy's dtype. ``sums`` (2, CO), with ``m``: the BN sums and pixel
+    count of a group (see the module docstring), else this call's; with
+    them dgamma and dbeta are None."""
     n, h, w, ci = r.shape
     inv = torch.rsqrt(var.float() + eps)
     g = gy.float()
     pf = p.float()
     xhat = (pf - mu) * inv
-    m = n * h * w
-    sum_g = g.sum(dim=(0, 1, 2))
-    sum_gx = (g * xhat).sum(dim=(0, 1, 2))
+    if sums is None:
+        m = n * h * w
+        sum_g = g.sum(dim=(0, 1, 2))
+        sum_gx = (g * xhat).sum(dim=(0, 1, 2))
+    else:
+        sum_g, sum_gx = sums.float()
     gp = (gamma.float() * inv) * (g - sum_g / m - xhat * (sum_gx / m))
     cdt = gy.dtype
-    gpb = gp.to(cdt).float().reshape(m, -1)
+    pixels = n * h * w
+    gpb = gp.to(cdt).float().reshape(pixels, -1)
     wpw_c = wpw.to(cdt).float()
     gd = (gpb @ wpw_c.t()).reshape(n, h, w, ci)
-    dwpw = d.to(cdt).float().reshape(m, ci).t() @ gpb
+    dwpw = d.to(cdt).float().reshape(pixels, ci).t() @ gpb
     wt = taps.float()
     gdpad = F.pad(gd, (0, 0, 1, 1, 1, 1))
     gr = torch.zeros_like(gd)
@@ -110,6 +146,8 @@ def unit_bwd_reference(gy, r, d, p, taps, wpw, gamma, mu, var, eps: float,
         for u in range(3) for v in range(3)])
     if relu_first:
         gr = gr * (r > 0)
+    if sums is not None:
+        return gr.to(cdt), dwdw, dwpw, None, None
     return gr.to(cdt), dwdw, dwpw, sum_gx, sum_g
 
 
@@ -257,8 +295,64 @@ def _sm_count(dev) -> int:
     return _SMS[dev.index]
 
 
+def _check_bn_inputs(name, gy, p, mu, var, dev):
+    """gy and p as the kernels read them (bf16, contiguous, on ``dev``)."""
+    for t_name, t in (("gy", gy), ("p", p)):
+        if t.dtype != torch.bfloat16 or t.device != dev or (
+                not t.is_contiguous()) or tuple(t.shape) != tuple(gy.shape):
+            raise ValueError(f"{name}: {t_name} must be {tuple(gy.shape)} "
+                             f"bf16 and contiguous on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    co = gy.shape[-1]
+    if co % 8:
+        raise ValueError(f"{name}: needs CO % 8 == 0, got CO={co}")
+    for t_name, t in (("mu", mu), ("var", var)):
+        if tuple(t.shape) != (co,) or t.device != dev:
+            raise ValueError(f"{name}: {t_name} must be ({co},) on {dev}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+
+
+def _aligned(name, tensors) -> None:
+    """The kernels read their inputs in 16-byte vectors and by TMA."""
+    for t_name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {t_name} must start on a 16-byte "
+                             f"boundary (a view at an offset does not)")
+
+
+def unit_bwd_sums(gy, p, mu, var, eps: float):
+    """(2, CO) f32 (sum g, sum g*xhat) over the pixels of NHWC gy and p,
+    with the forward's mean and var: the first entry of the kernel's group
+    route (pass 1 and the sums of pass 2). The plain version for CPU
+    tensors; on the card the kernel or a raise. Not counted: the second
+    entry counts the unit backward it finishes."""
+    if not gy.is_cuda:
+        return unit_bwd_sums_reference(gy, p, mu, var, eps)
+    name = "unit_bwd_sums"
+    dev = gy.device
+    _check_bn_inputs(name, gy, p, mu, var, dev)
+    n, h, w, co = gy.shape
+    mu32, var32 = (t.detach().float().contiguous() for t in (mu, var))
+    _aligned(name, (("gy", gy), ("p", p), ("mu", mu32), ("var", var32)))
+    plan = launch_plan(n, h, w, co, co, None, _sm_count(dev))
+    bn_part = torch.empty(plan["scratch"]["bn_part"], dtype=torch.float32,
+                          device=dev)
+    sums = torch.empty((2, co), dtype=torch.float32, device=dev)
+    ints = (ctypes.c_int * len(PLAN_FIELDS))(*plan["ints"])
+    fn = _build.bound(SOURCE, "unit_bwd_sums_launch",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_float]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                      + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                         ctypes.c_void_p])
+    rc = fn(*(_build.ptr(t) for t in (gy, p, mu32, var32)), float(eps),
+            _build.ptr(bn_part), _build.ptr(sums), n, h, w, co, ints,
+            dev.index or 0, _build.stream_ptr(gy))
+    _build.check(rc, name)
+    return sums
+
+
 def _launch(name, gy, r, d, p, taps, wpw, gamma, mu, var, eps, relu_first,
-            hs=None):
+            hs=None, sums=None, m=None):
     n, h, w, ci = r.shape
     co = gy.shape[-1]
     dev = gy.device
@@ -286,13 +380,16 @@ def _launch(name, gy, r, d, p, taps, wpw, gamma, mu, var, eps, relu_first,
     wpw_m = wpw.detach().t().float().contiguous()
     gamma32, mu32, var32 = (t.detach().float().contiguous()
                             for t in (gamma, mu, var))
-    # The kernels read the activations in 16-byte vectors and by TMA.
-    for t_name, t in (("gy", gy), ("p", p), ("r", r), ("d", d),
-                      ("taps", taps_m), ("wpw", wpw_m), ("gamma", gamma32),
-                      ("mu", mu32), ("var", var32)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {t_name} must start on a 16-byte "
-                             f"boundary (a view at an offset does not)")
+    given = []
+    if sums is not None:
+        if tuple(sums.shape) != (2, co) or sums.device != dev or m is None:
+            raise ValueError(f"{name}: sums must be (2, {co}) on {dev}, with "
+                             f"m, got {tuple(sums.shape)} on {sums.device}")
+        sums = sums.detach().float().contiguous()
+        given = [("sums", sums)]
+    _aligned(name, [("gy", gy), ("p", p), ("r", r), ("d", d),
+                    ("taps", taps_m), ("wpw", wpw_m), ("gamma", gamma32),
+                    ("mu", mu32), ("var", var32)] + given)
     plan = launch_plan(n, h, w, ci, co, hs, _sm_count(dev))
     sc = plan["scratch"]
 
@@ -300,7 +397,8 @@ def _launch(name, gy, r, d, p, taps, wpw, gamma, mu, var, eps, relu_first,
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     da = torch.empty_like(r)
-    dwdw, dwpw, dgamma, dbeta = f32(9, ci), f32(ci, co), f32(co), f32(co)
+    dwdw, dwpw = f32(9, ci), f32(ci, co)
+    dgamma, dbeta = (f32(co), f32(co)) if sums is None else (None, None)
     bn_part, vec = f32(*sc["bn_part"]), f32(*sc["vec"])
     wpw16, gpb = (torch.empty(sc[k], dtype=torch.bfloat16, device=dev)
                   for k in ("wpw16", "gpb"))
@@ -310,85 +408,113 @@ def _launch(name, gy, r, d, p, taps, wpw, gamma, mu, var, eps, relu_first,
     if _build.bound(SOURCE, "unit_bwd_plan_fields", [],
                     ctypes.c_int)() != len(PLAN_FIELDS):
         raise RuntimeError(f"{name}: the kernel reads another plan")
-    fn = _build.bound(SOURCE, f"{name}_launch",
-                      [ctypes.c_void_p] * 9 + [ctypes.c_float]
-                      + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
-                      + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                         ctypes.c_void_p])
-    rc = fn(*(_build.ptr(t) for t in (gy, p, r, d, taps_m, wpw_m, gamma32,
+    params = ([ctypes.c_void_p] * 9 + [ctypes.c_float]
+              + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+              + [ctypes.POINTER(ctypes.c_int)])
+    args = [*(_build.ptr(t) for t in (gy, p, r, d, taps_m, wpw_m, gamma32,
                                       mu32, var32)),
             float(eps),
-            *(_build.ptr(t) for t in (da, dwdw, dwpw, dgamma, dbeta, bn_part,
-                                      vec, wpw16, gpb, gd, wg_part,
-                                      dw_part)),
-            n, h, w, ci, co, int(bool(relu_first)), ints,
-            dev.index or 0, _build.stream_ptr(gy))
+            *(_build.ptr(t) if t is not None else None
+              for t in (da, dwdw, dwpw, dgamma, dbeta, bn_part, vec, wpw16,
+                        gpb, gd, wg_part, dw_part)),
+            n, h, w, ci, co, int(bool(relu_first)), ints]
+    if sums is None:
+        fn = _build.bound(SOURCE, f"{name}_launch",
+                          params + [ctypes.c_int, ctypes.c_void_p])
+    else:
+        fn = _build.bound(SOURCE, f"{name}_global_launch",
+                          params + [ctypes.c_void_p, ctypes.c_float,
+                                    ctypes.c_int, ctypes.c_void_p])
+        args += [_build.ptr(sums), float(m)]
+    rc = fn(*args, dev.index or 0, _build.stream_ptr(gy))
     _build.check(rc, name)
     _build.count_launch(name)
     return da, dwdw, dwpw, dgamma, dbeta
 
 
 def unit_bwd_plane(gy, r, d, p, taps, wpw, gamma, mu, var, eps: float,
-                   relu_first: bool):
+                   relu_first: bool, sums=None, m=None):
     """Fused unit backward, whole-plane kernel (counterpart of
     ``unit_bwd_pallas``). NHWC in and out; returns (da, dwdw (9, CI),
-    dwpw (CI, CO), dgamma, dbeta)."""
+    dwpw (CI, CO), dgamma, dbeta). ``sums``/``m``: a group's BN sums and
+    pixel count (the kernel's second entry, which returns None for dgamma
+    and dbeta; see the module docstring)."""
     if not gy.is_cuda:
         return unit_bwd_reference(gy, r, d, p, taps, wpw, gamma, mu, var,
-                                  eps, relu_first)
+                                  eps, relu_first, sums, m)
     return _launch(PLANE, gy, r, d, p, taps, wpw, gamma, mu, var, eps,
-                   relu_first)
+                   relu_first, None, sums, m)
 
 
 def unit_bwd_strips(gy, r, d, p, taps, wpw, gamma, mu, var, eps: float,
-                    relu_first: bool, hs: int = DEFAULT_HS):
+                    relu_first: bool, hs: int = DEFAULT_HS, sums=None,
+                    m=None):
     """Fused unit backward, strips of ``hs`` rows with halo rows
     (counterpart of ``unit_bwd_pallas_strips``). NHWC in and out; returns
-    (da, dwdw (9, CI), dwpw (CI, CO), dgamma, dbeta)."""
+    (da, dwdw (9, CI), dwpw (CI, CO), dgamma, dbeta). ``sums``/``m`` as
+    for ``unit_bwd_plane``."""
     if hs < 1:
         raise ValueError(f"strip height must be >= 1, got {hs}")
     if not gy.is_cuda:
         return unit_bwd_reference(gy, r, d, p, taps, wpw, gamma, mu, var,
-                                  eps, relu_first)
+                                  eps, relu_first, sums, m)
     return _launch(STRIPS, gy, r, d, p, taps, wpw, gamma, mu, var, eps,
-                   relu_first, hs)
+                   relu_first, hs, sums, m)
 
 
 _BWD = {"auto": unit_bwd_strips, "plane": unit_bwd_plane,
         "reference": unit_bwd_reference}
+_SUMS = {"auto": unit_bwd_sums, "plane": unit_bwd_sums,
+         "reference": unit_bwd_sums_reference}
 
 
 # ------------------------------------------------------------- autograd
 
 class _SepBnUnit(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, taps, wpw, gamma, beta, eps, relu_first, backend):
+    def forward(ctx, a, taps, wpw, gamma, beta, eps, relu_first, backend,
+                group):
         y, mu, var, (r, d, p) = unit_fwd(a.contiguous(), taps, wpw, gamma,
-                                         beta, eps, relu_first)
+                                         beta, eps, relu_first, group)
         ctx.save_for_backward(r, d, p, taps, wpw, gamma, mu, var)
         ctx.eps, ctx.relu_first, ctx.backend = eps, relu_first, backend
+        ctx.group = group
         ctx.mark_non_differentiable(mu, var)
         return y, mu, var
 
     @staticmethod
     def backward(ctx, gy, _gmu, _gvar):
         r, d, p, taps, wpw, gamma, mu, var = ctx.saved_tensors
-        da, dwdw, dwpw, dgamma, dbeta = _BWD[ctx.backend](
-            gy.contiguous(), r, d, p, taps, wpw, gamma, mu, var, ctx.eps,
-            ctx.relu_first)
+        gy = gy.contiguous()
+        group = ctx.group
+        if group is None or group.size == 1:
+            da, dwdw, dwpw, dgamma, dbeta = _BWD[ctx.backend](
+                gy, r, d, p, taps, wpw, gamma, mu, var, ctx.eps,
+                ctx.relu_first)
+        else:
+            # The group's BN sums; dgamma, dbeta are this rank's own.
+            local = _SUMS[ctx.backend](gy, p, mu, var, ctx.eps)
+            total = group.all_reduce_sum([local])[0]
+            da, dwdw, dwpw, _, _ = _BWD[ctx.backend](
+                gy, r, d, p, taps, wpw, gamma, mu, var, ctx.eps,
+                ctx.relu_first, sums=total,
+                m=gy[..., 0].numel() * group.size)
+            dgamma, dbeta = local[1], local[0]
         return (da, dwdw.to(taps.dtype), dwpw.to(wpw.dtype),
                 dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None, None,
-                None)
+                None, None)
 
 
 def sep_bn_unit(a, taps, wpw, gamma, beta, eps: float, relu_first: bool,
-                backend: str = "auto"):
+                backend: str = "auto", group=None):
     """relu? -> depthwise 3x3 -> pointwise 1x1 -> train-mode BatchNorm on
     NHWC ``a``, with the fused backward. Returns (y, batch mean, batch
     var); mean and var feed the running-statistics update and are not
     differentiated (their cotangents are ignored, as in the JAX
-    ``sep_bn_unit``)."""
+    ``sep_bn_unit``). With a ``group`` of several ranks (``parallel/
+    lockstep.Group``) the statistics are the group's, and gamma's and
+    beta's gradients this rank's share (see the module docstring)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     return _SepBnUnit.apply(a, taps, wpw, gamma, beta, eps, relu_first,
-                            backend)
+                            backend, group)

@@ -17,8 +17,10 @@ code runs in one process, where every primitive is a no-op. A process
 that was asked to join and cannot reach the store raises after the
 timeout; it never carries on alone.
 
-Lockstep data parallelism (``global_batch``, training over a mesh that
-spans processes) is ROADMAP.md Queue 1 item 9b and raises here.
+Lockstep data parallelism over a mesh that spans processes
+(``lockstep.py``) builds its process groups on this store, and
+``global_batch`` places a process's rows of a global batch on its
+devices.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from typing import Optional
 
 from ..utils_log import log
 
-ITEM_9B = "ROADMAP.md Queue 1 item 9b (lockstep data parallelism)"
 _TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 _state = {"store": None, "rank": 0, "world": 1}
 
@@ -89,6 +90,11 @@ def shutdown(timeout_s: float = 30.0) -> None:
     except Exception as e:  # a peer that died leaves nothing to wait for
         log.warning(f"distributed.shutdown: {e}")
     _state.update(store=None, rank=0, world=1)
+
+
+def store():
+    """The runtime's store (None in a single process)."""
+    return _state["store"]
 
 
 def process_index() -> int:
@@ -200,6 +206,27 @@ def _exchange(kind: str, name: str, value: str, timeout_ms: int) -> list:
 
 
 def global_batch(local_batch: dict, mesh, axis: str = "data") -> dict:
-    """Assemble process-local batches into one global batch: lockstep
-    data parallelism, not ported yet."""
-    raise NotImplementedError(f"global_batch needs {ITEM_9B}")
+    """This process's rows of a global batch, placed on its mesh devices:
+    the counterpart of the JAX package's
+    ``make_array_from_process_local_data``. The array leaves (numpy or
+    tensors) split over the mesh's devices in order, as lists (the global
+    rank of this process's device i is ``process_index() * mesh.size +
+    i``); other leaves pass through. Over a mesh that spans processes,
+    every process must pass as many rows, which is checked across them."""
+    from .mesh import shard_batch
+
+    rows = {int(v.shape[0]) for v in local_batch.values()
+            if hasattr(v, "shape")}
+    if len(rows) > 1:
+        raise ValueError(f"the batch's arrays have different leading sizes "
+                         f"{sorted(rows)}")
+    n = rows.pop() if rows else 0
+    if mesh_spans_processes(mesh):
+        from .lockstep import mesh_ranks
+
+        mesh_ranks(mesh)     # raises without a multi-process runtime
+        counts = exchange_values("global_batch_rows", str(n))
+        if len(set(counts)) != 1:
+            raise ValueError(f"every process must feed as many rows to a "
+                             f"global batch; they feed {counts}")
+    return shard_batch(local_batch, mesh, axis)

@@ -8,7 +8,14 @@ over the mesh's devices in order, ``replicated`` copies it to each, and
 ``shard_batch`` does the former to every array of a host batch.
 
 A mesh whose devices repeat (two entries of ``cuda:0``, or of ``cpu``)
-is allowed: its shards then share that device.
+is allowed: its shards then share that device (lockstep training refuses
+a repeated card, ``lockstep.py``).
+
+A mesh that spans processes lists this process's devices only; every
+process of the runtime builds one with as many devices, and the global
+rank of process p's device i is ``p * n_local + i``
+(``lockstep.mesh_ranks``). Each entry is one rank of a lockstep
+training, or one shard of a ``ShardedServable``.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ import torch
 
 class Mesh:
     """Ordered devices along one axis; ``spans_processes`` marks a mesh
-    whose devices belong to more than one process."""
+    whose devices are this process's share of one that spans every
+    process of the runtime."""
 
     def __init__(self, devices: Sequence, axis: str = "data",
                  spans_processes: bool = False):

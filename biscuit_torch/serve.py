@@ -540,24 +540,31 @@ class ShardedServable:
     i)``, so shards draw independent streams; passing ``seed=`` pins the
     whole global batch. A call without one takes the next number of the
     internal stream, as ``Servable`` does.
+
+    Over a mesh that spans processes (every process of the runtime builds
+    it with its own devices, ``parallel/lockstep.py``'s rule), the shards
+    are every process's: each process passes the same global batch, runs
+    its own shards (process p's device i is shard ``p * n_local + i``) at
+    their seeds, and receives every row, gathered on the host through a
+    gloo group of the processes. The result is one process's call over
+    as many shards.
     """
 
     def __init__(self, path: str, mesh=None, axis: str = "data"):
         from .parallel import distributed
+        from .parallel.lockstep import mesh_ranks, process_group
         from .parallel.mesh import data_parallel_mesh
 
         header, programs = _read_container(path)
         _unpack_header(self, header)  # batch_size is per device
         if mesh is None:
             mesh = data_parallel_mesh(axis=axis)
-        if distributed.mesh_spans_processes(mesh):
-            raise ValueError("a ShardedServable fans out over this "
-                             "process's devices; a mesh that spans "
-                             "processes needs "
-                             f"{distributed.ITEM_9B}")
+        self._first, self.n_shards = mesh_ranks(mesh)
+        self._processes = (process_group()
+                           if distributed.mesh_spans_processes(mesh)
+                           else None)
         self.mesh = mesh
         self.axis = axis
-        self.n_shards = mesh.size
         self.global_batch = self.batch_size * self.n_shards
         self._programs = programs
         self._calls = 0
@@ -577,10 +584,12 @@ class ShardedServable:
         return "features" in self._programs
 
     def _shard_seeds(self, seed):
+        """The seeds of this process's shards."""
         if seed is None:
             seed = self._calls & 0xFFFFFFFF
             self._calls += 1
-        return [_fold_seed(seed, i) for i in range(self.n_shards)]
+        return [_fold_seed(seed, self._first + i)
+                for i in range(self.mesh.size)]
 
     def _check_exact(self, tiles):
         tiles = torch.as_tensor(tiles)
@@ -596,11 +605,17 @@ class ShardedServable:
     def _fan_out(self, method: str, tiles, seed):
         from .parallel.mesh import batch_sharding
 
-        parts = batch_sharding(self.mesh).place(self._check_exact(tiles))
+        tiles = self._check_exact(tiles)
+        rows = self.batch_size * self.mesh.size
+        mine = tiles[self._first * self.batch_size:][:rows]
+        parts = batch_sharding(self.mesh).place(mine)
         outs = [getattr(shard, method)(part, seed=s) for shard, part, s in
                 zip(self._shards, parts, self._shard_seeds(seed))]
-        return tuple(torch.cat([o[j].to(self.device) for o in outs])
+        outs = tuple(torch.cat([o[j].to(self.device) for o in outs])
                      for j in range(len(outs[0])))
+        if self._processes is None:
+            return outs
+        return tuple(torch.cat(self._processes.all_gather(o)) for o in outs)
 
     def call_exact(self, tiles, seed=None):
         """The program on every shard: tiles must be (global_batch, px,

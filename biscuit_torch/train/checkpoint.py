@@ -18,6 +18,11 @@ its key once for every skipped step; the port restores the generator's
 state instead, so the resumed steps draw what the uninterrupted run
 would have drawn after the same step. Both restart the tile stream from
 its seed (the resumed steps see another shuffle than the original run).
+
+In lockstep training (``parallel/lockstep.py``) the state is the same on
+every rank, so main (``is_main``) alone saves it; on resume main names the
+step to restore, and every rank reads those files read-only, as the JAX
+package's ranks do.
 """
 
 from __future__ import annotations
@@ -40,12 +45,16 @@ class RunCheckpointer:
         model_dir: the run's model directory; checkpoints go under
             ``{model_dir}/ckpt``.
         every: checkpoint every N steps (None or 0 disables).
+        is_main: whether this rank saves; another rank of a lockstep
+            training only restores the step it is given.
     """
 
-    def __init__(self, model_dir: str, every: Optional[int] = None):
+    def __init__(self, model_dir: str, every: Optional[int] = None,
+                 is_main: bool = True):
         self.every = every
+        self.is_main = is_main
         self.dir = os.path.join(os.path.abspath(model_dir), "ckpt")
-        if every:
+        if every and is_main:
             os.makedirs(self.dir, exist_ok=True)
 
     def steps(self) -> list:
@@ -63,10 +72,11 @@ class RunCheckpointer:
                       ) -> Tuple[Any, Any, Any, int]:
         """Restore the latest checkpoint (or ``step``) into ``model``,
         ``tx`` and ``generator`` in place, if there is one; returns them
-        and the restored step, 0 when nothing was restored."""
+        and the restored step, 0 when nothing was restored. A rank that is
+        not main restores ``step`` only, never the latest it finds."""
         if not self.every:
             return model, tx, generator, 0
-        if step is None:
+        if step is None and self.is_main:
             step = self.latest()
         if step is None:
             return model, tx, generator, 0
@@ -83,8 +93,8 @@ class RunCheckpointer:
              force: bool = False) -> None:
         """Save at the checkpoint cadence; ``force=True`` saves regardless
         of cadence (preemption path). Forcing a step that is already
-        saved is a no-op."""
-        if not self.every:
+        saved is a no-op, and so is a save by a rank that is not main."""
+        if not self.every or not self.is_main:
             return
         if not force and step % self.every:
             return

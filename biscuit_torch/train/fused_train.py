@@ -13,7 +13,9 @@ The forward is the module path's arithmetic; the gradients differ from
 autograd's only by the fused backward's f32 handling of gd
 (``ops/fused_unit_bwd.py``). Running statistics are returned as updates,
 not written, as the JAX twin returns them; ``apply_stat_updates`` writes
-them into the module.
+them into the module. Inside ``models/xception.bn_group(group)`` every
+BatchNorm takes the statistics of that group (``parallel/lockstep``), as
+the module path's do.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..models.xception import (
     _nchw,
     _nhwc,
     batch_norm_train,
+    current_bn_group,
     max_pool_same,
     running_update,
 )
@@ -42,7 +45,8 @@ def _record(updates: Updates, path: str, bn, mu, var) -> None:
 
 def _bn(x, bn, updates: Updates, path: str):
     """Library train-mode BatchNorm on NHWC x."""
-    y, mu, var = batch_norm_train(x, bn.weight, bn.bias, bn.eps, (0, 1, 2))
+    y, mu, var = batch_norm_train(x, bn.weight, bn.bias, bn.eps, (0, 1, 2),
+                                  current_bn_group())
     _record(updates, path, bn, mu, var)
     return y
 
@@ -54,7 +58,7 @@ def _unit(x, sep, bn, updates: Updates, path: str, relu_first: bool,
     taps = sep.depthwise.weight.reshape(ci, 9).t()        # (9, CI)
     wpw = sep.pointwise.weight[:, :, 0, 0].t()            # (CI, CO)
     y, mu, var = sep_bn_unit(x, taps, wpw, bn.weight, bn.bias, bn.eps,
-                             relu_first, backend)
+                             relu_first, backend, current_bn_group())
     _record(updates, path, bn, mu, var)
     return y
 

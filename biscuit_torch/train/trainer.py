@@ -1,6 +1,6 @@
 """Training loop, step, checkpoints and tile predictions of the port.
 
-Counterpart of ``biscuit_tpu/train/trainer.py``, single process:
+Counterpart of ``biscuit_tpu/train/trainer.py``:
 ``lr_schedule`` and ``make_optimizer`` (Adam or SGD with the continuous
 0.98/512 exponential decay), ``init_model`` (Flax's initialization),
 ``preprocess`` (normalizer, then per-image standardization),
@@ -12,7 +12,12 @@ writers (``score_tiles``/``predict_tiles`` over tfrecords, the
 ``tile_predictions`` contract, and ``group_predictions_frame``), and the
 training loop ``train_project``: k-fold splits, the model-dir contract
 of SURVEY.md §2.4, early stopping on accuracy, per-epoch validation
-predictions and in-run checkpoints (``train/checkpoint.py``).
+predictions and in-run checkpoints (``train/checkpoint.py``). Over a
+mesh of several devices, or one that spans processes, one model is
+trained in lockstep by a group of ranks (``parallel/lockstep.py``): each
+rank reads its shard of the tile stream and steps on its rows of the
+group's batch, with the group's BatchNorm statistics, loss and summed
+gradients; main (rank 0) writes the model directory.
 
 A saved model directory holds ``params.json`` (``{"hp": ..., "outcome":
 ..., "label": ...}``) and ``model.msgpack`` (Flax ``to_bytes`` of
@@ -32,14 +37,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data.augment import augment_batch, jpeg_augment_batch, jpeg_on_host
+from ..data.augment import (
+    apply_augment,
+    jpeg_apply,
+    jpeg_on_host,
+    sample_augment,
+    sample_jpeg,
+)
 from ..data.normalize import make_normalizer, per_image_standardization
 from ..data.pipeline import PrefetchBatcher, TileBatcher
 from ..device import resolve_device
 from ..hp import ModelParams
 from ..models.convert import from_flax, read_msgpack, to_flax, write_msgpack
 from ..models.resnet import BasicBlock, BottleneckBlock
-from ..models.xception import BatchNorm, Conv, build_model
+from ..models.xception import BatchNorm, Conv, bn_group, build_model
 from ..stats.roc import auc_score, average_precision
 from ..utils_log import log
 from .checkpoint import RunCheckpointer
@@ -170,7 +181,7 @@ def make_eval_step(model, normalizer):
 
 def make_train_step(model, tx: ScheduledOptimizer, hp: ModelParams,
                     normalizer, fused_trunk: Optional[bool] = None,
-                    backend: str = "auto", device=None):
+                    backend: str = "auto", device=None, group=None):
     """The training step of ``hp`` on ``model`` and ``tx``, on ``device``
     (the card unless ``device="cpu"``; without a card it raises). The
     model must already be there; the batch is moved there.
@@ -189,6 +200,17 @@ def make_train_step(model, tx: ScheduledOptimizer, hp: ModelParams,
     named by ``backend``) on the card when the model is a bf16 Xception,
     and the module path (autograd through ``models/xception.py``)
     otherwise.
+
+    With a ``group`` (``parallel/lockstep.Group``) of several ranks, the
+    batch is this rank's rows of the group's batch (rank r holds rows r*n
+    to r*n + n - 1), and the step is the group's: its random draws are
+    made at the group's batch shape from the same-seeded generator on
+    every rank, of which each keeps its rows; the BatchNorm statistics,
+    the mask sum of the loss and accuracy, and the gradients (one
+    flattened bucket, before the optimizer) are summed over the group.
+    So every rank makes the same update, and N ranks compute what one
+    computes on the group's batch. ``train_step(..., stop=)`` then also
+    returns ``"stop"``: whether any rank passed ``stop=True``.
     """
     from .fused_train import (
         apply_stat_updates,
@@ -210,42 +232,73 @@ def make_train_step(model, tx: ScheduledOptimizer, hp: ModelParams,
     if fused_trunk is None:
         fused_trunk = dev.type == "cuda" and fused_train_applicable(model)
 
-    def train_step(images, labels, mask, generator=None):
+    lockstep = group is not None and group.size > 1
+    bn_ranks = group if lockstep else None
+
+    def train_step(images, labels, mask, generator=None, stop=False):
         images, labels, mask = (torch.as_tensor(t).to(dev)
                                 for t in (images, labels, mask))
         model.train()
         tx.zero_grad()
-        raw = jpeg_augment_batch(images, generator) if jpeg else images
+        n = images.shape[0]
+        start, total = (group.rank * n, group.size * n) if lockstep else (
+            0, n)
+
+        def mine(draws: dict) -> dict:
+            return {k: v[start:start + n] for k, v in draws.items()}
+
+        raw = images
+        if jpeg:
+            apply, q = sample_jpeg(total, generator, device=dev)
+            raw = jpeg_apply(images, apply[start:start + n],
+                             q[start:start + n])
         x = preprocess(raw, normalizer)
         if hp.augment:
-            x = augment_batch(x, generator, hp.augment)
-        if fused_trunk:
-            feats, updates = trunk_train_apply(model.backbone, x, backend)
-            logits = model.head(feats, generator=generator)
-        else:
-            logits = model(x, generator=generator)
+            x = apply_augment(x, mine(sample_augment(total, generator,
+                                                     hp.augment, dev)))
+        with bn_group(bn_ranks):
+            if fused_trunk:
+                feats, updates = trunk_train_apply(model.backbone, x, backend)
+                logits = model.head(feats, generator=generator,
+                                    rows=(start, total))
+            else:
+                logits = model(x, generator=generator, rows=(start, total))
         labels = labels.long()
         mask = mask.float()
         ce = F.cross_entropy(logits, labels.clamp(min=0), reduction="none")
-        denom = mask.sum().clamp_min(1.0)
-        loss = (ce * mask).sum() / denom
-        acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
-        loss.backward()
+        hits = ((logits.argmax(-1) == labels) * mask).sum()
+        out = {}
+        if lockstep:
+            sums = group.all_reduce_sum([torch.stack([
+                mask.sum(), (ce * mask).sum().detach(), hits,
+                mask.new_tensor(float(bool(stop)))])])[0]
+            denom = sums[0].clamp_min(1.0)
+            ((ce * mask).sum() / denom).backward()
+            loss, acc = sums[1] / denom, sums[2] / denom
+            group.all_reduce_grads(model.parameters())
+            out["stop"] = bool(sums[3] > 0)
+        else:
+            denom = mask.sum().clamp_min(1.0)
+            loss = (ce * mask).sum() / denom
+            acc = hits / denom
+            loss.backward()
         tx.step()
         if fused_trunk:
             apply_stat_updates(model.backbone, updates)
-        return {"loss": loss.detach(), "acc": acc.detach()}
+        return {"loss": loss.detach(), "acc": acc.detach(), **out}
 
     return train_step
 
 
-def make_val_metrics_step(model, normalizer):
+def make_val_metrics_step(model, normalizer, group=None):
     """``(images, labels, mask) -> (correct, total)`` of the eval-mode
     forward of a uint8 NHWC batch, for the mid-training early-stop check:
     the plain preprocess and the module path (no kernel runs here, as no
     Pallas kernel runs in the JAX step), the counts as device scalars on
     the model's device. It leaves the model in eval mode; the training
-    step sets train mode again."""
+    step sets train mode again. With a ``group`` of several ranks the
+    counts are the group's, so that every rank takes the same early-stop
+    decision."""
 
     def val_metrics(images, labels, mask):
         dev = next(model.parameters()).device
@@ -256,6 +309,9 @@ def make_val_metrics_step(model, normalizer):
         with torch.inference_mode():
             logits = model(preprocess(images, normalizer))
             correct = ((logits.argmax(-1) == labels.long()) * mask).sum()
+        if group is not None and group.size > 1:
+            return tuple(group.all_reduce_sum([torch.stack(
+                [correct.float(), mask.sum()])])[0])
         return correct, mask.sum()
 
     return val_metrics
@@ -432,6 +488,10 @@ def _level_metrics(y_true, y_score):
 # makes it visible to the next _next_run_number scan.
 _MODEL_DIR_LOCK = threading.Lock()
 
+# Set by the SIGTERM trap of a lockstep training, read by every rank of
+# this process (the other ranks are threads, which receive no signal).
+_PREEMPTED = threading.Event()
+
 
 def _next_run_number(models_dir: str) -> int:
     existing = []
@@ -471,8 +531,7 @@ def train_project(
     mesh=None,
 ):
     """Train model(s) for an experiment label; ``sf.Project.train``'s
-    counterpart, as the JAX package's ``train_project`` over a
-    process-local device.
+    counterpart, as the JAX package's ``train_project``.
 
     ``val_strategy`` 'k-fold' trains fold k of ``val_k`` (all
     ``val_k_fold`` folds by default) with seed ``seed + k`` on the
@@ -488,23 +547,32 @@ def train_project(
         fuse_blocks: validation predictions through the fully fused
             trunk (``UncertaintyInterface``'s ``fuse_blocks``; the JAX
             package's ``BISCUIT_FUSED_BLOCKS``).
-        mesh: a one-device ``parallel.mesh.Mesh`` (a submesh of the
-            ``SubmeshScheduler``) to train on instead of ``device``. A
-            mesh of several devices, or one that spans processes, is
-            lockstep data parallelism, which raises (ROADMAP.md Queue 1
-            item 9b).
+        mesh: a ``parallel.mesh.Mesh`` to train on instead of
+            ``device``. One device (a submesh of the ``SubmeshScheduler``)
+            trains there. Several devices, or a mesh that spans processes
+            (every process of the runtime calls ``train_project`` with its
+            own devices), train each model in lockstep, one rank a device
+            (``parallel/lockstep.py``): ``hp.batch_size`` is the group's
+            batch and must divide by the number of ranks; each rank reads
+            its shard of the tile stream; main (rank 0) allocates and
+            writes the model directory, the checkpoints and the
+            predictions, which it makes on its own device while the others
+            wait.
 
     Returns the list of model directories it wrote.
     """
-    if mesh is not None:
-        from ..parallel import distributed
+    from ..parallel import distributed
+    from ..parallel.lockstep import mesh_ranks, run_ranks
 
-        if distributed.mesh_spans_processes(mesh) or mesh.size > 1:
-            raise NotImplementedError(
-                f"train_project over {mesh} needs {distributed.ITEM_9B}")
+    lockstep = mesh is not None and (
+        mesh.size > 1 or distributed.mesh_spans_processes(mesh))
+    if mesh is not None:
         device = mesh.devices[0]
     dev = resolve_device(device)
     hp = params if params is not None else ModelParams()
+    if lockstep and hp.batch_size % mesh_ranks(mesh)[1]:
+        raise ValueError(f"batch_size {hp.batch_size} does not divide over "
+                         f"the {mesh_ranks(mesh)[1]} ranks of {mesh}")
     dataset = project.dataset(hp.tile_px, hp.tile_um, filters=filters)
     labels, unique = dataset.labels(outcome)
     patients = dataset.patients()
@@ -519,26 +587,57 @@ def train_project(
         steps_per_epoch_override=steps_per_epoch_override,
         max_tiles=max_tiles, checkpoint_every=checkpoint_every,
         save_predictions=save_predictions, outcome_labels=unique,
-        device=dev, fuse_blocks=fuse_blocks,
+        fuse_blocks=fuse_blocks,
     )
     slides = [s for s in dataset.slides() if s in by_slide]
     if val_strategy == "k-fold":
         splits_path = join(project.root, splits or f"splits_{exp_label}.json")
-        folds = kfold_split(slides=slides, labels=labels,
-                            sites=dataset.sites(), k=val_k_fold, seed=seed,
-                            splits_path=splits_path)
-        created = []
-        for k in (val_k if val_k else range(1, val_k_fold + 1)):
-            train_slides, val_slides = train_val_slides(folds, k)
-            created.append(_train_single(
-                project, outcome, exp_label, hp, labels, patients, by_slide,
-                train_slides, val_slides, kfold=k, seed=seed + k, **common))
-        return created
-    if val_strategy == "none":
+
+        def split():
+            return kfold_split(slides=slides, labels=labels,
+                               sites=dataset.sites(), k=val_k_fold,
+                               seed=seed, splits_path=splits_path)
+
+        # Over processes, main writes the cached split and the others
+        # read it.
+        spans = lockstep and distributed.mesh_spans_processes(mesh)
+        folds = split() if not spans or distributed.is_main() else None
+        if spans:
+            distributed.barrier("kfold_split")
+            folds = folds or split()
+        jobs = [(*train_val_slides(folds, k), k, seed + k)
+                for k in (val_k if val_k else range(1, val_k_fold + 1))]
+    elif val_strategy == "none":
+        jobs = [(slides, [], None, seed)]
+    else:
+        raise ValueError(f"Unknown val_strategy {val_strategy}")
+
+    def train_all(device, group=None):
+        if group is not None:
+            _warm_kernels(device)
+            group.barrier("kernels_built")
+            group.connect()
         return [_train_single(project, outcome, exp_label, hp, labels,
-                              patients, by_slide, slides, [], kfold=None,
-                              seed=seed, **common)]
-    raise ValueError(f"Unknown val_strategy {val_strategy}")
+                              patients, by_slide, train_slides, val_slides,
+                              kfold=k, seed=s, device=device, group=group,
+                              **common)
+                for train_slides, val_slides, k, s in jobs]
+
+    if lockstep:
+        return run_ranks(mesh, lambda group: train_all(
+            resolve_device(group.device), group), name="train_project")
+    return train_all(dev)
+
+
+def _warm_kernels(dev) -> None:
+    """Build the kernels of the training step before a group's first
+    collective, so that ``nvcc`` on one rank cannot hold the others past
+    the backend's connect timeout (the JAX package compiles its step
+    programs ahead for the same reason)."""
+    if dev.type == "cuda":
+        from ..ops import _build
+
+        _build.load(_build.SOURCE["unit_bwd_strips"])
 
 
 def _model_dir(models_dir: str, outcome: str, exp_label: str,
@@ -569,10 +668,11 @@ def _train_single(
     train_slides, val_slides, kfold, validate_on_batch, validation_steps,
     save_model, steps_per_epoch_override, seed, max_tiles,
     checkpoint_every=None, save_predictions="csv", outcome_labels=None,
-    device=None, fuse_blocks=False,
+    device=None, fuse_blocks=False, group=None,
 ):
-    """Train one model (one fold) on ``device``; writes the full §2.4
-    contract and returns its model directory."""
+    """Train one model (one fold) on ``device``, as one rank of ``group``
+    when given; main writes the full §2.4 contract. Returns its model
+    directory."""
     import signal
     import time
 
@@ -591,48 +691,64 @@ def _train_single(
             phase_t[0] = now
 
     dev = resolve_device(device)
+    lockstep = group is not None
+    main = not lockstep or group.is_main
+    rank, ranks = (group.rank, group.size) if lockstep else (0, 1)
+    local_bs = hp.batch_size // ranks
     model = init_model(build_model(hp), hp,
                        torch.Generator().manual_seed(seed)).to(dev)
     tx = make_optimizer(hp, model.parameters())
     normalizer = make_normalizer(hp.normalizer)
-    train_step = make_train_step(model, tx, hp, normalizer, device=dev)
-    val_metrics_step = make_val_metrics_step(model, normalizer)
+    train_step = make_train_step(model, tx, hp, normalizer, device=dev,
+                                 group=group)
+    val_metrics_step = make_val_metrics_step(model, normalizer, group)
     mark("init")
 
-    model_dir = _model_dir(project.models_dir, outcome, exp_label, kfold)
-    pd.DataFrame(
-        [{"slide": s, "dataset": "training"} for s in train_slides]
-        + [{"slide": s, "dataset": "validation"} for s in val_slides]
-    ).to_csv(join(model_dir, "slide_manifest.csv"), index=False)
-    with open(join(model_dir, "params.json"), "w") as f:
-        meta = {"hp": hp.to_dict(), "outcome": outcome, "label": exp_label,
-                "kfold": kfold}
-        if outcome_labels is not None:
-            meta["outcome_labels"] = list(outcome_labels)
-        json.dump(meta, f, indent=2)
+    # Main allocates the run's directory; the other ranks receive its name.
+    model_dir = (_model_dir(project.models_dir, outcome, exp_label, kfold)
+                 if main else None)
+    if lockstep:
+        model_dir = group.broadcast_from_main("model_dir", model_dir)
+    if main:
+        pd.DataFrame(
+            [{"slide": s, "dataset": "training"} for s in train_slides]
+            + [{"slide": s, "dataset": "validation"} for s in val_slides]
+        ).to_csv(join(model_dir, "slide_manifest.csv"), index=False)
+        with open(join(model_dir, "params.json"), "w") as f:
+            meta = {"hp": hp.to_dict(), "outcome": outcome,
+                    "label": exp_label, "kfold": kfold}
+            if outcome_labels is not None:
+                meta["outcome_labels"] = list(outcome_labels)
+            json.dump(meta, f, indent=2)
     train_tfr = [by_slide[s] for s in train_slides if s in by_slide]
     val_tfr = [by_slide[s] for s in val_slides if s in by_slide]
     mark("dirs")
 
     train_batcher = TileBatcher(
-        train_tfr, labels, batch_size=hp.batch_size, shuffle=True,
+        train_tfr, labels, batch_size=local_bs, shuffle=True,
         infinite=True, seed=seed,
         # 'j' runs in the training step by default; the host codec only
         # under BISCUIT_JPEG_HOST=1.
         jpeg_aug="j" in (hp.augment or "") and jpeg_on_host(),
         max_tiles=max_tiles, tile_px=hp.tile_px,
+        shard=rank, num_shards=ranks,
     )
-    steps_per_epoch = max(1, len(train_batcher) // hp.batch_size)
+    steps_per_epoch = max(1, len(train_batcher) * ranks // hp.batch_size)
     if steps_per_epoch_override:
         steps_per_epoch = int(steps_per_epoch_override)
+    if lockstep:
+        # The shards' lengths may differ by a tile: every rank takes
+        # main's epoch length, so that none steps alone.
+        steps_per_epoch = int(group.broadcast_from_main(
+            "steps_per_epoch", str(steps_per_epoch)))
 
     # A small held-out stream for the mid-training early-stop checks.
     val_batcher = None
     if val_tfr and hp.early_stop:
         val_batcher = TileBatcher(
-            val_tfr, labels, batch_size=hp.batch_size, shuffle=True,
+            val_tfr, labels, batch_size=local_bs, shuffle=True,
             infinite=True, seed=seed + 1, max_tiles=max_tiles,
-            tile_px=hp.tile_px,
+            tile_px=hp.tile_px, shard=rank, num_shards=ranks,
         )
         val_iter = iter(val_batcher)
 
@@ -658,11 +774,19 @@ def _train_single(
     # dropout draws; an in-run checkpoint restores its state with the
     # model's and the optimizer's.
     gen = torch.Generator(device=dev).manual_seed(seed)
-    ckpt = RunCheckpointer(model_dir, every=checkpoint_every)
-    _, _, _, restored_step = ckpt.maybe_restore(model, tx, gen)
+    ckpt = RunCheckpointer(model_dir, every=checkpoint_every, is_main=main)
+    restore_step = None
+    if lockstep and checkpoint_every:
+        # Main scans the checkpoints; every rank restores the step it
+        # names, read-only, so that the ranks resume alike.
+        tok = group.broadcast_from_main(
+            "ckpt_latest", str(ckpt.latest()) if main else None)
+        restore_step = None if tok == "None" else int(tok)
+    _, _, _, restored_step = ckpt.maybe_restore(model, tx, gen,
+                                                step=restore_step)
 
     profiler = None
-    if os.environ.get("BISCUIT_PROFILE") == "1":
+    if main and os.environ.get("BISCUIT_PROFILE") == "1":
         from torch.profiler import ProfilerActivity, profile
 
         profiler = profile(activities=[ProfilerActivity.CPU] + (
@@ -679,15 +803,20 @@ def _train_single(
     # exit through the previous handler; the relaunch resumes losing at
     # most one step. Armed only with in-run checkpoints on and on the main
     # thread (signal.signal is illegal elsewhere); BISCUIT_PREEMPT_SAVE=0
-    # disables it.
+    # disables it. In lockstep the step sums every rank's flag, so that
+    # the ranks stop at the same step: main saves, the ranks meet at a
+    # store barrier, and each process exits through its handler.
     preempt = [False]
     prev_sigterm = None
-    trap = bool(checkpoint_every
-                and os.environ.get("BISCUIT_PREEMPT_SAVE", "1") != "0"
-                and threading.current_thread() is threading.main_thread())
+    armed = bool(checkpoint_every
+                 and os.environ.get("BISCUIT_PREEMPT_SAVE", "1") != "0")
+    trap = armed and threading.current_thread() is threading.main_thread()
     if trap:
+        _PREEMPTED.clear()
+
         def on_sigterm(signum, frame):
             preempt[0] = True
+            _PREEMPTED.set()
             log.warning("SIGTERM received: checkpointing at the next step "
                         "boundary, then exiting")
         prev_sigterm = signal.signal(signal.SIGTERM, on_sigterm)
@@ -700,13 +829,24 @@ def _train_single(
                     # was restored at this step; the tile stream restarts
                     # from its seed.
                     continue
-                metrics = train_step(*feed(next(train_iter)), gen)
+                if lockstep:
+                    metrics = train_step(
+                        *feed(next(train_iter)), gen,
+                        stop=armed and _PREEMPTED.is_set())
+                    stop = metrics["stop"]
+                else:
+                    metrics = train_step(*feed(next(train_iter)), gen)
+                    stop = preempt[0]
                 ckpt.save(step, model, tx, gen)
-                if preempt[0]:
+                if stop:
                     ckpt.save(step, model, tx, gen, force=True)
                     ckpt.wait()
+                    if lockstep:
+                        group.barrier("preempt_ckpt")
                     log.warning(f"preemption checkpoint committed at step "
                                 f"{step}; re-raising SIGTERM")
+                    if not trap:    # a rank's thread: its process exits
+                        raise RuntimeError(f"preempted at step {step}")
                     signal.signal(signal.SIGTERM, prev_sigterm)
                     trap = False
                     os.kill(os.getpid(), signal.SIGTERM)
@@ -751,8 +891,11 @@ def _train_single(
 
             # End of epoch. Skip epochs fully covered by a restored
             # checkpoint: the original run wrote their predictions, and
-            # later-step weights would overwrite that record.
-            if (epoch in hp.epochs or stopped) and not (
+            # later-step weights would overwrite that record. Main
+            # predicts over its own device; the other ranks wait for it
+            # at a store barrier.
+            record = epoch in hp.epochs or stopped
+            if record and main and not (
                     step <= restored_step and not stopped):
                 # On an early stop mid-epoch, record under the next declared
                 # epoch, so that readers find tile_predictions_val_epoch{E}
@@ -790,6 +933,8 @@ def _train_single(
                                     exp_label, kfold,
                                     outcome_labels=outcome_labels)
             mark("epoch_preds")
+            if lockstep and record:
+                group.barrier("epoch_artifacts")
             if stopped:
                 break  # an early stop ends the remaining epochs
     finally:
@@ -805,11 +950,14 @@ def _train_single(
     if profiler is not None:
         os.makedirs(join(model_dir, "profile"), exist_ok=True)
         profiler.export_chrome_trace(join(model_dir, "profile", "trace.json"))
-    if step_log:
-        pd.DataFrame(step_log).to_csv(join(model_dir, "train_log.csv"),
-                                      index=False)
-    pd.DataFrame(results_rows).to_csv(join(model_dir, "results_log.csv"),
-                                      index=False)
+    if main:
+        if step_log:
+            pd.DataFrame(step_log).to_csv(join(model_dir, "train_log.csv"),
+                                          index=False)
+        pd.DataFrame(results_rows).to_csv(join(model_dir, "results_log.csv"),
+                                          index=False)
+    if lockstep:
+        group.barrier("fold_written")
     if timing:
         mark("close_writes")
         print("[phases] " + json.dumps(

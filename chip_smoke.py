@@ -7,7 +7,7 @@
     python3 chip_smoke.py --slide
     python3 chip_smoke.py --serve
     python3 chip_smoke.py --stats | --pretrained | --resnet
-    python3 chip_smoke.py --int8 | --parallel
+    python3 chip_smoke.py --int8 | --parallel | --lockstep
 
 The second form only profiles the unit backward pass by pass at
 UNIT_PASS_GEOMETRIES (one line a geometry), the third only times the
@@ -17,7 +17,8 @@ cluster size (one line); both import ``biscuit_torch`` from CHECKOUT when given 
 time another checkout's kernels in the same call). The fourth builds and
 runs phase slide alone (one line), the fifth phase serve alone (a line an
 artifact, then the phase's), the sixth phase stats, pretrained or resnet
-alone (one line), the seventh phase int8 or parallel alone (one line).
+alone (one line), the seventh phase int8, parallel or lockstep alone
+(one line).
 The first form runs
 these phases, each printing one JSON line:
 
@@ -50,8 +51,16 @@ these phases, each printing one JSON line:
    training path passes them; their ms, plain ms, library ms and bound
    are the two geometries' added; each repeats its outputs bit for bit,
    and its profile must hold only UNIT_BWD_KERNELS (so that the train
-   phase's ``unit_bwd_kernels_ms`` covers the unit backward). The fused
-   strided block
+   phase's ``unit_bwd_kernels_ms`` covers the unit backward); each
+   geometry adds its ``group_route``: the kernel's two entries of a
+   lockstep group (``unit_bwd_sums``, then the backward from the sums) at
+   one rank, equal to the one call bit for bit, and their time; then at
+   two ranks, each half of the batch (the second's gy and p shifted by 1,
+   so that a half's own sums are far from the batch's) fed the two
+   halves' summed sums and the batch's pixel count, against the plain
+   version of that half with
+   the same sums and against the plain version on the whole batch, at
+   the row's tolerances (``two_halves_rel_err``). The fused strided block
    is held at the four serving geometries (entry0 147^2 64->128, entry1
    74^2 128->256, entry2 37^2 256->728, exit 19^2 728->728->1024) at 256
    tiles, its library yardstick the port's eval-mode ``XceptionBlock``;
@@ -122,6 +131,30 @@ these phases, each printing one JSON line:
    launches a step in all); then ``load_sharded_servable`` over this
    process's cards, equal to ``Servable`` at the shard's seed bit for
    bit. It prints each stage's seconds and each process's.
+   lockstep: lockstep data parallelism (``parallel/lockstep.py``) with
+   LS_RANKS processes (this script with ``--lockstep-child``, each
+   bounded by CHILD_TIMEOUT_S) sharing the card over gloo, the kernels
+   built before they start. First LS_STEPS fused-trunk steps of
+   hp.nature2022 ('xyrjb', dropout 0.1) on seeded weights at a global
+   batch of LS_BATCH, as one process here and as the group (each rank on
+   its rows, kernel row 6 on its two-entry route): step 1's loss within
+   LS_LOSS_RTOL of one process's, the ranks' weights bit-identical after
+   the steps (SHA-256), 34 strip launches a step a rank; it prints s/step
+   and tiles/s of both (steps 2 on), and the collectives and bytes a step
+   of a rank with the host seconds spent in them (``collective_s``; the
+   gradient bucket's share ``bucket_s``). Then one step with augmentation
+   and dropout off, against one process's (``step1_distance``): every
+   BatchNorm's batch statistics within LS_STAT_LIMIT, and the gradients
+   within LS_GRAD_RATIO times the noise floor (relative L2), the floor
+   being one process's own gradient on the batch with its rows
+   reversed; a control, the same step with the BN collectives off (each
+   half of the batch as one process, the gradients averaged), must fail
+   both gates. Then, over a mesh that spans the processes, one
+   ``train_project``
+   fold of LS_TP_STEPS steps on phase train_project's project (the model
+   dir checked by ``check_model_dir``; rows 1-3 once, on main) and
+   ``Experiment.run``'s step 2 of ZD (3 folds of LS_TP_STEPS steps, each
+   trained once by the group).
    depthwise_entry: one forward and backward through
    ``depthwise_conv3x3``, the standalone op's own entry point.
 5. train: ``make_train_step`` of ``hp.nature2022`` (Xception-299 bf16,
@@ -240,8 +273,9 @@ these phases, each printing one JSON line:
    counts Xception only.
 6. the kernels line (launches: the serving phases for kernels 1-4, the
    depthwise entry phase, the training phase, with phases int8's,
-   parallel's, train_project's, experiment's, slide's, serve's,
-   pretrained's and resnet's added to kernels 1-4 and 6); 7. the last
+   parallel's, lockstep's, train_project's, experiment's, slide's,
+   serve's, pretrained's and resnet's added to kernels 1-4 and 6); 7. the
+   last
    line
    ``{"ok": true, "device": ...}``.
 
@@ -348,6 +382,26 @@ PAR_STEPS = 2            # training steps a fold, cross-process scheduling
 PAR_SLIDES = 10
 PAR_TILES = 32
 CHILD_TIMEOUT_S = 300
+
+# Phase lockstep.
+LS_BATCH = 128           # the group's batch: hp.nature2022's, 64 a rank
+LS_RANKS = 2             # processes sharing the card
+LS_STEPS = 4             # steps of the step comparison: 1 checked, 3 timed
+LS_LOSS_RTOL = 1e-3      # step-1 loss, two ranks against one process
+# Step 1 with augment and dropout off, against one process, two gates,
+# each set between the sound runs and a control that must fail it (the
+# same step with the BN collectives off; PERF.md, phase lockstep). Every
+# BatchNorm's batch statistics within LS_STAT_LIMIT of its largest value
+# (measured: rows reversed 2.6e-3, the group 2.8e-3, the control 3.0e-2).
+# The gradients' relative L2 over the model within LS_GRAD_RATIO times
+# the noise floor, one process against itself on the batch with its rows
+# reversed: the bf16 backward at random weights is a third noise, so a
+# reordering alone moves it 0.341 (the group 1.017x that, the control
+# 1.345x).
+LS_STAT_LIMIT = 1e-2
+LS_GRAD_RATIO = 1.15
+LS_TP_STEPS = 2          # train_project fold and each Experiment.run fold
+
 
 
 def emit(obj) -> None:
@@ -801,10 +855,72 @@ def kernel_unit_bwd(torch, gen):
         unit_bwd_plane,
         unit_bwd_reference,
         unit_bwd_strips,
+        unit_bwd_sums,
     )
 
     kernels = {"unit_bwd_plane": unit_bwd_plane,
                "unit_bwd_strips": unit_bwd_strips}
+
+    def group_route(fn, args, sums=None, m=None):
+        """The kernel's two entries (the sums, then the rest from them):
+        the route of a lockstep group. At one rank (``sums`` None) the
+        one call's five outputs, dgamma and dbeta being the sums; given a
+        group's ``sums`` and pixel count ``m``, this rank's (da, dwdw,
+        dwpw)."""
+        gy, p, mu, var, eps = args[0], args[3], args[7], args[8], args[9]
+        if sums is not None:
+            return fn(*args, sums=sums, m=m)[:3]
+        sums = unit_bwd_sums(gy, p, mu, var, eps)
+        return fn(*args, sums=sums, m=gy[..., 0].numel())[:3] + (
+            sums[1], sums[0])
+
+    def two_halves(fn, args, tols, where):
+        """The group route at two ranks: each half of the batch fed the
+        two halves' summed sums and the batch's pixel count. The second
+        half's gy and p are shifted by 1, so that each half's own sums are
+        far from the batch's (a route that kept a rank's own sums or
+        pixel count would fail). Each half's (da, dwdw, dwpw) against the
+        plain version of the same half with the same sums and m, and the
+        halves put together (da row by row, the weight gradients and the
+        sums added) against the plain version on the whole batch, each
+        within the row's tolerance. Returns the relative errors."""
+        gy, p = (t.clone() for t in (args[0], args[3]))
+        n = gy.shape[0] // 2
+        gy[n:] += 1
+        p[n:] += 1
+        args = (gy, args[1], args[2], p) + tuple(args[4:])
+        mu, var, eps = args[7], args[8], args[9]
+        want = unit_bwd_reference(*args)
+        halves = [tuple(t[i * n:(i + 1) * n].contiguous()
+                        for t in args[:4]) + tuple(args[4:])
+                  for i in range(2)]
+        sums = (unit_bwd_sums(halves[0][0], halves[0][3], mu, var, eps)
+                + unit_bwd_sums(halves[1][0], halves[1][3], mu, var, eps))
+        m = gy[..., 0].numel()
+        outs = [group_route(fn, h, sums, m) for h in halves]
+        torch.cuda.synchronize()
+        errs = {}
+        for i, h in enumerate(halves):
+            plain = unit_bwd_reference(*h, sums=sums, m=m)
+            for key, g, w in zip(("da", "dwdw", "dwpw"), outs[i], plain):
+                g, w = g.float(), w.float()
+                check(bool(torch.isfinite(g).all()),
+                      f"{where} half {i} {key} finite")
+                errs[f"half{i}_{key}"] = e = (
+                    (g - w).abs().max().item() / w.abs().max().item())
+                check(e <= tols[key], f"{where} half {i} {key} from the "
+                                      f"group's sums: relative error {e} > "
+                                      f"{tols[key]}")
+        whole = (torch.cat([outs[0][0], outs[1][0]]), outs[0][1] + outs[1][1],
+                 outs[0][2] + outs[1][2], sums[1], sums[0])
+        for key, g, w in zip(tols, whole, want):
+            g, w = g.float(), w.float()
+            errs[f"whole_{key}"] = e = (
+                (g - w).abs().max().item() / w.abs().max().item())
+            check(e <= tols[key], f"{where} two halves against the whole "
+                                  f"batch, {key}: relative error {e} > "
+                                  f"{tols[key]}")
+        return errs
     rows = {name: {"name": name, "geometries": [], "ms": 0.0,
                    "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                    "max_abs_err": 0.0} for name in kernels}
@@ -844,13 +960,26 @@ def kernel_unit_bwd(torch, gen):
             ms = cuda_ms(torch, lambda x: fn(*x), [args] * N_TIMED)
             prof = kernel_profile(torch, lambda: fn(*args), top=8,
                                   only=UNIT_BWD_KERNELS)
+            route = group_route(fn, args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(route, got)),
+                  f"{name}: the group route at one rank equals the one "
+                  f"call bit for bit")
+            del route
+            halves_err = two_halves(fn, args, tols,
+                                    f"{name} {hw}x{hw} {ci}->{co}")
+            route_ms = cuda_ms(torch, lambda x: group_route(fn, x),
+                               [args] * N_TIMED)
             row = rows[name]
             row["geometries"].append({
                 "hw": hw, "ci": ci, "co": co, "batch": n,
                 "relu_first": relu_first, "rel_err": errs, "tol": tols,
                 "abs_err": abs_errs,
                 "ms": ms, "plain_ms": plain, "library_ms": lib,
-                "bound_ms": b, "bound_by": by, "profile": prof})
+                "bound_ms": b, "bound_by": by, "profile": prof,
+                "group_route": {"bit_for_bit_at_one_rank": True,
+                                "ms": route_ms,
+                                "two_halves_rel_err": halves_err}})
             row["ms"] += ms
             row["plain_ms"] += plain
             row["library_ms"] += lib
@@ -3935,6 +4064,381 @@ def parallel_phase(torch, tmp: str, card: str):
     }, launches
 
 
+def lockstep_batches(torch, seed: int):
+    """The step comparison's LS_STEPS global batches, the same in every
+    process: tiles, labels, mask on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [train_batch(torch, gen, LS_BATCH) for _ in range(LS_STEPS)]
+
+
+def lockstep_steps(torch, hp, seed: int, group=None, steps: int = LS_STEPS,
+                   reverse: bool = False, share=None):
+    """``steps`` fused-trunk steps of ``hp`` on seeded weights and
+    batches, as one process (``group`` None; ``reverse`` reverses the rows
+    of each batch, which leaves the step's function as it is; ``share``
+    r keeps only the rows rank r of a group would hold) or as one rank of
+    a group on its rows; returns (each step's seconds and loss, the
+    launches of the steps, the collectives and bytes of one step and a
+    checksum of the weights after; step 1's ``tree``, f32 on the host:
+    each parameter's gradient as ``grad/<name>`` and each BatchNorm's
+    batch statistics as ``stat/<buffer>``, recovered from the running
+    blend)."""
+    import hashlib
+
+    from biscuit_torch.data.normalize import make_normalizer
+    from biscuit_torch.models.xception import MOMENTUM, build_model
+    from biscuit_torch.ops import _build
+    from biscuit_torch.train.trainer import make_optimizer, make_train_step
+
+    model = build_model(hp)
+    init_random_(torch, model, seed)
+    model = model.cuda()
+    tx = make_optimizer(hp, model.parameters())
+    step = make_train_step(model, tx, hp, make_normalizer(hp.normalizer),
+                           group=group)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = lockstep_batches(torch, seed)[:steps]
+    if group is not None:
+        share = group.rank
+    if share is not None:
+        n = LS_BATCH // LS_RANKS
+        batches = [[t[share * n:][:n] for t in b] for b in batches]
+    elif reverse:
+        batches = [[t.flip(0) for t in b] for b in batches]
+    stats0 = {k: v.float().cpu() for k, v in running_stats(model).items()}
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    secs, losses, comm = [], [], []
+    for i, b in enumerate(batches):
+        before = (group.collectives, group.bytes, group.seconds,
+                  group.bucket_seconds) if group else None
+        t0 = time.perf_counter()
+        out = step(*b, gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+        if group is not None:
+            comm.append([now - was for now, was in zip(
+                (group.collectives, group.bytes, group.seconds,
+                 group.bucket_seconds), before)])
+        if i == 0:
+            tree = {f"grad/{k}": p.grad.detach().float().cpu()
+                    for k, p in model.named_parameters()}
+            for k, v in running_stats(model).items():
+                tree[f"stat/{k}"] = (v.float().cpu() - MOMENTUM * stats0[k]
+                                     ) / (1.0 - MOMENTUM)
+    launches = _build.launch_counts()
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    return {"loss": losses[0], "losses": losses, "step_s": secs,
+            "launches": launches,
+            "collectives_a_step": comm[-1][0] if comm else 0,
+            "bytes_a_step": comm[-1][1] if comm else 0,
+            "collective_s": [c[2] for c in comm],
+            "bucket_s": [c[3] for c in comm],
+            "params_sha256": digest.hexdigest()}, tree
+
+
+def clean_hp(hp):
+    """``hp`` with augmentation and dropout off (the gradient check)."""
+    hp = hp.copy()
+    hp.augment, hp.dropout = "", 0.0
+    return hp
+
+
+def rel_l2(got, want) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def bn_off_tree(trees):
+    """Rank 0's step-1 tree in a group whose BatchNorm collectives are
+    off, from its ranks' one-process steps on their rows: the mean of
+    their gradients (equal shares and full masks, so the group's loss is
+    the mean of theirs), and its own batch statistics."""
+    return {k: sum(t[k] for t in trees) / len(trees)
+            if k.startswith("grad/") else trees[0][k] for k in trees[0]}
+
+
+def tree_distance(torch, got, want) -> dict:
+    """How far a step-1 tree is from another: the gradients' relative L2
+    over the model and their largest difference over the largest
+    gradient; for the BatchNorms' statistics the largest, over them, of
+    each one's largest difference over its largest value; and by block of
+    the model (``by_block``) the largest of its leaves' distances (the
+    relative L2 of a gradient, the above of a statistic)."""
+    keys = [k for k in want if k.startswith("grad/")]
+    g = torch.cat([got[k].reshape(-1) for k in keys])
+    w = torch.cat([want[k].reshape(-1) for k in keys])
+    leaf = {}
+    for k in want:
+        if k.startswith("grad/"):
+            leaf[k] = rel_l2(got[k], want[k])
+        else:
+            leaf[k] = float((got[k] - want[k]).abs().max()
+                            / want[k].abs().max())
+    stats = [v for k, v in leaf.items() if k.startswith("stat/")]
+    blocks = {}
+    for k, v in leaf.items():
+        kind, name = k.split("/")
+        parts = name.split(".")
+        block = parts[1] if parts[0] == "backbone" else parts[0]
+        blocks.setdefault(f"{kind}/{block}", []).append(v)
+    return {"grad_rel_l2": rel_l2(g, w),
+            "grad_max_rel": float((g - w).abs().max() / w.abs().max()),
+            "stat_max_rel": max(stats),
+            "by_block": {b: max(v) for b, v in blocks.items()}}
+
+
+def lockstep_child(rank: int, args_path: str) -> int:
+    """One of the LS_RANKS processes of phase lockstep: joins the store,
+    runs the step comparison as one rank of a group on the shared card,
+    then one ``train_project`` fold and ``Experiment.run``'s step 2 over
+    a mesh that spans the processes; writes a JSON line of its numbers
+    (rank 0 also its step-1 gradient)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from biscuit_torch.experiment import Experiment
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.ops import _build
+    from biscuit_torch.parallel import distributed
+    from biscuit_torch.parallel.lockstep import run_ranks
+    from biscuit_torch.parallel.mesh import Mesh
+    from biscuit_torch.project import Project
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(args_path) as f:
+        args = json.load(f)
+    t0 = time.perf_counter()
+    distributed.initialize(args["addr"], LS_RANKS, rank, timeout_s=120)
+    torch.zeros(1, device="cuda")
+    out = {"rank": rank, "init_s": time.perf_counter() - t0}
+    mesh = Mesh(["cuda:0"], spans_processes=True)
+    hp = nature2022_params()
+
+    def steps(group):
+        group.barrier("ready")
+        group.connect()
+        row, _ = lockstep_steps(torch, hp, SEED + 11, group)
+        row["backend"] = group.backend
+        row["clean"], tree = lockstep_steps(torch, clean_hp(hp), SEED + 11,
+                                            group, steps=1)
+        return row, tree
+
+    out["steps"], tree = run_ranks(mesh, steps, name="steps")
+    if rank == 0:
+        torch.save(tree, f"{args['out']}_tree.pt")
+    del tree
+    torch.cuda.empty_cache()
+
+    tp_hp = dataclasses.replace(hp, uq=True, uq_samples=K, epochs=[1])
+    project = Project(args["tp_root"])
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    (model_dir,) = project.train(
+        OUTCOME, "smoke", params=tp_hp, val_k=[1], val_k_fold=TP_FOLDS,
+        steps_per_epoch_override=LS_TP_STEPS, validate_on_batch=LS_TP_STEPS,
+        validation_steps=1, save_model=True, checkpoint_every=LS_TP_STEPS,
+        mesh=mesh)
+    torch.cuda.synchronize()
+    out["train_project"] = {"seconds": time.perf_counter() - t0,
+                            "model_dir": model_dir,
+                            "launches": _build.launch_counts()}
+    torch.cuda.empty_cache()
+
+    exp = Experiment(args["ex_root"], outdir=os.path.join(
+        args["ex_root"], f"results{rank}"))
+    exp.train_kwargs = {"steps_per_epoch_override": LS_TP_STEPS}
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp.run({"ZD": {"out1": PAR_SLIDES // 2, "out2": PAR_SLIDES // 2}},
+            steps=[2])
+    torch.cuda.synchronize()
+    out["experiment"] = {"seconds": time.perf_counter() - t0,
+                         "launches": _build.launch_counts()}
+    with open(f"{args['out']}_{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def lockstep_phase(torch, tmp: str, card: str):
+    """Lockstep data parallelism on the card (see the docstring, phase
+    lockstep). Returns (row, launches)."""
+    import dataclasses
+    import os
+    import socket
+
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    hp = nature2022_params()
+    check(hp.batch_size == LS_BATCH and hp.augment == "xyrjb"
+          and hp.dropout == 0.1 and hp.compute_dtype == "bfloat16",
+          "published configuration")
+    single, _ = lockstep_steps(torch, hp, SEED + 11)
+    clean, clean_tree = lockstep_steps(torch, clean_hp(hp), SEED + 11,
+                                       steps=1)
+    rev, rev_tree = lockstep_steps(torch, clean_hp(hp), SEED + 11, steps=1,
+                                   reverse=True)
+    shares = [lockstep_steps(torch, clean_hp(hp), SEED + 11, steps=1,
+                             share=r) for r in range(LS_RANKS)]
+    distance = {"rows_reversed": tree_distance(torch, rev_tree, clean_tree),
+                "bn_collectives_off": tree_distance(
+                    torch, bn_off_tree([t for _, t in shares]),
+                    clean_tree)}
+    shares = [row for row, _ in shares]
+    del rev_tree
+    torch.cuda.empty_cache()
+    tp, _ = write_project(tmp, "tp", TP_SLIDES, TP_TILES, SEED + 1,
+                          ("class0", "class1"))
+    ex, _ = write_project(tmp, "lsx", PAR_SLIDES, PAR_TILES, SEED + 4,
+                          ("LUAD", "LUSC"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    args = {"addr": f"127.0.0.1:{port}", "tp_root": tp.root,
+            "ex_root": ex.root, "out": os.path.join(tmp, "lschild")}
+    args_path = os.path.join(tmp, "lschild_args.json")
+    with open(args_path, "w") as f:
+        json.dump(args, f)
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(tmp, f"lschild{r}.log"), "w")
+            for r in range(LS_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--lockstep-child",
+         str(r), args_path], stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(LS_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=CHILD_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    group_s = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"lschild{r}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        check(p.returncode == 0, f"lockstep child {r} exited {p.returncode}")
+    children = []
+    for r in range(LS_RANKS):
+        with open(f"{args['out']}_{r}.json") as f:
+            children.append(json.load(f))
+
+    # The step comparison.
+    ranks = [c["steps"] for c in children]
+    check(all(r["backend"] == "gloo" for r in ranks),
+          "two ranks on one card: gloo")
+    check(len({r["params_sha256"] for r in ranks}) == 1,
+          "the ranks' weights are bit-identical after the steps")
+    check(len({tuple(r["losses"]) for r in ranks}) == 1,
+          "every rank reads the group's losses")
+    loss_err = abs(ranks[0]["loss"] - single["loss"])
+    check(loss_err <= LS_LOSS_RTOL * abs(single["loss"]),
+          f"step-1 loss {ranks[0]['loss']} against one process's "
+          f"{single['loss']}")
+    tree = torch.load(f"{args['out']}_tree.pt")
+    check(all(bool(torch.isfinite(v).all()) for v in tree.values()),
+          "finite step-1 gradients and statistics")
+    distance["group"] = tree_distance(torch, tree, clean_tree)
+    del tree, clean_tree
+    floor = distance["rows_reversed"]["grad_rel_l2"]
+    grad_l2 = distance["group"]["grad_rel_l2"]
+    grad_max = distance["group"]["grad_max_rel"]
+    gates = {"stat_max_rel": LS_STAT_LIMIT,
+             "grad_rel_l2": LS_GRAD_RATIO * floor}
+    for metric, limit in gates.items():
+        got = distance["group"][metric]
+        check(got <= limit, f"step 1, {metric}: the group's {got} > {limit}")
+        ctrl = distance["bn_collectives_off"][metric]
+        check(ctrl > limit, f"step 1, {metric}: the control with the BN "
+                            f"collectives off passes the gate ({ctrl} <= "
+                            f"{limit}), so the gate cannot tell")
+    runs = [("one process", single, LS_STEPS), ("one process, clean", clean,
+                                                 1), ("rows reversed", rev, 1)]
+    runs += [(f"share {r}", row, 1) for r, row in enumerate(shares)]
+    for r, c in enumerate(ranks):
+        runs += [(f"rank {r}", c, LS_STEPS), (f"rank {r}, clean", c["clean"],
+                                              1)]
+    for who, row, steps in runs:
+        for name, count in row["launches"].items():
+            want = UNITS_PER_STEP * steps if name == "unit_bwd_strips" else 0
+            check(count == want, f"{who}: {name} {count} launches in "
+                                 f"{steps} steps, expected {want}")
+
+    # The fold and the protocol step over the spanning mesh.
+    tp_dir = children[0]["train_project"]["model_dir"]
+    check(all(c["train_project"]["model_dir"] == tp_dir for c in children)
+          and len(os.listdir(tp.models_dir)) == 1,
+          "one model dir, named alike on every rank")
+    tp_hp = dataclasses.replace(hp, uq=True, uq_samples=K, epochs=[1])
+    check_model_dir(tp_dir, 1, (1,), [1], tp_hp)
+    launches = {name: 0 for name in _build.KERNELS}
+    for row in (single, clean, rev, *shares):
+        add_launches(launches, row["launches"])
+    for r, c in enumerate(children):
+        add_launches(launches, c["steps"]["launches"])
+        add_launches(launches, c["steps"]["clean"]["launches"])
+        for what, steps, serving in (
+                ("train_project", LS_TP_STEPS, 1 if r == 0 else 0),
+                ("experiment", 3 * LS_TP_STEPS, 0)):
+            got = c[what]["launches"]
+            for name, count in got.items():
+                want = {"unit_bwd_strips": UNITS_PER_STEP * steps}.get(
+                    name, serving if name in SERVING else 0)
+                check(count == want, f"rank {r} {what}: {name} {count} "
+                                     f"launches, expected {want}")
+            add_launches(launches, got)
+    dirs = sorted(os.listdir(ex.models_dir))
+    check(sorted(d[6:] for d in dirs) == [
+        f"{OUTCOME}-EXP_ZD-HP0-kfold{k}" for k in (1, 2, 3)],
+        f"each fold trained once, by the group: {dirs}")
+    for d in dirs:
+        check(os.path.exists(os.path.join(ex.models_dir, d,
+                                          "results_log.csv")),
+              f"{d} completed")
+    timed = slice(1, None)
+
+    def rate(row):
+        s = statistics.mean(row["step_s"][timed])
+        return {"s_a_step": s, "tiles_per_s": LS_BATCH / s,
+                "step_s": row["step_s"], "losses": row["losses"]}
+
+    return {
+        "phase": "lockstep", "processes": LS_RANKS, "card": card,
+        "model": hp.model, "batch": LS_BATCH, "steps": LS_STEPS,
+        "phase_s": time.perf_counter() - t_phase, "group_s": group_s,
+        "one_process": rate(single), "group": rate(ranks[0]),
+        "rank_init_s": [c["init_s"] for c in children],
+        "step1_loss_abs_err": loss_err, "loss_rtol": LS_LOSS_RTOL,
+        "clean_step1_loss": {"one_process": clean["loss"],
+                             "rows_reversed": rev["loss"],
+                             "group": ranks[0]["clean"]["loss"]},
+        "step1_grad_rel_l2": grad_l2, "step1_grad_max_rel": grad_max,
+        "grad_noise_floor_rel_l2": floor, "step1_gates": gates,
+        "step1_distance": distance,
+        "params_sha256_equal": True,
+        "collectives_a_step": ranks[0]["collectives_a_step"],
+        "collective_bytes_a_step": ranks[0]["bytes_a_step"],
+        "collective_s": [r["collective_s"] for r in ranks],
+        "bucket_s": [r["bucket_s"] for r in ranks],
+        "train_project_s": [c["train_project"]["seconds"]
+                            for c in children],
+        "experiment_s": [c["experiment"]["seconds"] for c in children],
+        "launches": launches,
+    }, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3961,6 +4465,12 @@ def main(argv=None) -> int:
                     help="only the build and phase parallel")
     ap.add_argument("--parallel-child", nargs=2, metavar=("RANK", "ARGS"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--lockstep", action="store_true",
+                    help="only the build, the unit-backward kernel rows "
+                         "(whose group route the phase runs) and phase "
+                         "lockstep")
+    ap.add_argument("--lockstep-child", nargs=2, metavar=("RANK", "ARGS"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--root", help="import biscuit_torch from this checkout "
                                    "(with --unit-bwd-passes or --preprocess)")
     opts = ap.parse_args(argv)
@@ -3974,6 +4484,9 @@ def main(argv=None) -> int:
     if opts.parallel_child:
         return parallel_child(int(opts.parallel_child[0]),
                               opts.parallel_child[1])
+    if opts.lockstep_child:
+        return lockstep_child(int(opts.lockstep_child[0]),
+                              opts.lockstep_child[1])
     from biscuit_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4074,6 +4587,14 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             emit(parallel_phase(torch, tmp, card)[0])
         return 0
+    if opts.lockstep:
+        for row in kernel_unit_bwd(torch, torch.Generator(
+                device="cuda").manual_seed(SEED)):
+            emit({"phase": "kernel", **row, "card": card})
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            emit(lockstep_phase(torch, tmp, card)[0])
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -4114,6 +4635,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         par_row, par_launches = parallel_phase(torch, tmp, card)
     emit(par_row)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ls_row, ls_launches = lockstep_phase(torch, tmp, card)
+    emit(ls_row)
     torch.cuda.empty_cache()
     dw_row, dw_launches = depthwise_entry(torch, gen, card)
     emit(dw_row)
@@ -4156,9 +4681,10 @@ def main(argv=None) -> int:
     launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
-    for phase_launches in (int8_launches, par_launches, tp_launches,
-                           ex_launches, slide_launches, serve_launches,
-                           stats_launches, pt_launches, rn_launches):
+    for phase_launches in (int8_launches, par_launches, ls_launches,
+                           tp_launches, ex_launches, slide_launches,
+                           serve_launches, stats_launches, pt_launches,
+                           rn_launches):
         for name, count in phase_launches.items():
             launches[name] += count
 

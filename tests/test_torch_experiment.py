@@ -432,18 +432,39 @@ def test_display_prints_the_jax_ttests(ran, tmp_path, capsys):
 
 # --- What is not ported, and the card ----------------------------------------
 
-def test_what_is_not_ported_raises(exp_env, monkeypatch):
-    """Under a multi-process runtime, a run without ``n_submeshes`` would
-    train each fold in lockstep over the processes (ROADMAP.md Queue 1
-    item 9b); it raises before it writes anything."""
+def test_multiprocess_run_without_submeshes_trains_in_lockstep(
+        exp_env, monkeypatch):
+    """Under a multi-process runtime, a run without ``n_submeshes`` trains
+    each fold in lockstep over the processes: every training gets a mesh
+    of this process's device that spans the processes
+    (tests/test_torch_lockstep.py runs it across two), and the processes
+    meet at a barrier after main's annotation writes. With
+    ``n_submeshes`` the folds are scheduled instead, as before."""
     from biscuit_torch.parallel import distributed
+    from biscuit_torch.parallel.mesh import Mesh
 
     monkeypatch.setitem(distributed._state, "world", 2)
+    barriers, meshes = [], []
+    monkeypatch.setattr(distributed, "barrier",
+                        lambda name, *a, **k: barriers.append(name))
+    monkeypatch.setattr(exp_env.train_project, "train",
+                        lambda outcome, exp_label, **kw:
+                        meshes.append((exp_label, kw.get("mesh"))) or [])
     before = sorted(os.listdir(exp_env.train_project.models_dir))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-        exp_env.run({"ZC": {"out1": 10, "out2": 10}}, steps=[2],
-                    hp=tiny_hp())
+    exp_env.run({"ZC": {"out1": 10, "out2": 10}}, steps=[2], hp=tiny_hp())
     assert sorted(os.listdir(exp_env.train_project.models_dir)) == before
+    assert barriers == ["exp_annotations"]
+    assert all(m.spans_processes for _, m in meshes)
+    meshes.clear()
+    exp_env.train(tiny_hp(), "EXP_ZC")
+    ((label, mesh),) = meshes
+    assert isinstance(mesh, Mesh) and mesh.spans_processes
+    assert label == "EXP_ZC" and [str(d) for d in mesh.devices] == ["cpu"]
+    monkeypatch.setattr(exp_env, "train_kwargs",
+                        {**exp_env.train_kwargs, "n_submeshes": 1})
+    meshes.clear()
+    exp_env.train(tiny_hp(), "EXP_ZC", mesh=None)
+    assert meshes == [("EXP_ZC", None)]
 
 
 def test_run_needs_a_card_unless_cpu(tmp_path):
@@ -603,7 +624,9 @@ def test_thresholded_results_equal_the_jax_results(ladder50, monkeypatch,
 
 def test_package_exports_experiment():
     import biscuit_torch
+    from biscuit_torch.heatmap import Heatmap
 
     assert biscuit_torch.Experiment is Experiment
+    assert biscuit_torch.Heatmap is Heatmap
     with pytest.raises(AttributeError):
-        biscuit_torch.Heatmap
+        biscuit_torch.NoSuchName

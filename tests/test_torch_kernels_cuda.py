@@ -44,6 +44,7 @@ from biscuit_torch.ops.fused_unit_bwd import (
     unit_bwd_plane,
     unit_bwd_reference,
     unit_bwd_strips,
+    unit_bwd_sums,
     unit_fwd,
 )
 from biscuit_torch.ops.mcd_head import (
@@ -450,6 +451,76 @@ def test_unit_bwd_rejects_what_the_kernel_does_not_take(gen):
         off = tuple(shifted if j == i else xb for j in range(4)) + args[4:]
         with pytest.raises(ValueError, match="16-byte"):
             unit_bwd_plane(*off)
+
+
+# The lockstep route's geometries: 147^2 64->128 and 19^2 728->728 at
+# batch 16, halved for two ranks.
+GROUP_SHAPES = [(16, 147, 147, 64, 128, 24), (16, 19, 19, 728, 728, 24)]
+
+
+def _route(fn, args, sums, m, **kw):
+    """The unit backward's second entry, from the group's sums."""
+    return fn(*args, sums=sums, m=m, **kw)
+
+
+@pytest.mark.parametrize("relu_first", [True, False])
+@pytest.mark.parametrize("shape", GROUP_SHAPES)
+def test_unit_bwd_group_route_at_one_rank_is_the_one_call(gen, shape,
+                                                          relu_first):
+    """The two entries of the group route (``unit_bwd_sums``, then the
+    backward from those sums) at one rank give the one-call kernel's
+    outputs bit for bit, count one launch, and the sums are the one
+    call's dbeta and dgamma, which the second entry leaves unwritten."""
+    _, args = unit_bwd_args(gen, shape, relu_first)
+    gy, p, mu, var, eps = args[0], args[3], args[7], args[8], args[9]
+    m = gy[..., 0].numel()
+    for name, fn, kw in (("unit_bwd_strips", unit_bwd_strips,
+                          {"hs": shape[-1]}),
+                         ("unit_bwd_plane", unit_bwd_plane, {})):
+        want = fn(*args, **kw)
+        before = _build.launch_counts()[name]
+        sums = unit_bwd_sums(gy, p, mu, var, eps)
+        got = _route(fn, args, sums, m, **kw)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()[name] == before + 1
+        for x, y in zip(got[:3], want[:3]):
+            assert torch.equal(x, y), name
+        assert got[3] is None and got[4] is None
+        assert torch.equal(sums[0], want[4]) and torch.equal(sums[1], want[3])
+
+
+@pytest.mark.parametrize("shape", GROUP_SHAPES)
+def test_unit_bwd_group_route_over_two_halves(gen, shape):
+    """Each half of a batch, fed the summed sums of the two halves and the
+    batch's pixel count, gives the one call on the whole batch: da row by
+    row, the weight gradients summed over the halves, within the kernel's
+    tolerances against its plain version (1e-2 of the largest da, 5e-3 of
+    each f32 gradient's largest value: the sums add in another order).
+    The second half's gy and p are shifted by 1, so that a half's own
+    sums are far from the batch's."""
+    _, args = unit_bwd_args(gen, shape, True)
+    gy, r, d, p = args[:4]
+    n = gy.shape[0] // 2
+    gy, p = gy.clone(), p.clone()
+    gy[n:] += 1
+    p[n:] += 1
+    args = (gy, r, d, p) + tuple(args[4:])
+    mu, var, eps = args[7], args[8], args[9]
+    halves = [tuple(t[i * n:(i + 1) * n] for t in (gy, r, d, p)) + args[4:]
+              for i in range(2)]
+    sums = sum(unit_bwd_sums(h[0], h[3], mu, var, eps) for h in halves)
+    m = gy[..., 0].numel()
+    want = unit_bwd_strips(*args, hs=shape[-1])
+    outs = [_route(unit_bwd_strips, h, sums, m, hs=shape[-1])
+            for h in halves]
+    torch.cuda.synchronize()
+    got = [torch.cat([outs[0][0], outs[1][0]]),
+           outs[0][1] + outs[1][1], outs[0][2] + outs[1][2], sums[1],
+           sums[0]]
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        assert err <= (1e-2 if i == 0 else 5e-3), (i, err)
 
 
 def test_train_step_kernel_against_plain(gen):

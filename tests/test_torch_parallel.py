@@ -20,8 +20,8 @@ and its consumers) on the CPU.
   trainings are the same arithmetic on the same device).
 * ``ShardedServable`` over two CPU devices against ``Servable``: each
   shard equals ``Servable`` at the shard's seed, bit for bit.
-* What stays for lockstep data parallelism raises naming ROADMAP.md
-  Queue 1 item 9b.
+* A mesh of several devices trains in lockstep; a mesh that spans
+  processes, without a multi-process runtime, is refused.
 """
 
 import json
@@ -441,24 +441,43 @@ def test_sharded_servable_equals_servable_per_shard(scoring):
         sh.call_exact(tiles[:BATCH])
 
 
-# --- What stays for lockstep data parallelism (item 9b) -------------------
+# --- The meshes of lockstep data parallelism ------------------------------
 
-def test_train_project_over_a_multi_device_mesh_raises_9b(group):
+def test_train_project_over_a_multi_device_mesh_trains_in_lockstep(group):
+    """A mesh of two CPU devices trains one model in lockstep (one rank a
+    device, tests/test_torch_lockstep.py holds it against one rank); a
+    mesh that spans processes needs a multi-process runtime."""
     from biscuit_torch.train.trainer import train_project
 
     train_P = group[-1]
-    for mesh in (Mesh(["cpu", "cpu"]), Mesh(["cpu"], spans_processes=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-            train_project(train_P, "cohort", "X", mesh=mesh)
+    before = set(os.listdir(train_P.models_dir))
+    (model_dir,) = train_project(
+        train_P, "cohort", "LOCK", params=_tiny_hp(batch_size=8),
+        val_k=[1], steps_per_epoch_override=1, mesh=Mesh(["cpu", "cpu"]))
+    assert set(os.listdir(train_P.models_dir)) - before == {
+        os.path.basename(model_dir)}
+    assert os.path.exists(join(model_dir, "results_log.csv"))
+    with pytest.raises(ValueError, match="no multi-process runtime"):
+        train_project(train_P, "cohort", "X", params=_tiny_hp(),
+                      mesh=Mesh(["cpu"], spans_processes=True))
 
 
-def test_global_batch_raises_9b():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-        dist.global_batch({"image": np.zeros((2, 1))}, Mesh(["cpu"]))
+def test_global_batch_places_a_processs_rows_on_its_mesh():
+    b = dist.global_batch({"image": np.arange(8).reshape(4, 2),
+                           "slide": ["s"] * 4}, Mesh(["cpu", "cpu"]))
+    assert [p.tolist() for p in b["image"]] == [[[0, 1], [2, 3]],
+                                                [[4, 5], [6, 7]]]
+    assert b["slide"] == ["s"] * 4
+    with pytest.raises(ValueError, match="no multi-process runtime"):
+        dist.global_batch({"image": np.zeros((2, 1))},
+                          Mesh(["cpu"], spans_processes=True))
 
 
-def test_sharded_servable_over_a_spanning_mesh_raises_9b(scoring):
-    with pytest.raises(ValueError, match="item 9b"):
+def test_sharded_servable_over_a_spanning_mesh_needs_a_runtime(scoring):
+    """Over a mesh that spans processes a sharded servable's shards are
+    every process's (tests/test_torch_lockstep.py runs it across two);
+    in a single process such a mesh is refused."""
+    with pytest.raises(ValueError, match="no multi-process runtime"):
         serve.ShardedServable(scoring[2], mesh=Mesh(
             ["cpu"], spans_processes=True))
 
