@@ -15,8 +15,8 @@
 // 989 TFLOP/s. Weights and features are about 8 MB. In practice W2 sets the
 // pace: every block streams all of it (2 MB) from L2.
 //
-// Design: two launches; scratch is the 1 MB f32 h1 and W2 restaged (2 MB),
-// both of which stay in L2. It replaces five launches on mma.sync that
+// Design: two launches; scratch is the 1 MB f32 h1 and W2 and W3 restaged
+// (2 MB and at most 256 KB), all of which stay in L2. It replaces five launches on mma.sync that
 // wrote the K masked copies of h1 (15.7 MB) and per-warp partial logits to
 // HBM, computed each Philox draw twice and reduced on 2 SMs.
 //  (1) layer1_kernel: h1 = relu(bf16(f) . W1 + b1) on mma.sync tensor
@@ -24,31 +24,42 @@
 //      features staged in shared memory by cp.async and rounded to bf16 as
 //      the A fragments are built, so no cast pass and no bf16 copy exist.
 //      Its extra blocks copy W2 into the order the pass kernel's shared
-//      memory wants, one contiguous 16 KB chunk per ring stage.
+//      memory wants, one contiguous 16 KB chunk per ring stage, and W3 in
+//      one slice per column tile.
 //  (2) pass_kernel: the rest, in one block per 64 GEMM rows. Rows are
 //      tile-major, each tile's K passes padded to P = the next power of two
 //      (64 / P tiles a block; at K > 64 a block owns one tile and walks its
 //      passes in chunks of 64 rows). The block builds its masked A operand
 //      (64 x H bf16, 128 KB at H = 1024) once, straight into 128-byte-
 //      swizzled shared memory from h1 and the layer-0 mask, so it never
-//      reaches HBM; W3 (4 KB) is loaded beside it. W2 streams through a
-//      four-stage ring in 64 x 128 chunks, one bulk copy each, issued by
-//      a producer thread that waits on each stage's release (mbarriers,
-//      no block-wide barrier), and is read in its (in, out) layout as
-//      wgmma's MN-major B; two consumer warpgroups each issue m64n64k16
-//      on one half of each 128-column tile with one group left in flight.
-//      The tile's epilogue applies b2, relu, the layer-1 mask, the bf16
-//      round and the product with W3, adding each row's logits in
-//      registers in a fixed order. After the last column tile the block
-//      sums the partial logits, takes the softmax and sums p and p^2 over
-//      each tile's real passes in pass order, and writes mean and std: no
-//      atomics, and a call repeats bit for bit. Past H = 1024 (C = 8) or
-//      1152 (C = 2), A and W3 do not both fit: the producer then also
-//      copies each column tile's 128 rows of W3 into one of two slices,
-//      and A holds up to 18 k-chunks, rebuilt segment by segment inside
-//      each column tile when H has more (pass_kernel<true>); streaming W3
-//      at H = 1024 cost 18 us of 100 (PERF.md), so the common shapes keep
-//      it whole.
+//      reaches HBM. W2 streams through a four-stage ring in 64 x 128
+//      chunks, one bulk copy each, issued by a producer thread that waits
+//      on each stage's release (mbarriers, no block-wide barrier), and is
+//      read in its (in, out) layout as wgmma's MN-major B; two consumer
+//      warpgroups each issue m64n64k16 on one half of each 128-column tile
+//      with one group left in flight. The tile's epilogue applies b2, relu,
+//      the layer-1 mask and the bf16 round, and the logits are a third
+//      tensor-core product, with C padded to CP = 16, 32, 64 or 128: the
+//      warpgroup's masked bf16 h2 tile, already in wgmma's accumulator
+//      layout, is packed in registers as the A operand of m64nCPk16
+//      (FlashAttention-3's route for P) against the column tile's 128 x CP
+//      slice of W3, which layer 1's extra blocks stage K-major and
+//      swizzled and the producer copies in, one slice at a time, a few W2
+//      chunks into each column tile. The 64 x CP logits accumulate in
+//      registers across the column tiles. After the last one, both
+//      warpgroups store their partial logits into shared memory laid over
+//      A (dead by then); four threads a row add them and b3, mask the
+//      padded classes to -inf (the TPU kernel's -1e9 biases) and take the
+//      row's softmax with quad shuffles. The sums of p and p^2 over each
+//      tile's real passes, in pass order, become mean and std, or are
+//      carried in 2 CP floats when K > 64 walks row chunks: no atomics,
+//      and a call repeats bit for bit. At CP = 128 and H = 1024, A (128
+//      KB, built once a row chunk), the W2 ring (64 KB) and one W3 slice
+//      (32 KB) fill 227 KB. Past that (H > 1024 at CP = 128, 1152 at 64,
+//      1216 at 16 and 32) A holds as many 64-wide k-chunks as fit and is
+//      rebuilt segment by segment inside each column tile (pass_kernel<
+//      true, CP>), whose wgmmas ptxas serializes (C7518): forced at H =
+//      1024, 0.16 ms against 0.13.
 //
 // Dropout draws: Philox4x32-10 with counter (col/4, row, pass, layer) and
 // key (seed low 32 bits, seed high 32 bits); element (row, col) takes word
@@ -62,7 +73,7 @@
 
 namespace {
 
-constexpr int MAX_CLASSES = 8;
+constexpr int MAX_CLASSES = 128;   // one 128-lane tile, as the TPU kernel
 
 // ---------------------------------------------------------------- layer 1
 constexpr int L1_BM = 32, L1_BN = 64, L1_BK = 64, L1_STAGES = 4;
@@ -124,18 +135,51 @@ __device__ void stage_w2(const __nv_bfloat16* __restrict__ w2,
   }
 }
 
+// W3's rows of column tile j as the pass kernel reads them: wgmma's
+// K-major B, the tile's two 64-k halves one after the other, each cp rows
+// (classes) of 64 k-values (128 bytes), 128-byte swizzled; zeros for the
+// padded classes and past H. One block of layer1_kernel writes one slice.
+__device__ void stage_w3(const __nv_bfloat16* __restrict__ w3,
+                         unsigned char* __restrict__ w3s, int H, int C,
+                         int cp, int j) {
+  const unsigned short* w = reinterpret_cast<const unsigned short*>(w3);
+  unsigned char* dst = w3s + (size_t)j * cp * 256;
+  for (int i = threadIdx.x; i < cp * 16; i += L1_THREADS) {
+    const int half = i / (cp * 8), n = (i >> 3) % cp, ch = i & 7;
+    const int k0 = j * 128 + half * 64 + ch * 8;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + 2 * e;
+      const uint32_t lo = n < C && k < H ? w[(size_t)k * C + n] : 0u;
+      const uint32_t hi = n < C && k + 1 < H ? w[(size_t)(k + 1) * C + n] : 0u;
+      v[e] = lo | hi << 16;
+    }
+    *reinterpret_cast<uint4*>(dst + half * cp * 128 + bt::swz(n, ch)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
 // Blocks below n_l1: h1 = relu(bf16(f) . W1 + b1), f32, one 32 x 64 tile
 // each (row blocks vary fastest, so the blocks that share a W1 slice run
-// together). The blocks after them stage W2 for the pass kernel.
+// together). The blocks after them stage W2 for the pass kernel, then W3,
+// one column tile's slice a block.
 __global__ void __launch_bounds__(L1_THREADS)
     layer1_kernel(const float* __restrict__ f,
                   const __nv_bfloat16* __restrict__ w1,
                   const float* __restrict__ b1, float* __restrict__ h1,
                   const __nv_bfloat16* __restrict__ w2,
-                  unsigned char* __restrict__ w2s, int N, int F, int H,
-                  int n_l1) {
+                  unsigned char* __restrict__ w2s,
+                  const __nv_bfloat16* __restrict__ w3,
+                  unsigned char* __restrict__ w3s, int N, int F, int H,
+                  int C, int cp, int n_l1) {
   if ((int)blockIdx.x >= n_l1) {
-    stage_w2(w2, w2s, H, (H + 63) / 64, blockIdx.x - n_l1);
+    const int nkc = (H + 63) / 64, q = blockIdx.x - n_l1;
+    const int steps = ((H + 127) / 128) * nkc;
+    if (q < steps)
+      stage_w2(w2, w2s, H, nkc, q);
+    else
+      stage_w3(w3, w3s, H, C, cp, q - steps);
     return;
   }
   extern __shared__ __align__(128) unsigned char l1_smem[];
@@ -210,23 +254,23 @@ constexpr int PS_CONSUMERS = 256;       // two warpgroups
 constexpr int PS_THREADS = PS_CONSUMERS + 32;   // and one producer warp
 constexpr int PS_STAGES = 4;            // W2 ring
 constexpr int PS_A_CHUNK = PS_ROWS * 128;   // 64 rows x 64 k, bf16
-constexpr int W3_SLICE = 128 * MAX_CLASSES * 2;   // W3 rows of a column tile
 
 // Shared-memory layout of the pass kernel whose A operand holds kseg
-// k-chunks and whose W3 takes w3_bytes (all of it, or two slices): A, the
-// W2 ring, W3, per-row logits, probabilities and per-tile sums, the
-// barriers, and room to align to 1024 bytes.
+// k-chunks, at cp padded classes: A, its space also holding the row
+// chunk's two halves of logits and then probabilities (2 x 64 x (cp + 8)
+// f32) after the last column tile; the W2 ring; one W3 slice (cp x 128
+// bf16); the per-class sums carried across row chunks (2 cp f32); the
+// barriers; and room to align to 1024 bytes.
 struct PassLayout {
-  int a, b, w3, part, prob, sums, bars, total;
-  __host__ __device__ PassLayout(int kseg, int w3_bytes) {
-    a = 0;
-    b = a + kseg * PS_A_CHUNK;
+  int b, w3, sums, bars, total;
+  __host__ __device__ PassLayout(int kseg, int cp) {
+    const int a_bytes = kseg * PS_A_CHUNK;
+    const int p_bytes = 2 * PS_ROWS * (cp + 8) * 4;
+    b = a_bytes > p_bytes ? a_bytes : p_bytes;   // both 1024-aligned
     w3 = b + PS_STAGES * W2_CHUNK;
-    part = w3 + (w3_bytes + 15) / 16 * 16;
-    prob = part + 2 * PS_ROWS * MAX_CLASSES * 4;
-    sums = prob + PS_ROWS * MAX_CLASSES * 4;
-    bars = sums + 2 * PS_ROWS * MAX_CLASSES * 4;
-    total = bars + (2 * PS_STAGES + 4) * 8 + 1024;
+    sums = w3 + cp * 256;
+    bars = sums + 2 * cp * 4;
+    total = bars + (2 * PS_STAGES + 2) * 8 + 1024;
   }
 };
 
@@ -236,17 +280,16 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(PS_CONSUMERS) : "memory");
 }
 
-// SEG: A and all of W3 do not fit at once. W3 then comes in slices of
-// 128 rows, one per column tile, and A, when it holds fewer k-chunks than
-// H has, is rebuilt segment by segment inside each column tile. Otherwise
-// W3 is loaded once and A built once a row chunk, and the step loop holds
-// nothing but the products.
-template <bool SEG>
+// CP: C padded to 16, 32, 64 or 128. SEG: A does not hold all of H's
+// k-chunks at once, and is rebuilt segment by segment inside each column
+// tile; otherwise A is built once a row chunk, and the step loop holds
+// nothing but the products. w3s is W3 as layer 1 staged it.
+template <bool SEG, int CP>
 __global__ void __launch_bounds__(PS_THREADS, 1)
     pass_kernel(const float* __restrict__ h1,
                 const unsigned char* __restrict__ w2s,
                 const float* __restrict__ b2,
-                const __nv_bfloat16* __restrict__ w3,
+                const unsigned char* __restrict__ w3s,
                 const float* __restrict__ b3, float* __restrict__ mean,
                 float* __restrict__ std_out, int N, int H, int K, int C,
                 int P, int T, int chunks, int kseg, uint32_t seed_lo,
@@ -254,18 +297,16 @@ __global__ void __launch_bounds__(PS_THREADS, 1)
   extern __shared__ __align__(128) unsigned char ps_smem[];
   const uint32_t raw = bt::smem_u32(ps_smem);
   unsigned char* base = ps_smem + ((1024 - (raw & 1023)) & 1023);
-  const PassLayout L(kseg, SEG ? 2 * W3_SLICE : H * C * 2);
-  unsigned char* sa = base + L.a;
+  const PassLayout L(kseg, CP);
+  unsigned char* sa = base;
   unsigned char* sb = base + L.b;
-  __nv_bfloat16* w3s = reinterpret_cast<__nv_bfloat16*>(base + L.w3);
-  float* part = reinterpret_cast<float*>(base + L.part);   // [2][64][8]
-  float* prob = reinterpret_cast<float*>(base + L.prob);   // [64][8]
-  float* sum_p = reinterpret_cast<float*>(base + L.sums);  // [64][8]
-  float* sum_q = sum_p + PS_ROWS * MAX_CLASSES;
+  float* prob = reinterpret_cast<float*>(base);   // over A, see PassLayout
+  float* sum_p = reinterpret_cast<float*>(base + L.sums);   // [CP]
+  float* sum_q = sum_p + CP;
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L.bars);
   uint64_t* empty = full + PS_STAGES;
-  uint64_t* w3full = empty + PS_STAGES;   // [2]
-  uint64_t* w3empty = w3full + 2;         // [2]
+  uint64_t* w3full = empty + PS_STAGES;
+  uint64_t* w3empty = w3full + 1;
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int nkc = (H + 63) / 64, ncol = (H + 127) / 128;
@@ -276,35 +317,32 @@ __global__ void __launch_bounds__(PS_THREADS, 1)
       bt::mbar_init(&full[st], 1);
       bt::mbar_init(&empty[st], PS_CONSUMERS);
     }
-    for (int b = 0; b < 2; ++b) {
-      bt::mbar_init(&w3full[b], 1);
-      bt::mbar_init(&w3empty[b], PS_CONSUMERS);
-    }
+    bt::mbar_init(w3full, 1);
+    bt::mbar_init(w3empty, PS_CONSUMERS);
     bt::mbar_init_fence();
   }
   __syncthreads();
 
   // Producer: one thread keeps the W2 ring full, each chunk one bulk copy
-  // into a stage the consumers have released, and (SEG) at the first
-  // chunk of each column tile copies that tile's 128 rows of W3 into one
-  // of two slices for its epilogue.
+  // into a stage the consumers have released. A few chunks into each
+  // column tile, once the last tile's epilogue released the one W3 slice,
+  // it copies that tile's slice in, so the ring stays full meanwhile.
   if (tid >= PS_CONSUMERS) {
     if (tid == PS_CONSUMERS) {
       for (int q = 0; q < chunks * steps; ++q) {
         const int s = q % steps;
-        if (SEG && s % nkc == 0) {
-          const int u = q / nkc, j = s / nkc;   // column tiles so far
-          const uint32_t bytes = (uint32_t)(min(128, H - j * 128) * C * 2);
-          bt::mbar_wait(&w3empty[u & 1], ((u >> 1) & 1) ^ 1);
-          bt::mbar_arrive_expect_tx(&w3full[u & 1], bytes);
-          bt::bulk_copy_g2s(base + L.w3 + (u & 1) * W3_SLICE,
-                            w3 + (size_t)j * 128 * C, bytes, &w3full[u & 1]);
-        }
         const int st = q % PS_STAGES, round = q / PS_STAGES;
         bt::mbar_wait(&empty[st], (round & 1) ^ 1);
         bt::mbar_arrive_expect_tx(&full[st], W2_CHUNK);
         bt::bulk_copy_g2s(sb + st * W2_CHUNK,
                           w2s + (size_t)s * W2_CHUNK, W2_CHUNK, &full[st]);
+        if (s % nkc == min(PS_STAGES - 1, nkc - 1)) {
+          const int u = q / nkc, j = s / nkc;   // column tiles so far
+          bt::mbar_wait(w3empty, (u & 1) ^ 1);
+          bt::mbar_arrive_expect_tx(w3full, CP * 256);
+          bt::bulk_copy_g2s(base + L.w3, w3s + (size_t)j * CP * 256,
+                            CP * 256, w3full);
+        }
       }
     }
     return;
@@ -313,10 +351,6 @@ __global__ void __launch_bounds__(PS_THREADS, 1)
   const int wg = tid >> 7, w4 = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
   const int tile0 = blockIdx.x * T;
   const bool drop = thresh != 0;
-  for (int i = tid; i < T * MAX_CLASSES; i += PS_CONSUMERS)
-    sum_p[i] = sum_q[i] = 0.f;
-  if (!SEG)
-    for (int i = tid; i < H * C; i += PS_CONSUMERS) w3s[i] = w3[i];
 
   // Tile and pass of block row r in chunk ch; valid when both exist.
   auto row_of = [&](int r, int ch, int& n, int& k) {
@@ -325,6 +359,22 @@ __global__ void __launch_bounds__(PS_THREADS, 1)
     return n < N && k < K;
   };
   auto release = [&](int q) { bt::mbar_arrive(&empty[q % PS_STAGES]); };
+  // Layer 1's draws for columns col, col + 1 of this thread's rows lo and
+  // hi (bits[hlf][e]; all ones without dropout): each draw is computed
+  // once, the even thread of a pair for its row lo (pass k, tile n), the
+  // odd for its row hi, and the two swap halves.
+  auto layer1_bits = [&](int k, int n, int col, uint32_t (&bits)[2][2]) {
+    bits[0][0] = bits[0][1] = bits[1][0] = bits[1][1] = 0xffffffffu;
+    if (!drop) return;
+    const bt::U4 rb = bt::dropout_bits(seed_lo, seed_hi, k, 1, n, col);
+    const uint32_t ox = __shfl_xor_sync(0xffffffffu, (t & 1) ? rb.x : rb.z, 1);
+    const uint32_t oy = __shfl_xor_sync(0xffffffffu, (t & 1) ? rb.y : rb.w, 1);
+    if (t & 1) {
+      bits[0][0] = ox; bits[0][1] = oy; bits[1][0] = rb.z; bits[1][1] = rb.w;
+    } else {
+      bits[0][0] = rb.x; bits[0][1] = rb.y; bits[1][0] = ox; bits[1][1] = oy;
+    }
+  };
   // A's k-chunks kc0 .. kc0 + nk - 1 of row chunk ch into A's slots 0 ..
   // nk - 1: A[r][col] = bf16(keep0 ? h1[n][col] * scale : 0), 8 columns
   // an item, one Philox per 4 columns; zeros past H and on padding rows.
@@ -370,11 +420,11 @@ __global__ void __launch_bounds__(PS_THREADS, 1)
     row_of(r_hi, ch, n_hi, k_hi);
     const int n_me = (t & 1) ? n_hi : n_lo, k_me = (t & 1) ? k_hi : k_lo;
 
-    float logit[2][MAX_CLASSES];
+    // The 64 x CP logits product's accumulator, (row, class) as d's
+    // layout.
+    float lg[CP / 2];
 #pragma unroll
-    for (int hlf = 0; hlf < 2; ++hlf)
-#pragma unroll
-      for (int c = 0; c < MAX_CLASSES; ++c) logit[hlf][c] = 0.f;
+    for (int e = 0; e < CP / 2; ++e) lg[e] = 0.f;
     float d[32];
     bool pending = false;   // the previous step's stage is not released
     if (!SEG) {
@@ -426,109 +476,108 @@ __global__ void __launch_bounds__(PS_THREADS, 1)
       pending = false;
 
       // Epilogue of column tile j: b2, relu, layer-1 mask, bf16, . W3
-      // (its rows of this tile; SEG: in slice u % 2).
+      // (its slice of this tile).
       const int u = q / nkc;
-      if (SEG) bt::mbar_wait(&w3full[u & 1], (u >> 1) & 1);
-      const __nv_bfloat16* w3t =
-          SEG ? w3s + (u & 1) * (W3_SLICE / 2) : w3s + j * 128 * C;
+      // The masked bf16 h2 tile as the A operand of four m64nCPk16:
+      // k16 step kk takes column groups jn = 2 kk (registers 0, 1: rows
+      // lo, hi) and 2 kk + 1 (registers 2, 3).
+      uint32_t af[4][4];
 #pragma unroll
       for (int jn = 0; jn < 8; ++jn) {
         const int cl = wg * 64 + jn * 8 + 2 * t, col = j * 128 + cl;
-        uint32_t lo0 = 0xffffffffu, lo1 = 0xffffffffu;
-        uint32_t hi0 = 0xffffffffu, hi1 = 0xffffffffu;
-        if (drop) {
-          const bt::U4 rb = bt::dropout_bits(seed_lo, seed_hi, k_me, 1, n_me,
-                                             col);
-          const uint32_t sx = (t & 1) ? rb.x : rb.z;
-          const uint32_t sy = (t & 1) ? rb.y : rb.w;
-          const uint32_t ox = __shfl_xor_sync(0xffffffffu, sx, 1);
-          const uint32_t oy = __shfl_xor_sync(0xffffffffu, sy, 1);
-          if (t & 1) {
-            lo0 = ox; lo1 = oy; hi0 = rb.z; hi1 = rb.w;
-          } else {
-            lo0 = rb.x; lo1 = rb.y; hi0 = ox; hi1 = oy;
-          }
-        }
-        if (col >= H) continue;
-        const float2 bias = *reinterpret_cast<const float2*>(b2 + col);
-        const uint32_t bits[2][2] = {{lo0, lo1}, {hi0, hi1}};
+        uint32_t bits[2][2];
+        layer1_bits(k_me, n_me, col, bits);
+        // Past H the accumulator is 0 (W2 staged zeros) and W3's rows
+        // are zeros: the columns add nothing.
+        const float2 bias = col < H
+            ? *reinterpret_cast<const float2*>(b2 + col)
+            : make_float2(0.f, 0.f);
 #pragma unroll
         for (int hlf = 0; hlf < 2; ++hlf) {
-          float v0 = fmaxf(d[4 * jn + 2 * hlf] + bias.x, 0.f);
-          float v1 = fmaxf(d[4 * jn + 2 * hlf + 1] + bias.y, 0.f);
-          v0 = __bfloat162float(__float2bfloat16_rn(
-              bits[hlf][0] >= thresh ? v0 * scale : 0.f));
-          v1 = __bfloat162float(__float2bfloat16_rn(
+          const float v0 = fmaxf(d[4 * jn + 2 * hlf] + bias.x, 0.f);
+          const float v1 = fmaxf(d[4 * jn + 2 * hlf + 1] + bias.y, 0.f);
+          af[jn >> 1][(jn & 1) * 2 + hlf] = pack_bf16(make_float2(
+              bits[hlf][0] >= thresh ? v0 * scale : 0.f,
               bits[hlf][1] >= thresh ? v1 * scale : 0.f));
-#pragma unroll
-          for (int c = 0; c < MAX_CLASSES; ++c)
-            if (c < C)
-              logit[hlf][c] +=
-                  v0 * __bfloat162float(w3t[cl * C + c]) +
-                  v1 * __bfloat162float(w3t[(cl + 1) * C + c]);
         }
       }
-      if (SEG) bt::mbar_arrive(&w3empty[u & 1]);
+      bt::mbar_wait(w3full, u & 1);
+      const uint64_t dw =
+          bt::smem_desc(bt::smem_u32(base + L.w3 + wg * CP * 128));
+      bt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)   // B K-major: +32 bytes per k16
+        bt::wgmma_rs<CP>(lg, af[kk], dw + 2 * kk);
+      bt::wgmma_commit();
+      bt::wgmma_wait<0>();
+      bt::mbar_arrive(w3empty);
     }
 
-    // Each row's partial logits: the quad's four threads, then one slot
-    // per warpgroup.
-#pragma unroll
-    for (int hlf = 0; hlf < 2; ++hlf)
-#pragma unroll
-      for (int c = 0; c < MAX_CLASSES; ++c) {
-        if (c >= C) break;
-        float v = logit[hlf][c];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (t == 0)
-          part[(wg * PS_ROWS + r_lo + 8 * hlf) * MAX_CLASSES + c] = v;
-      }
+    // Both warpgroups' partial logits into prob (on A, once both
+    // warpgroups' products on it are done), each in its half; then each
+    // row's softmax, four threads a row (a quad), CP / 4 classes a
+    // thread, adding the halves and b3 and masking the padded classes to
+    // -inf, p written over the first half. The accumulator registers are
+    // only ever stored, by every thread alike.
+    constexpr int S = CP + 8;   // row stride: float2 stores, few conflicts
     consumers_sync();
-    if (tid < PS_ROWS) {
-      int n, k;
-      if (row_of(tid, ch, n, k)) {
-        float z[MAX_CLASSES];
-        float mx = __int_as_float(0xff800000);   // -inf
-        for (int c = 0; c < C; ++c) {
-          z[c] = part[tid * MAX_CLASSES + c] +
-                 part[(PS_ROWS + tid) * MAX_CLASSES + c] + b3[c];
-          mx = fmaxf(mx, z[c]);
-        }
-        float den = 0.f;
-        for (int c = 0; c < C; ++c) {
-          z[c] = expf(z[c] - mx);
-          den += z[c];
-        }
-        for (int c = 0; c < C; ++c) prob[tid * MAX_CLASSES + c] = z[c] / den;
+#pragma unroll
+    for (int jn = 0; jn < CP / 8; ++jn)
+#pragma unroll
+      for (int hlf = 0; hlf < 2; ++hlf)
+        *reinterpret_cast<float2*>(prob + wg * PS_ROWS * S +
+                                   (r_lo + 8 * hlf) * S + jn * 8 + 2 * t) =
+            make_float2(lg[4 * jn + 2 * hlf], lg[4 * jn + 2 * hlf + 1]);
+    consumers_sync();
+    {
+      float* row = prob + (tid >> 2) * S;
+      const int q4 = tid & 3;
+      float z[CP / 4];
+      float mx = __int_as_float(0xff800000);   // -inf
+#pragma unroll
+      for (int i = 0; i < CP / 4; ++i) {
+        const int c = 4 * i + q4;
+        z[i] = c < C ? row[c] + row[PS_ROWS * S + c] + b3[c]
+                     : __int_as_float(0xff800000);
+        mx = fmaxf(mx, z[i]);
       }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float den = 0.f;
+#pragma unroll
+      for (int i = 0; i < CP / 4; ++i) {
+        z[i] = expf(z[i] - mx);
+        den += z[i];
+      }
+      den += __shfl_xor_sync(0xffffffffu, den, 1);
+      den += __shfl_xor_sync(0xffffffffu, den, 2);
+#pragma unroll   // the entries this thread read, and no other thread
+      for (int i = 0; i < CP / 4; ++i) row[4 * i + q4] = z[i] / den;
     }
     consumers_sync();
-    // Sums over each tile's passes of this chunk, in pass order (T * C is
-    // up to 512 sums, two a thread).
+    // Sums over each tile's passes of this chunk, in pass order, carried
+    // to the next chunk (K > 64: one tile a block, one class a thread)
+    // or written out.
     for (int i = tid; i < T * C; i += PS_CONSUMERS) {
-      const int tt = i / C, c = i % C;
-      float sp = sum_p[tt * MAX_CLASSES + c], sq = sum_q[tt * MAX_CLASSES + c];
+      const int tt = i / C, c = i % C, n = tile0 + tt;
+      float sp = ch ? sum_p[c] : 0.f, sq = ch ? sum_q[c] : 0.f;
       for (int kk = 0; kk < P; ++kk) {
         if (ch * PS_ROWS + kk >= K) break;
-        const float p = prob[(tt * P + kk) * MAX_CLASSES + c];
+        const float p = prob[(tt * P + kk) * S + c];
         sp += p;
         sq += p * p;
       }
-      sum_p[tt * MAX_CLASSES + c] = sp;
-      sum_q[tt * MAX_CLASSES + c] = sq;
+      if (ch + 1 < chunks) {
+        sum_p[c] = sp;
+        sum_q[c] = sq;
+      } else if (n < N) {
+        const float m = sp / (float)K;
+        mean[(size_t)n * C + c] = m;
+        std_out[(size_t)n * C + c] =
+            sqrtf(fmaxf(sq / (float)K - m * m, 0.f));
+      }
     }
     consumers_sync();
-  }
-
-  for (int i = tid; i < T * C; i += PS_CONSUMERS) {
-    const int tt = i / C, c = i % C, n = tile0 + tt;
-    if (n < N) {
-      const float m = sum_p[tt * MAX_CLASSES + c] / (float)K;
-      mean[(size_t)n * C + c] = m;
-      std_out[(size_t)n * C + c] =
-          sqrtf(fmaxf(sum_q[tt * MAX_CLASSES + c] / (float)K - m * m, 0.f));
-    }
   }
 }
 
@@ -538,23 +587,46 @@ size_t w2_stage_bytes(int H) {
   return (size_t)((H + 127) / 128) * ((H + 63) / 64) * W2_CHUNK;
 }
 
+// The padded class count: 16, 32, 64 or 128.
+int padded_classes(int C) {
+  int cp = 16;
+  while (cp < C) cp *= 2;
+  return cp;
+}
+
+// Bytes of W3 as layer 1 stages it: one cp x 128 slice per column tile.
+size_t w3_stage_bytes(int H, int C) {
+  return (size_t)((H + 127) / 128) * padded_classes(C) * 256;
+}
+
+using PassFn = decltype(&pass_kernel<false, 16>);
+
+// The pass kernel at cp padded classes.
+template <bool SEG>
+PassFn pass_for(int cp) {
+  return cp == 16   ? pass_kernel<SEG, 16>
+         : cp == 32 ? pass_kernel<SEG, 32>
+         : cp == 64 ? pass_kernel<SEG, 64>
+                    : pass_kernel<SEG, 128>;
+}
+
 }  // namespace
 
-// Scratch the launcher needs at N tiles and hidden width H: h1 (N * H
-// f32), then W2 staged for the pass kernel.
-extern "C" size_t mcd_head_scratch_bytes(int N, int H) {
-  return (size_t)N * H * 4 + w2_stage_bytes(H);
+// Scratch the launcher needs at N tiles, hidden width H and C classes: h1
+// (N * H f32), then W2 and W3 staged for the pass kernel.
+extern "C" size_t mcd_head_scratch_bytes(int N, int H, int C) {
+  return (size_t)N * H * 4 + w2_stage_bytes(H) + w3_stage_bytes(H, C);
 }
 
 // feats (N, F) f32; w1 (F, H), w2 (H, H), w3 (H, C) bf16 (in, out); biases
-// f32; scratch of mcd_head_scratch_bytes(N, H). Out: mean, std (N, C) f32.
-// F % 8 == 0, H % 8 == 0, 1 <= C <= 8, K >= 1, every pointer 16-byte
-// aligned. The pass kernel's rows: a tile's K passes padded to P, the next
-// power of two, T = 64 / P tiles a block; at K > 64 a block owns one tile
-// and walks its passes in row chunks of 64. Its A operand and W3 stay in
-// shared memory whole while they fit (H up to 1024 at C = 8, 1152 at
-// C = 2); past that W3 comes in slices and A holds as many 64-wide
-// k-chunks as fit (18), rebuilt for each column tile when H has more.
+// f32; scratch of mcd_head_scratch_bytes(N, H, C). Out: mean, std (N, C)
+// f32. F % 8 == 0, H % 8 == 0, 1 <= C <= 128, K >= 1, every pointer
+// 16-byte aligned. The pass kernel's rows: a tile's K passes padded to P,
+// the next power of two, T = 64 / P tiles a block; at K > 64 a block owns
+// one tile and walks its passes in row chunks of 64. W3 comes in slices,
+// and A holds as many k-chunks as fit beside them (16 at C > 64: whole up
+// to H = 1024), rebuilt by segment (pass_kernel<true, CP>) when H has
+// more.
 extern "C" int mcd_head_launch(const void* feats, const void* w1,
                                const void* b1, const void* w2, const void* b2,
                                const void* w3, const void* b3, void* mean,
@@ -564,7 +636,8 @@ extern "C" int mcd_head_launch(const void* feats, const void* w1,
                                float scale, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (N < 0 || F % 8 || H % 8 || H <= 0 || C < 1 || C > MAX_CLASSES || K < 1)
+  if (N < 0 || F % 8 || H % 8 || H <= 0 || C < 1 || C > MAX_CLASSES ||
+      K < 1)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   int P = 1;
@@ -575,14 +648,13 @@ extern "C" int mcd_head_launch(const void* feats, const void* w1,
                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                   device)) != cudaSuccess)
     return (int)e;
-  const int nkc = (H + 63) / 64;
-  const bool seg = PassLayout(nkc, H * C * 2).total > optin;
-  const int fit = (optin - PassLayout(0, 2 * W3_SLICE).total) / PS_A_CHUNK;
-  const int kseg = !seg || fit > nkc ? nkc : fit;
-  if (kseg < 1) return (int)cudaErrorInvalidValue;
-  const int smem = PassLayout(kseg, seg ? 2 * W3_SLICE : H * C * 2).total;
+  const int nkc = (H + 63) / 64, cp = padded_classes(C);
+  int kseg = nkc;
+  while (kseg > 1 && PassLayout(kseg, cp).total > optin) --kseg;
+  const int smem = PassLayout(kseg, cp).total;
+  if (smem > optin) return (int)cudaErrorInvalidValue;
+  const PassFn pass = kseg < nkc ? pass_for<true>(cp) : pass_for<false>(cp);
   cudaStream_t s = (cudaStream_t)stream;
-  auto* pass = seg ? pass_kernel<true> : pass_kernel<false>;
   if ((e = cudaFuncSetAttribute(layer1_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)sizeof(L1Smem))) != cudaSuccess ||
@@ -592,15 +664,18 @@ extern "C" int mcd_head_launch(const void* feats, const void* w1,
     return (int)e;
   float* h1 = (float*)scratch;
   unsigned char* w2s = (unsigned char*)scratch + (size_t)N * H * 4;
+  unsigned char* w3s = w2s + w2_stage_bytes(H);
   const int n_l1 = ((N + L1_BM - 1) / L1_BM) * ((H + L1_BN - 1) / L1_BN);
-  const int steps = ((H + 127) / 128) * nkc;
-  layer1_kernel<<<n_l1 + steps, L1_THREADS, sizeof(L1Smem), s>>>(
+  const int ncol = (H + 127) / 128, steps = ncol * nkc;
+  layer1_kernel<<<n_l1 + steps + ncol, L1_THREADS,
+                  sizeof(L1Smem), s>>>(
       (const float*)feats, (const __nv_bfloat16*)w1, (const float*)b1, h1,
-      (const __nv_bfloat16*)w2, w2s, N, F, H, n_l1);
+      (const __nv_bfloat16*)w2, w2s, (const __nv_bfloat16*)w3, w3s, N, F, H,
+      C, cp, n_l1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   pass<<<(N + T - 1) / T, PS_THREADS, smem, s>>>(
-      h1, w2s, (const float*)b2, (const __nv_bfloat16*)w3, (const float*)b3,
-      (float*)mean, (float*)std_out, N, H, K, C, P, T, chunks, kseg, seed_lo,
-      seed_hi, thresh, scale);
+      h1, w2s, (const float*)b2, w3s, (const float*)b3, (float*)mean,
+      (float*)std_out, N, H, K, C, P, T, chunks, kseg, seed_lo, seed_hi,
+      thresh, scale);
   return (int)cudaGetLastError();
 }

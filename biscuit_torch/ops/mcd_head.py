@@ -17,6 +17,11 @@ same stream out in int64 torch ops, so the plain version reproduces the
 kernel's masks exactly. Element (row, col) of layer L in pass k is dropped
 when its 32-bit draw is below rate * 2**32.
 
+The kernel takes 0 < C <= ``MAX_CLASSES`` (128, the TPU kernel's one
+lane tile): the logits are a third tensor-core product with C padded to
+16, 32, 64 or 128 and the padded logits masked before the softmax. The
+plain version is the same for every C.
+
 On a CPU tensor ``mcd_head`` computes its plain version; on a CUDA tensor
 it launches the kernel or raises.
 """
@@ -31,7 +36,7 @@ import torch
 from . import _build
 
 NAME = "mcd_head"
-MAX_CLASSES = 8
+MAX_CLASSES = 128
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -209,8 +214,8 @@ def mcd_head(feats, w1, b1, w2, b2, w3, b3, k: int = 30,
     mean = torch.empty((n, c), dtype=torch.float32, device=dev)
     std = torch.empty_like(mean)
     scratch = torch.empty(_build.bound(
-        NAME, "mcd_head_scratch_bytes", [ctypes.c_int] * 2,
-        ctypes.c_size_t)(n, hdim), dtype=torch.uint8, device=dev)
+        NAME, "mcd_head_scratch_bytes", [ctypes.c_int] * 3,
+        ctypes.c_size_t)(n, hdim, c), dtype=torch.uint8, device=dev)
     rc = _build.bound(NAME, "mcd_head_launch", _ARGTYPES)(
         *(_build.ptr(x) for x in (feats, w1, b1, w2, b2, w3, b3)),
         mean.data_ptr(), std.data_ptr(), scratch.data_ptr(), n, f,

@@ -29,8 +29,9 @@ these phases, each printing one JSON line:
    ptxas: the registers, spills and shared memory of the sepconv GEMM
    (``csrc/sepconv_gemm.cuh``) in the two sources that run it (the middle
    flow and fused block rows add the GEMM's plan: column tile, cluster
-   size, stages, dynamic shared memory, registers) and of the unit
-   backward's GEMMs and depthwise pass.
+   size, stages, dynamic shared memory, registers), of the unit
+   backward's GEMMs and depthwise pass, and of each instantiation of the
+   MC head's pass kernel (``pass_kernel<SEG, CP>``).
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (256 tiles of 299 px, K=30), with its error and
    tolerance, its median time over fresh inputs (CUDA events), the plain
@@ -39,8 +40,11 @@ these phases, each printing one JSON line:
    The preprocess row repeats its output bit for bit and adds its
    kernel's device time (``device_ms``, torch.profiler) and its launch
    plan (cluster size, pixels a CTA, threads, shared memory, grid, and
-   the clusters the card holds at once). The MC head also repeats one
-   seed bit for bit, shows its two device
+   the clusters the card holds at once). The MC head is held at
+   HEAD_CLASSES (2, 33 and 128, padded to 16, 64 and 128; the published
+   head's numbers at the top level, each count's under ``by_classes``,
+   with the module head's time, ``module_ms``, beside the others); at
+   each it repeats one seed bit for bit, shows its two device
    kernels in a ``profile`` (torch.profiler device time by kernel), as
    the middle flow (with its GEMM and depthwise time a unit,
    ``unit_ms``, and the byte floor of its two-pass design) and the fused
@@ -75,6 +79,10 @@ these phases, each printing one JSON line:
    main_fused_blocks: the same with ``fuse_blocks=True`` (the fully fused
    trunk, 4 fused-block launches a request), its features held against
    the plain-version composition and against phase main's composition.
+   main_wide_head: one request through the same model with a 33-class
+   head (``WIDE_HEAD_CLASSES``), which launches rows 1-3 once; its mean
+   rows sum to 1, and its dropout-0 head is held against the plain
+   version on its features.
    predict: main-path steps 1-6 from disk. PREDICT_TILES smooth random
    299-px tiles for each of the PREDICT_LABELS slides, written as PNGs
    (filter 0, ``encode_png``) into tfrecords by the port's writer
@@ -311,6 +319,11 @@ UNIT_GEOMETRIES = ((147, 64, 128, False), (19, 728, 728, True))
 SERVING = ("fused_preprocess", "fused_middle_flow", "mcd_head")
 BLOCKS_PER_REQUEST = 4     # entry0-2 and the exit block, with fuse_blocks
 HEAD_DEVICE_KERNELS = 2    # mcd_head: layer 1, then the pass kernel
+# Class counts of kernel row 3: the published head; a tissue-of-origin
+# head over TCGA's 33 tumour types, which phase main_wide_head also
+# serves; the widest head the kernel takes.
+HEAD_CLASSES = (2, 33, 128)
+WIDE_HEAD_CLASSES = 33
 # (H = W, Cin, F0, F1, relu_first) of the strided blocks on the serving
 # path at 299 px: entry0, entry1 (the even-size pool), entry2, exit.
 BLOCK_GEOMETRIES = ((147, 64, 128, 128, False), (74, 128, 256, 256, True),
@@ -735,7 +748,26 @@ def library_head(torch, feats, w1, b1, w2, b2, w3, b3):
     return p.mean(0), p.std(0, correction=0)
 
 
-def kernel_head(torch, gen):
+def module_head(torch, head, feats):
+    """The module head, as the interface runs a head the kernel does not
+    take: ``mc_dropout_head`` with ``use_kernel=False`` (K f32 passes of
+    the ``Head`` module, torch dropout)."""
+    from types import SimpleNamespace
+
+    from biscuit_torch.train.uq import mc_dropout_head
+
+    model = SimpleNamespace(head=head, dropout=head.dropout, head_logits=head)
+    return mc_dropout_head(model, feats, seed=7, k=K, use_kernel=False)
+
+
+def head_case(torch, fs, c: int):
+    """Kernel row 3 at C classes (F = 2048, H = 1024, K, dropout 0.1, TILES
+    tiles): the kernel against its plain version at dropout 0 and 0.1,
+    a repeat bit for bit, its device kernels a call, and the times of the
+    kernel, the plain version, the F.linear chain, the module head and
+    the bound. The logits weights are scaled up 8 times, so that the
+    softmax is far from uniform and the std at dropout 0.1 is large beside
+    its limit: a kernel whose std is wrong cannot pass."""
     from biscuit_torch.models.xception import Head
     from biscuit_torch.ops.mcd_head import (
         head_weights,
@@ -745,26 +777,44 @@ def kernel_head(torch, gen):
 
     f, hdim = 2048, 1024
     torch.manual_seed(1)
-    wts = head_weights(Head(f, 2, 2, hdim, 0.1).cuda())
-    fs = [torch.randn((TILES, f), generator=gen, device="cuda")
-          for _ in range(N_TIMED)]
-    out = {"name": "mcd_head"}
+    head = Head(f, c, 2, hdim, 0.1).cuda()
+    with torch.no_grad():
+        head.logits.weight.mul_(8.0)
+    wts = head_weights(head)
+    out = {"classes": c}
     errs = []
     for rate, tol in ((0.0, 1e-3), (0.1, 2e-3)):
         # Same Philox stream in both: compare exactly, up to f32 sum order
         # (which may flip a bf16 rounding of a hidden unit).
         km, ks = mcd_head(fs[0], *wts, k=K, dropout=rate, seed=1234)
         rm, rs = mcd_head_reference(fs[0], *wts, k=K, dropout=rate, seed=1234)
-        err = max((km - rm).abs().max().item(), (ks - rs).abs().max().item())
-        check(err <= tol, f"mcd_head dropout {rate}: max abs err {err} > {tol}")
-        check(bool((km.sum(-1) - 1).abs().max() < 1e-3), "mean rows sum to 1")
+        check(tuple(km.shape) == (TILES, c), f"mcd_head C={c}: shape")
+        err_m = (km - rm).abs().max().item()
+        err_s = (ks - rs).abs().max().item()
+        # At dropout 0.1 the std is also held to a twentieth of its own
+        # largest value.
+        tol_s = tol if rate == 0 else min(tol, 0.05 * rs.max().item())
+        check(err_m <= tol, f"mcd_head C={c} dropout {rate}: mean max abs "
+                            f"err {err_m} > {tol}")
+        check(err_s <= tol_s, f"mcd_head C={c} dropout {rate}: std max abs "
+                              f"err {err_s} > {tol_s}")
+        check(bool((km.sum(-1) - 1).abs().max() < 1e-3),
+              f"mcd_head C={c}: mean rows sum to 1")
+        err = max(err_m, err_s)
         errs.append(err)
         out[f"max_abs_err_dropout_{rate}"] = err
+        out[f"std_max_abs_err_dropout_{rate}"] = err_s
         out[f"tol_dropout_{rate}"] = tol
-    check(float(ks.mean()) > 0, "mcd_head: std > 0 at dropout 0.1")
+        out[f"std_tol_dropout_{rate}"] = tol_s
+    # Far from uniform: some tile's mean is twice 1 / C (above 0.75 at
+    # C = 2).
+    out["mean_max"] = rm.max().item()
+    check(out["mean_max"] > min(2.0 / c, 0.75),
+          f"mcd_head C={c}: softmax near uniform, max mean {out['mean_max']}")
+    out["std_max"], out["std_mean"] = rs.max().item(), rs.mean().item()
     again = mcd_head(fs[0], *wts, k=K, dropout=0.1, seed=1234)
     check(torch.equal(again[0], km) and torch.equal(again[1], ks),
-          "mcd_head: one seed repeats bit for bit")
+          f"mcd_head C={c}: one seed repeats bit for bit")
     out["max_abs_err"] = max(errs)
     out["ms"] = cuda_ms(torch, lambda x: mcd_head(x, *wts, k=K, dropout=0.1,
                                                   seed=7), fs)
@@ -772,7 +822,7 @@ def kernel_head(torch, gen):
                                                   dropout=0.1, seed=7), top=6)
     out["device_kernels"] = sum(r["calls"] for r in prof["top"])
     check(out["device_kernels"] == HEAD_DEVICE_KERNELS,
-          f"mcd_head: {out['device_kernels']} device kernels a call, "
+          f"mcd_head C={c}: {out['device_kernels']} device kernels a call, "
           f"expected {HEAD_DEVICE_KERNELS}")
     out["profile"] = prof
     # Host time a call: 50 calls enqueued with no synchronize between them.
@@ -786,10 +836,30 @@ def kernel_head(torch, gen):
         x, *wts, k=K, dropout=0.1, seed=7), fs[:N_PLAIN], warmup=1)
     out["library_ms"] = cuda_ms(torch, lambda x: library_head(torch, x, *wts),
                                 fs)
-    n_bytes = (TILES * f * 4 + (f * hdim + hdim * hdim + hdim * 2) * 2
-               + (2 * hdim + 2) * 4 + 2 * TILES * 2 * 4)
-    ops = 2.0 * TILES * (f * hdim + K * (hdim * hdim + hdim * 2))
+    with torch.inference_mode():
+        out["module_ms"] = cuda_ms(torch, lambda x: module_head(torch, head, x),
+                                   fs[:N_PLAIN], warmup=1)
+        out["module_profile"] = kernel_profile(
+            torch, lambda: module_head(torch, head, fs[0]), top=4)
+    n_bytes = (TILES * f * 4 + (f * hdim + hdim * hdim + hdim * c) * 2
+               + (2 * hdim + c) * 4 + 2 * TILES * c * 4)
+    ops = 2.0 * TILES * (f * hdim + K * (hdim * hdim + hdim * c))
     out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, {"bf16": ops})
+    return out
+
+
+def kernel_head(torch, gen):
+    """Row 3 at HEAD_CLASSES: the published head's numbers at the top
+    level, every class count's under ``by_classes``; ``max_abs_err`` is
+    the largest of them all."""
+    fs = [torch.randn((TILES, 2048), generator=gen, device="cuda")
+          for _ in range(N_TIMED)]
+    cases = [head_case(torch, fs, c) for c in HEAD_CLASSES]
+    out = {"name": "mcd_head", **cases[0],
+           "max_abs_err": max(case["max_abs_err"] for case in cases),
+           "by_classes": {str(case["classes"]): {
+               k: v for k, v in case.items() if k != "profile"}
+               for case in cases}}
     return out
 
 
@@ -1532,6 +1602,65 @@ def main_fused_blocks(torch, hp, model, requests, n_requests: int,
         "dropout0_mean_max_abs_err": head_err,
         "op_dispatch": dispatch, "stage_ms": stage_ms, "profile": prof,
     }, launches
+
+
+def main_wide_head(torch, hp, requests, card: str):
+    """One request of TILES tiles through hp.nature2022's Xception-299 with
+    a WIDE_HEAD_CLASSES-class head (seeded random weights): the interface
+    routes it to the MC head kernel, and the request launches each
+    serving kernel once (counts zeroed just before, read just after).
+    Its mean rows sum to 1, and at dropout 0 the kernel's head on its
+    features is within 1e-3 of the plain version's."""
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.models.xception import XceptionClassifier
+    from biscuit_torch.ops import _build
+    from biscuit_torch.ops.mcd_head import mcd_head, mcd_head_reference
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+
+    c = WIDE_HEAD_CLASSES
+    model = XceptionClassifier(
+        arch="xception", num_classes=c, hidden_layers=hp.hidden_layers,
+        hidden_width=hp.hidden_layer_width, dropout=hp.dropout,
+        compute_dtype=torch.bfloat16 if hp.compute_dtype == "bfloat16"
+        else torch.float32)
+    init_random_(torch, model, SEED)
+    ui = UncertaintyInterface.from_model(model.cuda().eval(), hp,
+                                         device="cuda", seed=SEED)
+    check(ui._use_kernel, f"a {c}-class head routes to the MC head kernel")
+    ui(requests[-1])                        # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    mean, std = ui(requests[0])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    for name, count in launches.items():
+        want = 1 if name in SERVING else 0
+        check(count == want, f"{name}: {count} launches for one {c}-class "
+                             f"request, expected {want}")
+    check(tuple(mean.shape) == (TILES, c) and tuple(std.shape) == (TILES, c),
+          f"{c}-class output shape")
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(std).all()),
+          f"{c}-class outputs finite")
+    row_sum_err = float((mean.sum(-1) - 1).abs().max())
+    check(row_sum_err <= 1e-3, f"{c}-class mean rows sum to 1")
+    check(float(std.min()) >= 0, f"{c}-class std >= 0")
+    with torch.inference_mode():
+        x = inference_preprocess(requests[0], ui.wsi_normalizer)
+        feats = trunk_features(ui.model, x, True, ui._mid_wts)
+        km, _ = mcd_head(feats, *ui._head_wts, k=K, dropout=0.0)
+        rm, _ = mcd_head_reference(feats, *ui._head_wts, k=K, dropout=0.0)
+        head_err = (km - rm).abs().max().item()
+    check(head_err <= 1e-3, f"{c}-class dropout-0 head: max abs err "
+                            f"{head_err}")
+    del ui, model
+    return {"phase": "main_wide_head", "classes": c, "tile_px": TILE_PX,
+            "k": K, "dropout": hp.dropout, "tiles_per_request": TILES,
+            "request_s": secs, "tiles_per_s": TILES / secs, "card": card,
+            "launches": launches, "row_sum_max_abs_err": row_sum_err,
+            "dropout0_head_max_abs_err": head_err,
+            "mean_of_std": float(std.mean())}, launches
 
 
 def smooth_tiles(n: int, seed: int):
@@ -4557,7 +4686,9 @@ def main(argv=None) -> int:
         for name in ("fused_middle_flow", "fused_block")},
         "fused_unit_bwd": ptxas_entries(
             _build.build_log("fused_unit_bwd"),
-            ("UbDgradA", "UbWgradA", "ub_dw_bwd_kernel"))})
+            ("UbDgradA", "UbWgradA", "ub_dw_bwd_kernel")),
+        "mcd_head": ptxas_entries(_build.build_log("mcd_head"),
+                                  ("pass_kernel",))})
 
     if opts.slide:
         with tempfile.TemporaryDirectory() as tmp:
@@ -4617,6 +4748,9 @@ def main(argv=None) -> int:
     fused_row, fused_launches = main_fused_blocks(torch, hp, model, requests,
                                                   REQUESTS, card)
     emit(fused_row)
+    torch.cuda.empty_cache()
+    wide_row, wide_launches = main_wide_head(torch, hp, requests, card)
+    emit(wide_row)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         emit(predict_phase(torch, hp, model, tmp, card))
@@ -4681,10 +4815,10 @@ def main(argv=None) -> int:
     launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
-    for phase_launches in (int8_launches, par_launches, ls_launches,
-                           tp_launches, ex_launches, slide_launches,
-                           serve_launches, stats_launches, pt_launches,
-                           rn_launches):
+    for phase_launches in (wide_launches, int8_launches, par_launches,
+                           ls_launches, tp_launches, ex_launches,
+                           slide_launches, serve_launches, stats_launches,
+                           pt_launches, rn_launches):
         for name, count in phase_launches.items():
             launches[name] += count
 

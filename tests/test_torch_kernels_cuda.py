@@ -237,9 +237,8 @@ def test_fused_middle_flow_takes_views_off_a_boundary(gen):
 # H not a multiple of the 128-column tile (136), K of 1 and 2 with 8
 # classes (64 and 32 tiles a block, 512 and 256 sums), K below and above
 # one block's 64 rows (33 pads to 64, 70 walks two row chunks), 5 classes,
-# H past what the pass kernel holds at once: 1152 keeps A whole beside
-# W3 at C = 2 and streams W3 at C = 8; 1160 and 2048 also rebuild A in
-# two segments of uneven width.
+# H of 1152 and 1160, which the pass kernel's A holds whole at C <= 16 (19
+# k-chunks), and 2048, which rebuilds A in two segments of uneven width.
 HEAD_SHAPES = [(13, 256, 128, 0.0, 7, 2), (13, 256, 136, 0.3, 7, 2),
                (300, 2048, 1024, 0.1, 7, 2), (300, 256, 136, 0.1, 1, 2),
                (13, 256, 136, 0.2, 30, 5), (300, 256, 128, 0.2, 33, 2),
@@ -262,6 +261,48 @@ def test_mcd_head(gen, n, f, h, rate, k, c):
     assert (ks - rs).abs().max().item() <= 2e-3
 
 
+# Heads of 9 to 128 classes (C padded to 16, 32, 64 or 128 in the
+# kernel): every class count it pads to and two it pads, at K of
+# 1 (64 tiles a block), 30 and 70 (two row chunks, the sums carried) and
+# H of 136 (a ragged column tile), 1024 and 2048 (A rebuilt by segment).
+WIDE_CLASSES = [9, 16, 33, 64, 128]
+WIDE_KH = [(k, h) for k in (1, 30, 70) for h in (136, 1024, 2048)]
+
+
+@pytest.mark.parametrize("k,h", WIDE_KH)
+@pytest.mark.parametrize("c", WIDE_CLASSES)
+def test_mcd_head_wide(gen, c, k, h):
+    """The kernel against its plain version, within 1e-3 at dropout 0 and
+    2e-3 at 0.1, on logits weights scaled up so that the softmax is far
+    from uniform; a call repeats bit for bit."""
+    torch.manual_seed(c)
+    head = Head(256, c, 2, h, 0.1).cuda()
+    with torch.no_grad():
+        head.logits.weight.mul_(8.0)
+    wts = head_weights(head)
+    n = 300 if k == 1 else 40
+    feats = torch.randn((n, 256), generator=gen, device="cuda")
+    for rate, tol in ((0.0, 1e-3), (0.1, 2e-3)):
+        km, ks = mcd_head(feats, *wts, k=k, dropout=rate, seed=99)
+        rm, rs = mcd_head_reference(feats, *wts, k=k, dropout=rate, seed=99)
+        assert km.shape == ks.shape == (n, c)
+        assert (km - rm).abs().max().item() <= tol
+        assert (ks - rs).abs().max().item() <= tol
+        assert (km.sum(-1) - 1).abs().max().item() <= 1e-3
+    assert rm.max().item() > 2.0 / c        # not a uniform softmax
+    again = mcd_head(feats, *wts, k=k, dropout=0.1, seed=99)
+    assert torch.equal(again[0], km) and torch.equal(again[1], ks)
+
+
+def test_mcd_head_rejects_what_the_kernel_does_not_take(gen):
+    """129 classes, or a hidden width that is not a multiple of 8."""
+    feats = torch.zeros((4, 64), device="cuda")
+    for c, h in ((129, 64), (2, 60)):
+        wts = head_weights(Head(64, c, 2, h, 0.1).cuda())
+        with pytest.raises(ValueError):
+            mcd_head(feats, *wts, k=4, dropout=0.1, seed=1)
+
+
 def test_mcd_head_repeats_bit_for_bit(gen):
     torch.manual_seed(0)
     wts = head_weights(Head(2048, 2, 2, 1024, 0.1).cuda())
@@ -272,9 +313,9 @@ def test_mcd_head_repeats_bit_for_bit(gen):
     assert torch.equal(first[1], second[1])
 
 
-@pytest.mark.parametrize("classes,width", [(9, 64), (2, 1020)])
+@pytest.mark.parametrize("classes,width", [(129, 64), (2, 1020)])
 def test_interface_serves_heads_the_kernel_cannot_take(gen, classes, width):
-    """Nine classes, or a hidden width that is not a multiple of 8: the
+    """129 classes, or a hidden width that is not a multiple of 8: the
     interface routes the head to the module head on the card, answers,
     and matches the module head at dropout 0."""
     from biscuit_torch.data.normalize import inference_preprocess

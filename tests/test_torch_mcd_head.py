@@ -36,10 +36,10 @@ torch.set_num_threads(1)
 F_DIM, HIDDEN = 256, 128
 
 
-def _flax_head(dropout, n=16, seed=0):
-    head = Head(num_classes=2, hidden_layers=2, hidden_width=HIDDEN,
+def _flax_head(dropout, n=16, seed=0, classes=2, f_dim=F_DIM):
+    head = Head(num_classes=classes, hidden_layers=2, hidden_width=HIDDEN,
                 dropout=dropout)
-    feats = np.random.default_rng(seed).normal(0, 1, (n, F_DIM)).astype(
+    feats = np.random.default_rng(seed).normal(0, 1, (n, f_dim)).astype(
         np.float32)
     params = head.init({"params": jax.random.PRNGKey(1),
                         "dropout": jax.random.PRNGKey(2)},
@@ -54,7 +54,9 @@ def _flax_head(dropout, n=16, seed=0):
 
 
 def _torch_weights(params, dropout):
-    th = TorchHead(F_DIM, 2, 2, HIDDEN, dropout)
+    f_dim, classes = (params["hidden0"]["kernel"].shape[0],
+                      params["logits"]["kernel"].shape[1])
+    th = TorchHead(f_dim, classes, 2, HIDDEN, dropout)
     with torch.no_grad():
         for name in ("hidden0", "hidden1", "logits"):
             getattr(th, name).weight.copy_(
@@ -93,6 +95,27 @@ def test_zero_dropout_matches_pallas():
     wts = _torch_weights(params, 0.0)
     got_m, got_s = mcd_head_reference(torch.from_numpy(feats), *wts, k=4,
                                       dropout=0.0)
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), atol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-4)
+
+
+@pytest.mark.parametrize("classes", [9, 33, 128])
+def test_zero_dropout_matches_pallas_wide_heads(classes):
+    """Heads of more than 8 classes, which the card's kernel pads to 16,
+    64 and 128 classes: the Pallas kernel pads C to its 128-lane tile with -1e9 biases, the plain version takes
+    the softmax over the C classes; F = H = 128, logits weights scaled up
+    so that the softmax is far from uniform."""
+    head, params, feats = _flax_head(0.0, n=8, seed=classes,
+                                     classes=classes, f_dim=HIDDEN)
+    params["logits"]["kernel"] = params["logits"]["kernel"] * 8
+    want_m, want_s = mcd_head_pallas(params, jnp.asarray(feats),
+                                     jax.random.PRNGKey(0), k=4, dropout=0.0,
+                                     interpret=True)
+    got_m, got_s = mcd_head_reference(torch.from_numpy(feats),
+                                      *_torch_weights(params, 0.0), k=4,
+                                      dropout=0.0)
+    assert got_m.shape == (8, classes)
+    assert float(np.asarray(want_m).max()) > 2.0 / classes
     np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), atol=1e-4)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-4)
 
@@ -177,10 +200,12 @@ def test_unaligned_batches_are_rows_of_the_full_batch(n):
 # (N, K, C, H) at the edges of the kernel's contract: K of 1 and 2 with
 # 8 classes (64 and 32 tiles a block), K above one block's 64 rows (70),
 # H not a multiple of the 128-column tile (136, 264), H past what the
-# kernel's A operand holds at once (2048), one class.
+# kernel's A operand holds at once (2048), one class; heads of more than
+# 8 classes, 9 (padded to 16), 33 (to 64) and 128.
 ORACLE_SHAPES = [(13, 1, 8, 136), (13, 2, 8, 136), (7, 7, 2, 128),
                  (5, 30, 5, 136), (3, 33, 2, 136), (3, 70, 5, 136),
-                 (2, 30, 8, 2048), (1, 1, 1, 8), (4, 64, 3, 264)]
+                 (2, 30, 8, 2048), (1, 1, 1, 8), (4, 64, 3, 264),
+                 (5, 7, 9, 136), (3, 70, 33, 136), (4, 1, 128, 264)]
 
 
 @pytest.mark.parametrize("n,k,c,h", ORACLE_SHAPES)

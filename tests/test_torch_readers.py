@@ -514,3 +514,30 @@ def test_train_cli_refuses_submeshes_and_needs_a_card(cli_tree, tmp_path):
     uq = sorted(d[6:] for d in os.listdir(join(root, "models"))
                 if "EXP_ZD_UQ" in d)
     assert uq == [f"cohort-EXP_ZD_UQ-HP0-kfold{k}" for k in (1, 2, 3)]
+
+
+def test_console_scripts_name_the_port_clis():
+    """pyproject.toml gives each of the port's six CLIs a console script,
+    biscuit-torch-<name> beside the JAX package's biscuit-<name>, bound to
+    the port's click command of the same name."""
+    import click
+    import importlib
+    import tomllib
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    scripts = tomllib.loads((root / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    port = {k: v for k, v in scripts.items() if k.startswith("biscuit-torch-")}
+    assert sorted(port) == sorted(
+        "biscuit-torch-" + k.removeprefix("biscuit-") for k in scripts
+        if not k.startswith("biscuit-torch-"))
+    for name, target in port.items():
+        module, attr = target.split(":")
+        assert module.startswith("biscuit_torch.cli.")
+        jax_module, jax_attr = scripts[
+            "biscuit-" + name.removeprefix("biscuit-torch-")].split(":")
+        assert (module.rsplit(".", 1)[1], attr) == (
+            jax_module.rsplit(".", 1)[1], jax_attr)
+        assert isinstance(getattr(importlib.import_module(module), attr),
+                          click.Command)

@@ -133,17 +133,63 @@ def test_sampled_calls_differ_and_repeat_from_seed(saved):
 
 
 # (classes, hidden width, hidden layers, on the card, kernel): the kernel
-# takes two hidden layers with F % 8 == H % 8 == 0 and 0 < C <= 8 on the
-# card; 9 classes, H = 1020, one hidden layer or the CPU go to the module
-# head, as the reference's _pallas_applicable routes by shape.
+# takes two hidden layers with F % 8 == H % 8 == 0 and 0 < C <= 128 on the
+# card (the Pallas kernel's one lane tile); 129 classes, H = 1020, one
+# hidden layer or the CPU go to the module head, as the reference's
+# _pallas_applicable routes by shape.
 @pytest.mark.parametrize("classes,width,layers,on_card,want", [
     (2, 1024, 2, True, True), (8, 1024, 2, True, True),
-    (9, 1024, 2, True, False), (2, 1020, 2, True, False),
-    (2, 1024, 1, True, False), (2, 1024, 2, False, False)])
+    (9, 1024, 2, True, True), (2, 1020, 2, True, False),
+    (2, 1024, 1, True, False), (2, 1024, 2, False, False),
+    (128, 1024, 2, True, True), (129, 1024, 2, True, False)])
 def test_head_routing_follows_the_kernel_shapes(classes, width, layers,
                                                 on_card, want):
     head = Head(2048, classes, layers, width, 0.1)
     assert head_kernel_applicable(head, on_card) is want
+
+
+def test_interface_serves_a_33_class_head():
+    """A 33-class head (tumour types): the interface on the kernel's route
+    (its plain version on the CPU) equals mc_dropout_head_philox, the
+    plain head of an exported program, which takes the kernel's
+    arithmetic for every head the kernel takes, and the module head at
+    dropout 0 within 2e-2
+    (the kernel's route rounds the head's inputs to bf16, the module head
+    runs f32)."""
+    from biscuit_torch.data.normalize import inference_preprocess as prep
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.xception import XceptionClassifier
+    from biscuit_torch.train.uq import (
+        mc_dropout_head,
+        mc_dropout_head_philox,
+        trunk_features,
+    )
+
+    hp = nature2022_params()
+    hp.model, hp.tile_px, hp.dropout = "xception_tiny", 32, 0.0
+    torch.manual_seed(0)
+    model = XceptionClassifier(arch="xception_tiny", num_classes=33,
+                               hidden_layers=2, hidden_width=32, dropout=0.0,
+                               compute_dtype=torch.float32)
+    with torch.no_grad():
+        model.head.logits.weight.mul_(64.0)
+    tiles = np.random.default_rng(1).integers(0, 256, (4, 32, 32, 3),
+                                              dtype=np.uint8)
+    ui = UncertaintyInterface.from_model(model, hp, k=4, device="cpu",
+                                         seed=3, use_kernel=True)
+    mean, std = ui(tiles)
+    assert mean.shape == std.shape == (4, 33)
+    with torch.no_grad():
+        x = prep(torch.from_numpy(tiles), ui.wsi_normalizer)
+        feats = trunk_features(ui.model, x)
+        want_m, want_s = mc_dropout_head_philox(ui.model, feats, 3, k=4)
+        mod_m, mod_s = mc_dropout_head(ui.model, feats, k=4,
+                                       use_kernel=False)
+    torch.testing.assert_close(mean, want_m, rtol=0, atol=1e-6)
+    torch.testing.assert_close(std, want_s, rtol=0, atol=1e-6)
+    assert float(mod_m.max()) > 2.0 / 33       # not a uniform softmax
+    np.testing.assert_allclose(mean.numpy(), mod_m.numpy(), atol=2e-2)
+    np.testing.assert_allclose(std.numpy(), mod_s.numpy(), atol=1e-6)
 
 
 def test_entry_points_need_a_card_unless_cpu(saved):
