@@ -6,11 +6,29 @@
 //   a1 = bf16(dw3x3_SAME(y0, dw1))
 //   y1 = bf16(f32(a1 . pw1) * s1 + h1)
 //   r  = f32(x[:, ::2, ::2] . rw) * rs + rh    raw x, even rows and columns
-//   out = bf16(maxpool3x3_s2_SAME(y1) + r)     (N, ceil(H/2), ceil(W/2), F1)
+//   out = T(maxpool3x3_s2_SAME(y1) + r)        (N, ceil(H/2), ceil(W/2), F1)
 //
 // with the BatchNorms folded to f32 scale and shift, and each product and
 // sum of the taps and the BN rounded on its own (no fused multiply-add), at
-// the TPU kernel's rounding points.
+// the TPU kernel's rounding points. x and out are of one type T: bf16 (the
+// bf16 trunk) or f32 (an f32 model's), as the TPU kernel reads x in either
+// and writes out_ref in x's dtype.
+//
+// f32 x. The first depthwise pass reads it as f32 (the instantiation the
+// y0 pass runs); a0, y0, a1 and y1 keep their types, so the pool still
+// takes bf16 y1 (the TPU kernel's `slab`) and writes its max, exact, as
+// f32. The residual product is the one place where f32 x meets the
+// tensor cores: the TPU kernel's jnp.dot of f32 x and bf16 rw promotes to
+// f32, and bf16 x (within 2^-8 relative) would not be that. This splits
+// x = hi + lo, hi = bf16(x) and lo = bf16(x - hi) (x - hi is exact), in a
+// small pass over the stride-2 pixels only (a quarter of x, written as
+// the rows [hi | lo] of a (M2, 2 Cin) bf16 matrix), and runs the same
+// bf16 GEMM over K = 2 Cin against [rw; rw], copied once a call: hi + lo
+// is x to 2^-16 relative, and every bf16 product is exact in the f32
+// sum, so r is the f32 product to about 2^-16 relative, with one GEMM
+// engine for both types. A TF32 wgmma on x (a second instantiation of the
+// GEMM, A widened to f32 through its own tensor map) would round x to
+// 2^-11.
 //
 // Replaces the TPU kernel biscuit_tpu/ops/fused_block.py `_kernel` (called
 // through `_fused_call` and `fused_strided_block`).
@@ -40,9 +58,10 @@
 //      window starts at row 2i - 1 when H is odd and at 2i when H is even,
 //      and the same for W);
 //   6. the residual GEMM over x's even-row, even-column pixels, read in
-//      place by a tensor map with element strides (no copy), whose
-//      epilogue applies res_bn, adds the pooled value it reads from the
-//      output buffer, and writes bf16 over it.
+//      place by a tensor map with element strides (no copy; for f32 x, the
+//      [hi | lo] rows of the split pass), whose epilogue applies res_bn,
+//      adds the pooled value it reads from the output buffer, and writes
+//      x's type over it.
 // The depthwise passes (depthwise.cuh) stage input rows in a shared-memory
 // ring filled by bulk copies; the SAME border is zeros in that ring, never
 // a padded copy. The three GEMMs are sepconv_gemm.cuh: TMA loads, a
@@ -77,8 +96,29 @@ struct Pixel2 {
 // the image are skipped (-inf padding).
 constexpr int POOL_THREADS = 256;
 
+__device__ __forceinline__ void store8(bf16* p, const __nv_bfloat162 v[4]) {
+  uint4 u;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[k] = v[k];
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store8(float* p, const __nv_bfloat162 v[4]) {
+  float f[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 t = __bfloat1622float2(v[k]);
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+// OutT: x's type; the max of bf16 values is stored exactly in either.
+template <typename OutT>
 __global__ void __launch_bounds__(POOL_THREADS)
-    pool_kernel(const bf16* __restrict__ y1, bf16* __restrict__ out,
+    pool_kernel(const bf16* __restrict__ y1, OutT* __restrict__ out,
                 int n_img, int H, int W, int F) {
   const int f8 = F / 8;
   const int H2 = (H + 1) / 2, W2 = (W + 1) / 2;
@@ -107,51 +147,105 @@ __global__ void __launch_bounds__(POOL_THREADS)
       for (int k = 0; k < 4; ++k) mx[k] = __hmax2(mx[k], v[k]);
     }
   }
-  uint4 u;
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&u);
+  store8(out + (size_t)m * F + c, mx);
+}
+
+// For f32 x: the rows [hi | lo] of the residual GEMM's A, (M2, 2 C) bf16,
+// hi = bf16(x) and lo = bf16(x - hi) at x's even rows and columns (x - hi
+// is exact in f32). One thread per output pixel and 8 channels.
+__global__ void __launch_bounds__(POOL_THREADS)
+    split_kernel(const float* __restrict__ x, bf16* __restrict__ a,
+                 int n_img, int H, int W, int C) {
+  const int c8 = C / 8;
+  const int H2 = (H + 1) / 2, W2 = (W + 1) / 2;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)n_img * H2 * W2 * c8) return;
+  const int c = (int)(idx % c8) * 8;
+  const int m = (int)(idx / c8);
+  const Pixel2 p(m, H2, W2);
+  const float* src = x + (((size_t)p.n * H + 2 * p.i) * W + 2 * p.j) * C + c;
+  const float4 v0 = reinterpret_cast<const float4*>(src)[0];
+  const float4 v1 = reinterpret_cast<const float4*>(src)[1];
+  const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+  __nv_bfloat162 hi[4], lo[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) o[k] = mx[k];
-  *reinterpret_cast<uint4*>(out + (size_t)m * F + c) = u;
+  for (int k = 0; k < 4; ++k) {
+    hi[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    const float2 h = __bfloat1622float2(hi[k]);
+    lo[k] = __floats2bfloat162_rn(v[2 * k] - h.x, v[2 * k + 1] - h.y);
+  }
+  bf16* row = a + (size_t)m * 2 * C;
+  store8(row + c, hi);
+  store8(row + C + c, lo);
+}
+
+// Step 1: a0 = bf16(dw3x3([relu] x)) for x of type Tin.
+template <typename Tin>
+cudaError_t first_depthwise(const void* x, const float* taps, bf16* a0,
+                            int n_img, int H, int W, int C, bool relu,
+                            cudaStream_t s) {
+  const Tin* xt = (const Tin*)x;
+  return relu ? bt::depthwise3x3<Tin, bf16, true>(xt, taps, a0, n_img, H, W,
+                                                  C, s)
+              : bt::depthwise3x3<Tin, bf16, false>(xt, taps, a0, n_img, H,
+                                                   W, C, s);
+}
+
+// Step 5: out = maxpool(y1), out of type OutT.
+template <typename OutT>
+cudaError_t pool(const bf16* y1, void* out, int n_img, int H, int W, int F,
+                 cudaStream_t s) {
+  const size_t threads = (size_t)n_img * ((H + 1) / 2) * ((W + 1) / 2) *
+                         (F / 8);
+  pool_kernel<OutT><<<(unsigned)((threads + POOL_THREADS - 1) / POOL_THREADS),
+                      POOL_THREADS, 0, s>>>(y1, (OutT*)out, n_img, H, W, F);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (N, H, W, Cin) bf16. dw0 (9, Cin), dw1 (9, F0) f32 taps; pw0 (Cin, F0),
-// pw1 (F0, F1), rw (Cin, F1) bf16; s0, h0 (F0,), s1, h1, rs, rh (F1,) f32.
-// out: (N, ceil(H/2), ceil(W/2), F1) bf16. Scratch a0 (N, H, W, Cin) bf16,
-// y0 (N, H, W, F0) f32, a1 (N, H, W, F0) bf16, y1 (N, H, W, F1) bf16.
-// Cin, F0, F1 % 8 == 0; every pointer 16-byte aligned.
+// x: (N, H, W, Cin), bf16, or f32 when x_f32. dw0 (9, Cin), dw1 (9, F0)
+// f32 taps; pw0 (Cin, F0), pw1 (F0, F1), rw (Cin, F1) bf16; s0, h0 (F0,),
+// s1, h1, rs, rh (F1,) f32. out: (N, ceil(H/2), ceil(W/2), F1) in x's
+// type. Scratch a0 (N, H, W, Cin) bf16, y0 (N, H, W, F0) f32, a1 (N, H,
+// W, F0) bf16, y1 (N, H, W, F1) bf16; for f32 x also xs (N, ceil(H/2),
+// ceil(W/2), 2 Cin) bf16 and rw2 (2 Cin, F1) bf16 (unused, may be null,
+// for bf16 x). Cin, F0, F1 % 8 == 0; every pointer 16-byte aligned.
 extern "C" int fused_block_launch(
     const void* x, const void* dw0, const void* pw0, const void* s0,
     const void* h0, const void* dw1, const void* pw1, const void* s1,
     const void* h1, const void* rw, const void* rs, const void* rh, void* out,
-    void* a0, void* y0, void* a1, void* y1, int n_img, int H, int W, int Cin,
-    int F0, int F1, int relu_first, int device, void* stream) {
+    void* a0, void* y0, void* a1, void* y1, void* xs, void* rw2, int n_img,
+    int H, int W, int Cin, int F0, int F1, int relu_first, int x_f32,
+    int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (n_img == 0 || H == 0 || W == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int M = n_img * H * W;
-  const bf16* xb = (const bf16*)x;
+  const int M2 = n_img * ((H + 1) / 2) * ((W + 1) / 2);
   const bt::DenseA rows{M};
-  const bt::StridedA xs = bt::strided_rows(n_img, H, W);
+  const bt::DenseA rows2{M2};
+  const bt::StridedA xstr = bt::strided_rows(n_img, H, W);
   const bt::SgPlan p0 = bt::sg_plan(rows, F0);
   const bt::SgPlan p1 = bt::sg_plan(rows, F1);
-  const bt::SgPlan pr = bt::sg_plan(xs, F1);
+  const bt::SgPlan pr = x_f32 ? bt::sg_plan(rows2, F1) : bt::sg_plan(xstr, F1);
+  const int kr = x_f32 ? 2 * Cin : Cin;   // the residual GEMM's K
   CUtensorMap a0map, pw0map, a1map, pw1map, xmap, rwmap;
   if ((e = bt::rows_map(&a0map, a0, M, Cin)) != cudaSuccess ||
       (e = bt::weight_map(&pw0map, p0, pw0, 1, Cin, F0)) != cudaSuccess ||
       (e = bt::rows_map(&a1map, a1, M, F0)) != cudaSuccess ||
       (e = bt::weight_map(&pw1map, p1, pw1, 1, F0, F1)) != cudaSuccess ||
-      (e = bt::strided_map(&xmap, xs, x, H, W, Cin)) != cudaSuccess ||
-      (e = bt::weight_map(&rwmap, pr, rw, 1, Cin, F1)) != cudaSuccess)
+      (e = x_f32 ? bt::rows_map(&xmap, xs, M2, kr)
+                 : bt::strided_map(&xmap, xstr, x, H, W, Cin)) !=
+          cudaSuccess ||
+      (e = bt::weight_map(&rwmap, pr, x_f32 ? rw2 : rw, 1, kr, F1)) !=
+          cudaSuccess)
     return (int)e;
 
   // 1. a0 = bf16(dw3x3([relu] x)).
-  e = relu_first ? bt::depthwise3x3<bf16, bf16, true>(
-                       xb, (const float*)dw0, (bf16*)a0, n_img, H, W, Cin, s)
-                 : bt::depthwise3x3<bf16, bf16, false>(
-                       xb, (const float*)dw0, (bf16*)a0, n_img, H, W, Cin, s);
+  e = (x_f32 ? &first_depthwise<float> : &first_depthwise<bf16>)(
+      x, (const float*)dw0, (bf16*)a0, n_img, H, W, Cin, relu_first != 0, s);
   if (e != cudaSuccess) return (int)e;
 
   // 2. y0 = relu(BN0(a0 . pw0)), f32.
@@ -181,24 +275,42 @@ extern "C" int fused_block_launch(
       cudaSuccess)
     return (int)e;
 
-  // 5. out = maxpool(y1); 6. out = bf16(out + res_bn(x_s2 . rw)).
-  const int M2 = n_img * ((H + 1) / 2) * ((W + 1) / 2);
-  const size_t pool_threads = (size_t)M2 * (F1 / 8);
-  pool_kernel<<<(unsigned)((pool_threads + POOL_THREADS - 1) / POOL_THREADS),
-                POOL_THREADS, 0, s>>>((const bf16*)y1, (bf16*)out, n_img, H,
-                                      W, F1);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // 5. out = maxpool(y1); 6. out = T(out + res_bn(x_s2 . rw)).
+  if ((e = (x_f32 ? &pool<float> : &pool<bf16>)((const bf16*)y1, out, n_img,
+                                                 H, W, F1, s)) != cudaSuccess)
+    return (int)e;
   bt::BnEpilogue epir{};
   epir.sc = (const float*)rs;
   epir.sh = (const float*)rh;
-  epir.out_bf16 = (bf16*)out;
   epir.ld = F1;
-  epir.add_out = 1;
-  return (int)bt::sepconv_gemm(pr, xmap, rwmap, xs, epir, F1, Cin, 0, s);
+  if (!x_f32) {
+    epir.out_bf16 = (bf16*)out;
+    epir.add_out = 1;
+    return (int)bt::sepconv_gemm(pr, xmap, rwmap, xstr, epir, F1, Cin, 0, s);
+  }
+  // The [hi | lo] rows of x's stride-2 pixels, and [rw; rw] (copied per
+  // call so that the weights keep the bf16 path's layout; see the wrapper).
+  const size_t split_threads = (size_t)M2 * (Cin / 8);
+  split_kernel<<<(unsigned)((split_threads + POOL_THREADS - 1) / POOL_THREADS),
+                 POOL_THREADS, 0, s>>>((const float*)x, (bf16*)xs, n_img, H,
+                                       W, Cin);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const size_t rw_bytes = (size_t)Cin * F1 * sizeof(bf16);
+  if ((e = cudaMemcpyAsync(rw2, rw, rw_bytes, cudaMemcpyDeviceToDevice, s)) !=
+          cudaSuccess ||
+      (e = cudaMemcpyAsync((char*)rw2 + rw_bytes, rw, rw_bytes,
+                           cudaMemcpyDeviceToDevice, s)) != cudaSuccess)
+    return (int)e;
+  // The f32 pooled value is the epilogue's f32 residual, read from out
+  // and added (pooled + r is r + pooled, one rounding) as out is written.
+  epir.add_out = 0;
+  epir.res_f32 = (const float*)out;
+  epir.out_f32 = (float*)out;
+  return (int)bt::sepconv_gemm(pr, xmap, rwmap, rows2, epir, F1, kr, 0, s);
 }
 
 // The plans of the block's three GEMMs (sepconv_gemm_report, one after
-// another: GEMM0, GEMM1, then the residual conv's).
+// another: GEMM0, GEMM1, then the residual conv's, as bf16 x runs it).
 extern "C" int fused_block_gemm_plan(int n_img, int H, int W, int Cin, int F0,
                                      int F1, int* out) {
   const bt::DenseA rows{n_img * H * W};

@@ -8,11 +8,13 @@
 // log10(max(M_lms . rgb, 1e-8)); per-channel two-pass mean/std of lab;
 // lab' = (lab - mean) / max(std, 1e-6) * target_std + target_mean; rgb' =
 // clip(M_rgb . 10^(M_log . lab' / 100), 0, 255); then over the three
-// channels jointly (rgb' - mean) / max(std, 1/sqrt(3HW)), stored as bf16.
+// channels jointly (rgb' - mean) / max(std, 1/sqrt(3HW)), stored as bf16
+// or, as the TPU kernel's `out_dtype` allows, as f32.
 //
 // What bounds it on the H100: at the floor, HBM bytes. Each pixel must be
 // read once as 3 bytes and written once as 3 bf16 (6 bytes): 9 bytes per
-// pixel, 206 MB for 256 tiles of 299 x 299, about 62 us at 3.35 TB/s. Its
+// pixel, 206 MB for 256 tiles of 299 x 299, about 62 us at 3.35 TB/s (15
+// bytes a pixel, 103 us, with f32 out). Its
 // arithmetic, about 120 instructions and 6 transcendentals a pixel, takes
 // longer at the card's issue rate (about 90 us); and the per-image
 // statistics hold the 16 CTAs of an image in step, three CTAs (of
@@ -48,10 +50,13 @@
 //     of an image get the same bits whichever finishes first, and a
 //     repeat gives the same output: one cluster barrier for the lab
 //     statistics and one for those of rgb'. No atomics;
-//   * the output is written with 16-byte stores (8 bf16), the values read
-//     from shared memory as two float4 (the buffer is offset so that the
-//     first whole 16-byte output chunk starts on a float4), with the head
-//     and tail elements stored one by one.
+//   * the output is written with 16-byte stores (8 bf16 or 4 f32), the
+//     values read from shared memory as two float4 or one (the buffer is
+//     offset so that the first whole 16-byte output chunk starts on a
+//     float4), with the head and tail elements stored one by one. Only
+//     this store depends on the output type: a 299 x 299 image is 536,406
+//     bytes in bf16 and 1,072,812 in f32, 6 and 12 mod 16, so in either
+//     type the images after the first start off a 16-byte boundary.
 // The logarithms and exponentials are the hardware's approximate base-2
 // ones (lg2.approx, ex2.approx; errors near 1e-7 relative on these
 // ranges, far inside the bf16 output's rounding), with the change of base
@@ -225,12 +230,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+
 // One cluster an image; CTA `rank` owns pixels [rank * chunk, ...) of it.
+// OutT: __nv_bfloat16 or float.
+template <typename OutT>
 __global__ void __launch_bounds__(MAX_THREADS)
     fused_preprocess_kernel(const uint8_t* __restrict__ x,
-                            __nv_bfloat16* __restrict__ out,
+                            OutT* __restrict__ out,
                             const float* __restrict__ coef, int hw,
                             int chunk) {
+  // log2 of the output elements a 16-byte store holds, and of an element's
+  // bytes.
+  constexpr int LOG_PER16 = sizeof(OutT) == 2 ? 3 : 2;
+  constexpr int LOG_SIZE = sizeof(OutT) == 2 ? 1 : 2;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Coef c;
   __shared__ float scratch[3 * 32];
@@ -255,9 +271,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
   // This CTA's output elements [0, ne): oh of them before the first
   // 16-byte boundary; v is shifted so that element oh starts a float4.
-  __nv_bfloat16* dst = out + (img * hw + p0) * 3;
+  OutT* dst = out + (img * hw + p0) * 3;
   const int ne = 3 * npx;
-  const int oh = min(ne, (int)(((16 - ((uintptr_t)dst & 15)) & 15) >> 1));
+  const int oh =
+      min(ne, (int)(((16 - ((uintptr_t)dst & 15)) & 15) >> LOG_SIZE));
   const int shift = (4 - (oh & 3)) & 3;
   float* v = reinterpret_cast<float*>(smem) + shift;
 
@@ -433,23 +450,34 @@ __global__ void __launch_bounds__(MAX_THREADS)
   // for all to get here before it exits.
   bt::cluster_arrive();
 
-  // (5) write: 16-byte chunks of 8 elements, the head and tail one by one.
-  const int nch = (ne - oh) >> 3;
-  const int tail = oh + (nch << 3);
+  // (5) write: 16-byte chunks of 8 bf16 or 4 f32, the head and tail one
+  // by one.
+  const int nch = (ne - oh) >> LOG_PER16;
+  const int tail = oh + (nch << LOG_PER16);
   for (int i = tid; i < oh + (ne - tail); i += nt) {
     const int e = i < oh ? i : tail + (i - oh);
-    dst[e] = __float2bfloat16_rn(v[e] * scale + offset);
+    put(dst + e, v[e] * scale + offset);
   }
   const float4* v4 = reinterpret_cast<const float4*>(v + oh);
-  uint4* d4 = reinterpret_cast<uint4*>(dst + oh);
+  if constexpr (LOG_PER16 == 3) {
+    uint4* d4 = reinterpret_cast<uint4*>(dst + oh);
 #pragma unroll 2
-  for (int k = tid; k < nch; k += nt) {
-    const float4 lo = v4[2 * k], hi = v4[2 * k + 1];
-    d4[k] = make_uint4(
-        pack_bf16(lo.x * scale + offset, lo.y * scale + offset),
-        pack_bf16(lo.z * scale + offset, lo.w * scale + offset),
-        pack_bf16(hi.x * scale + offset, hi.y * scale + offset),
-        pack_bf16(hi.z * scale + offset, hi.w * scale + offset));
+    for (int k = tid; k < nch; k += nt) {
+      const float4 lo = v4[2 * k], hi = v4[2 * k + 1];
+      d4[k] = make_uint4(
+          pack_bf16(lo.x * scale + offset, lo.y * scale + offset),
+          pack_bf16(lo.z * scale + offset, lo.w * scale + offset),
+          pack_bf16(hi.x * scale + offset, hi.y * scale + offset),
+          pack_bf16(hi.z * scale + offset, hi.w * scale + offset));
+    }
+  } else {
+    float4* d4 = reinterpret_cast<float4*>(dst + oh);
+#pragma unroll 2
+    for (int k = tid; k < nch; k += nt) {
+      const float4 a = v4[k];
+      d4[k] = make_float4(a.x * scale + offset, a.y * scale + offset,
+                          a.z * scale + offset, a.w * scale + offset);
+    }
   }
   bt::cluster_wait();
 }
@@ -462,16 +490,18 @@ bool valid_plan(int hw, int cluster, int chunk, int threads, int smem) {
          threads % 32 == 0;
 }
 
-// The launch with clusters of `cluster` CTAs of `threads` threads and
-// `smem` bytes of dynamic shared memory (its grid one cluster).
+// The launch of the kernel for OutT with clusters of `cluster` CTAs of
+// `threads` threads and `smem` bytes of dynamic shared memory (its grid
+// one cluster).
+template <typename OutT>
 cudaError_t configure(int cluster, int threads, int smem,
                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   cudaError_t e = cudaFuncSetAttribute(
-      fused_preprocess_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fused_preprocess_kernel<OutT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   if (cluster > 8) {
-    e = cudaFuncSetAttribute(fused_preprocess_kernel,
+    e = cudaFuncSetAttribute(fused_preprocess_kernel<OutT>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
     if (e != cudaSuccess) return e;
@@ -489,34 +519,49 @@ cudaError_t configure(int cluster, int threads, int smem,
   return cudaSuccess;
 }
 
+template <typename OutT>
+cudaError_t launch(const void* x, void* out, const void* coef, int n_images,
+                   int hw, int cluster, int chunk, int threads, int smem,
+                   cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t e = configure<OutT>(cluster, threads, smem, &cfg, &attr);
+  if (e != cudaSuccess) return e;
+  cfg.gridDim = dim3((unsigned)(n_images * cluster));
+  cfg.stream = stream;
+  return cudaLaunchKernelEx(&cfg, fused_preprocess_kernel<OutT>,
+                            (const uint8_t*)x, (OutT*)out,
+                            (const float*)coef, hw, chunk);
+}
+
 }  // namespace
 
 // The plan's launch (ops/fused_preprocess.py `launch_plan`): n_images
 // clusters of `cluster` CTAs, CTA r of an image owning its pixels
-// [r * chunk, (r + 1) * chunk) (cut at hw).
+// [r * chunk, (r + 1) * chunk) (cut at hw). out: bf16, or f32 when
+// out_f32.
 extern "C" int fused_preprocess_launch(const void* x, void* out,
                                        const void* coef, int n_images, int hw,
                                        int cluster, int chunk, int threads,
-                                       int smem, int device, void* stream) {
+                                       int smem, int out_f32, int device,
+                                       void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (n_images == 0) return 0;
   if (n_images < 0 || !valid_plan(hw, cluster, chunk, threads, smem) ||
       (long long)n_images * cluster > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  e = configure(cluster, threads, smem, &cfg, &attr);
-  if (e != cudaSuccess) return (int)e;
-  cfg.gridDim = dim3((unsigned)(n_images * cluster));
-  cfg.stream = (cudaStream_t)stream;
-  return (int)cudaLaunchKernelEx(&cfg, fused_preprocess_kernel,
-                                 (const uint8_t*)x, (__nv_bfloat16*)out,
-                                 (const float*)coef, hw, chunk);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(out_f32 ? launch<float>(x, out, coef, n_images, hw, cluster,
+                                       chunk, threads, smem, s)
+                       : launch<__nv_bfloat16>(x, out, coef, n_images, hw,
+                                               cluster, chunk, threads, smem,
+                                               s));
 }
 
 // How many clusters of the plan are resident on the card at once
-// (cudaOccupancyMaxActiveClusters), into *fit.
+// (cudaOccupancyMaxActiveClusters), into *fit: the bf16 kernel's (the f32
+// one differs only in its store).
 extern "C" int fused_preprocess_max_clusters(int hw, int cluster, int chunk,
                                              int threads, int smem,
                                              int device, int* fit) {
@@ -526,8 +571,8 @@ extern "C" int fused_preprocess_max_clusters(int hw, int cluster, int chunk,
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  e = configure(cluster, threads, smem, &cfg, &attr);
+  e = configure<__nv_bfloat16>(cluster, threads, smem, &cfg, &attr);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveClusters(fit, fused_preprocess_kernel,
-                                             &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(
+      fit, fused_preprocess_kernel<__nv_bfloat16>, &cfg);
 }

@@ -6,10 +6,14 @@ block of the trunk at inference (entry0, entry1, entry2, the exit block),
     [relu] -> sepconv -> BN -> relu -> sepconv -> BN
     -> maxpool 3x3 stride 2 SAME (+) residual 1x1 stride-2 conv + BN,
 
-from one bf16 NHWC read to one bf16 write at half the resolution. The
-numerics are the TPU kernel's, not the Flax block's: nine f32 taps
-rounded to bf16 before each pointwise product, the first sepconv's
-output kept in f32, the second's rounded to bf16 before the pool.
+from one NHWC read to one write at half the resolution, in x's dtype:
+bf16 (the bf16 trunk) or f32 (a ``compute_dtype="float32"`` model's), as
+the TPU kernel takes either. The numerics are the TPU kernel's, not the
+Flax block's: nine f32 taps rounded to bf16 before each pointwise
+product, the first sepconv's output kept in f32, the second's rounded to
+bf16 before the pool, and the residual 1x1 conv on the raw x, in f32
+for f32 x (the kernel splits x into two bf16 terms; ``csrc/
+fused_block.cu`` says why).
 
 Weights come from ``stack_block_weights`` as the TPU kernel takes them:
 depthwise taps (9, C) f32 in (dy, dx) row-major order, pointwise and
@@ -85,11 +89,17 @@ def fused_strided_block_reference(x, weights, relu_first: bool):
     return (pooled + r.reshape(pooled.shape)).to(x.dtype)
 
 
+# The activations the kernel takes.
+X_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check(x, weights):
     """Shapes, types, devices, contiguity and 16-byte alignment the kernel
-    needs; returns (Cin, F0, F1)."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{NAME} takes bf16 on the card, got {x.dtype}")
+    needs: x bf16 or f32 (X_DTYPES), the weights as
+    ``stack_block_weights`` gives them; returns (Cin, F0, F1)."""
+    if x.dtype not in X_DTYPES:
+        raise TypeError(f"{NAME} takes bf16 or f32 on the card, got "
+                        f"{x.dtype}")
     if x.ndim != 4:
         raise ValueError(f"{NAME}: x must be NHWC, got shape {tuple(x.shape)}")
     if len(weights) != 11:
@@ -121,26 +131,38 @@ def _check(x, weights):
 
 
 def fused_strided_block(x_nhwc, weights, relu_first: bool = True):
-    """One strided Xception block on a bf16 NHWC activation; ``weights``
-    from ``stack_block_weights``. Returns (N, ceil(H/2), ceil(W/2), F1)."""
+    """One strided Xception block on a bf16 or f32 NHWC activation;
+    ``weights`` from ``stack_block_weights``. Returns (N, ceil(H/2),
+    ceil(W/2), F1) in x's dtype."""
     if not x_nhwc.is_cuda:
         return fused_strided_block_reference(x_nhwc, weights, relu_first)
     cin, f0, f1 = _check(x_nhwc, weights)
     n, h, w, _ = x_nhwc.shape
-    dev = x_nhwc.device
-    out = torch.empty((n, -(-h // 2), -(-w // 2), f1), dtype=torch.bfloat16,
-                      device=dev)
-    a0 = torch.empty_like(x_nhwc)
+    h2, w2 = -(-h // 2), -(-w // 2)
+    dev, bf = x_nhwc.device, torch.bfloat16
+    x_f32 = x_nhwc.dtype == torch.float32
+    out = torch.empty((n, h2, w2, f1), dtype=x_nhwc.dtype, device=dev)
+    a0 = torch.empty((n, h, w, cin), dtype=bf, device=dev)
     y0 = torch.empty((n, h, w, f0), dtype=torch.float32, device=dev)
-    a1 = torch.empty((n, h, w, f0), dtype=torch.bfloat16, device=dev)
-    y1 = torch.empty((n, h, w, f1), dtype=torch.bfloat16, device=dev)
-    fn = _build.load(NAME).fused_block_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
+    a1 = torch.empty((n, h, w, f0), dtype=bf, device=dev)
+    y1 = torch.empty((n, h, w, f1), dtype=bf, device=dev)
+    # f32 x: the residual GEMM's [hi | lo] rows and [rw; rw]. The launcher
+    # fills [rw; rw] from rw on every call rather than keeping it with the
+    # weights, so the eleven weights stay the one layout that the bf16
+    # path, the plain version and stack_block_weights share; the copy
+    # reads and writes 4·Cin·F1 bytes each (6 MB at the exit block), under
+    # 3% of x's read at 256 tiles of 299 px.
+    xs = (torch.empty((n, h2, w2, 2 * cin), dtype=bf, device=dev)
+          if x_f32 else None)
+    rw2 = torch.empty((2 * cin, f1), dtype=bf, device=dev) if x_f32 else None
+    fn = _build.bound(NAME, "fused_block_launch",
+                      [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
+                      + [ctypes.c_void_p])
     rc = fn(*(_build.ptr(t) for t in (x_nhwc, *weights, out, a0, y0, a1, y1)),
-            n, h, w, cin, f0, f1, int(bool(relu_first)), dev.index or 0,
-            _build.stream_ptr(x_nhwc))
+            *(ctypes.c_void_p(None if t is None else t.data_ptr())
+              for t in (xs, rw2)),
+            n, h, w, cin, f0, f1, int(bool(relu_first)), int(x_f32),
+            dev.index or 0, _build.stream_ptr(x_nhwc))
     _build.check(rc, NAME)
     _build.count_launch(NAME)
     return out

@@ -47,7 +47,9 @@ SHARED_THREADS = 256
 # The plan takes the smallest cluster whose CTAs fit three to an SM, else
 # the smallest whose CTAs fit at all.
 TARGET_SMEM = SMEM_LIMIT // 3
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# What the kernel writes, as the TPU kernel's ``out_dtype`` takes.
+OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def smem_bytes(chunk: int) -> int:
@@ -166,12 +168,16 @@ def coefficients(normalizer, device) -> torch.Tensor:
 
 def _launch(x: torch.Tensor, out: torch.Tensor, coef: torch.Tensor,
             plan: Plan) -> None:
-    """Launch the kernel on contiguous uint8 ``x`` into bf16 ``out`` as
-    ``plan`` says, and count the launch."""
+    """Launch the kernel on contiguous uint8 ``x`` into ``out`` (bf16 or
+    f32, of OUT_DTYPES) as ``plan`` says, and count the launch."""
+    if out.dtype not in OUT_DTYPES:
+        raise TypeError(f"the fused_preprocess kernel writes bf16 or f32, "
+                        f"got {out.dtype}")
     fn = _build.bound(NAME, "fused_preprocess_launch", _ARGTYPES)
     rc = fn(_build.ptr(x), _build.ptr(out), _build.ptr(coef), plan.n,
             plan.hw, plan.cluster, plan.chunk, plan.threads, plan.smem,
-            x.device.index or 0, _build.stream_ptr(x))
+            int(out.dtype == torch.float32), x.device.index or 0,
+            _build.stream_ptr(x))
     _build.check(rc, NAME)
     _build.count_launch(NAME)
 
@@ -202,8 +208,9 @@ def fused_preprocess(x_u8: torch.Tensor, normalizer=None,
     (N, H, W, 3) activations. ``normalizer`` supplies the target lαβ
     statistics (default targets when None), or ``coef`` gives them as
     ``coefficients``' tensor on the tiles' device (the registered op's
-    form). On the card the output is bf16; on the CPU the plain version
-    returns ``out_dtype``."""
+    form). The output is ``out_dtype``: bf16 or f32 on the card, which
+    the kernel writes (another type raises), any float type from the
+    plain version on the CPU."""
     if x_u8.ndim != 4 or x_u8.shape[-1] != 3:
         raise ValueError(f"expected (N, H, W, 3) tiles, got {tuple(x_u8.shape)}")
     if not x_u8.is_cuda:
@@ -212,8 +219,9 @@ def fused_preprocess(x_u8: torch.Tensor, normalizer=None,
         return fused_preprocess_reference(x_u8, normalizer, out_dtype)
     if x_u8.dtype != torch.uint8:
         raise TypeError(f"fused_preprocess takes uint8 tiles, got {x_u8.dtype}")
-    if out_dtype != torch.bfloat16:
-        raise ValueError("the fused_preprocess kernel writes bf16 only")
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"the fused_preprocess kernel writes bf16 or f32, "
+                         f"got {out_dtype}")
     x = x_u8.contiguous()
     n, h, w, _ = x.shape
     plan = launch_plan(n, h, w)
@@ -224,6 +232,6 @@ def fused_preprocess(x_u8: torch.Tensor, normalizer=None,
         raise ValueError(f"coef must be the 42 f32 coefficients on "
                          f"{x.device}, got {tuple(coef.shape)} {coef.dtype} "
                          f"on {coef.device}")
-    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     _launch(x, out, coef, plan)
     return out

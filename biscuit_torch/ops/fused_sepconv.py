@@ -10,7 +10,9 @@ fused entry blocks -> fused middle flow -> fused exit block -> library
 exit sepconvs and pool), whose strided blocks are ``ops/fused_block.py``.
 
 On a CPU tensor ``fused_middle_flow`` computes its plain version; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. The kernel takes x in bf16
+(the bf16 trunk) or f32 (a ``compute_dtype="float32"`` model's), as the
+TPU kernel does, and writes x's dtype.
 """
 
 from __future__ import annotations
@@ -81,7 +83,9 @@ def fused_middle_flow_reference(x_nhwc, dw, pw, sc, sh):
     return x.to(x_nhwc.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# The activations the kernel takes.
+X_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _aligned(t):
@@ -93,8 +97,8 @@ def fused_middle_flow(x_nhwc, dw, pw, sc, sh):
     """Run the full middle flow on an NHWC activation.
 
     Args:
-        x_nhwc: (N, H, W, C) activation entering the middle flow (bf16 on
-            the card).
+        x_nhwc: (N, H, W, C) activation entering the middle flow (bf16 or
+            f32 on the card).
         dw: (U, 9, C) f32 depthwise taps, U = 3 * n_blocks.
         pw: (U, C, C) bf16 pointwise weights (in-ch, out-ch).
         sc, sh: (U, C) f32 folded inference-BatchNorm scale/shift.
@@ -105,9 +109,9 @@ def fused_middle_flow(x_nhwc, dw, pw, sc, sh):
         return fused_middle_flow_reference(x_nhwc, dw, pw, sc, sh)
     n, h, w, c = x_nhwc.shape
     u = dw.shape[0]
-    if x_nhwc.dtype != torch.bfloat16:
-        raise TypeError(f"fused_middle_flow takes bf16 on the card, got "
-                        f"{x_nhwc.dtype}")
+    if x_nhwc.dtype not in X_DTYPES:
+        raise TypeError(f"fused_middle_flow takes bf16 or f32 on the card, "
+                        f"got {x_nhwc.dtype}")
     if u % 3 or c % 8:
         raise ValueError(f"need U % 3 == 0 and C % 8 == 0, got U={u}, C={c}")
     want = {"dw": ((u, 9, c), torch.float32, dw),
@@ -127,10 +131,11 @@ def fused_middle_flow(x_nhwc, dw, pw, sc, sh):
     out = torch.empty_like(x)
     carry = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     tmp = torch.empty_like(carry)
-    a = torch.empty_like(x)
+    a = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     rc = _build.bound(NAME, "fused_middle_flow_launch", _ARGTYPES)(
         *(_build.ptr(t) for t in (x, dw, pw, sc, sh, out, carry, tmp, a)),
-        n, h, w, c, u, x.device.index or 0, _build.stream_ptr(x))
+        n, h, w, c, u, int(x.dtype == torch.float32), x.device.index or 0,
+        _build.stream_ptr(x))
     _build.check(rc, NAME)
     _build.count_launch(NAME)
     return out

@@ -18,8 +18,7 @@ time another checkout's kernels in the same call). The fourth builds and
 runs phase slide alone (one line), the fifth phase serve alone (a line an
 artifact, then the phase's), the sixth phase stats, pretrained or resnet
 alone (one line), the seventh phase int8, parallel or lockstep alone
-(one line).
-The first form runs
+(one line). The first form runs
 these phases, each printing one JSON line:
 
 1. env: torch/CUDA versions and ``nvidia-smi`` name and power limit (also
@@ -70,7 +69,16 @@ these phases, each printing one JSON line:
    tiles, its library yardstick the port's eval-mode ``XceptionBlock``;
    the depthwise 3x3 at 147^2 x 128 and 19^2 x 728 in bf16, with its
    gradients held against autograd of its plain version; each row adds
-   its geometries.
+   its geometries. Rows 1, 2 and 4 add ``by_dtype.float32``: the same
+   shapes with f32 out (row 1, within PREPROCESS_F32_TOL of the plain f32
+   chain) or f32 x (row 2 within MIDDLE_F32_TOL of its largest value,
+   which x rounded to bf16 and the output rounded to bf16 must miss; row
+   4 at its bf16 bound, and its residual alone, BN1's scale and shift
+   zero, within RESIDUAL_F32_TOL of its largest value, which x rounded
+   to bf16 must miss), each repeated bit
+   for bit, with its time, the plain version's, the library's (row 2
+   cuDNN and torch.matmul in f32, row 4 the f32 XceptionBlock) and its
+   bound with 4-byte activations; the top-level numbers stay bf16's.
 4. main: ``UncertaintyInterface`` at the published width (Xception-299,
    2x1024 head, dropout 0.1, K=30) with seeded random weights answers R
    requests of 256 uint8 tiles; the launch counts are zeroed just before
@@ -79,6 +87,14 @@ these phases, each printing one JSON line:
    main_fused_blocks: the same with ``fuse_blocks=True`` (the fully fused
    trunk, 4 fused-block launches a request), its features held against
    the plain-version composition and against phase main's composition.
+   main_f32: hp.nature2022 with ``compute_dtype="float32"`` (seeded
+   random weights, its logits spread over request 0's features) answers
+   the same R requests, default trunk then ``fuse_blocks=True``: rows 1-3
+   once a request, row 4 four times with ``fuse_blocks``; the kernels'
+   f32 features on request 0 within 3e-2 of ``model.features`` (the f32
+   module trunk, TF32 off), the dropout-0 means within 2e-2 of the plain
+   head on those (spread > 0.2); tiles/s and ``stage_ms`` beside the
+   bf16 phases' tiles/s.
    main_wide_head: one request through the same model with a 33-class
    head (``WIDE_HEAD_CLASSES``), which launches rows 1-3 once; its mean
    rows sum to 1, and its dropout-0 head is held against the plain
@@ -280,7 +296,8 @@ these phases, each printing one JSON line:
    path (no launch), tiles/s and peak memory. No MFU: ``models/flops.py``
    counts Xception only.
 6. the kernels line (launches: the serving phases for kernels 1-4, the
-   depthwise entry phase, the training phase, with phases int8's,
+   depthwise entry phase, the training phase, with phases main_f32's,
+   int8's,
    parallel's, lockstep's, train_project's, experiment's, slide's,
    serve's, pretrained's and resnet's added to kernels 1-4 and 6); 7. the
    last
@@ -347,6 +364,22 @@ UNIT_PASS_GEOMETRIES = UNIT_GEOMETRIES + ((37, 256, 728, True),
 # (cluster size, threads a CTA): 8 CTAs of 134 KB, one an SM, and 16 of
 # 67 KB, three an SM, at three thread counts.
 PREPROCESS_VARIANTS = ((8, 1024), (16, 192), (16, 256), (16, 320))
+# Row 1 with f32 out against the plain f32 chain: the kernel's approximate
+# base-2 logarithms and exponentials (about 1e-7 relative) and its sums in
+# another order, with no bf16 rounding after them.
+PREPROCESS_F32_TOL = 1e-3
+# Row 2 with f32 x against its plain version, as a share of the largest
+# value: a flipped bf16 rounding of one GEMM input moves an output by
+# about ulp(a)·|pw| (~2e-5 at the serving width), and 3e-4 leaves room
+# for dozens of them in one value; x read as bf16 (2**-9 relative,
+# carried to the output by block 0's residual) or the output stored as
+# bf16 lands at about 2e-3 to 3e-3, and both must miss it.
+MIDDLE_F32_TOL = 3e-4
+# Row 4 with f32 x, the residual alone (BN1's scale and shift zero, so y1
+# and the pool are exact zeros) against the plain version's f32 product:
+# the kernel's two-term bf16 split of x is 2**-16 relative, x rounded to
+# bf16 within 2**-8, about 1e-3 of the residual's largest value.
+RESIDUAL_F32_TOL = 1e-4
 # Phase predict: the labels of the slides written to tfrecords, and the
 # tiles a slide (300 tiles: batches of 128, 128 and 44 real rows).
 PREDICT_LABELS = (0, 1, 0)
@@ -586,7 +619,38 @@ def kernel_preprocess(torch, gen):
     return {"name": "fused_preprocess", "max_abs_err": err, "tol": tol,
             "ms": ms, "device_ms": device, "plain_ms": plain,
             "library_ms": None, "bound_ms": b, "bound_by": by,
-            "plan": preprocess_plan(launch_plan(*shape[:3]))}
+            "plan": preprocess_plan(launch_plan(*shape[:3])),
+            "by_dtype": {"float32": preprocess_f32(torch, norm, xs)}}
+
+
+def preprocess_f32(torch, norm, xs) -> dict:
+    """Row 1 with f32 out (the TPU kernel's ``out_dtype``) on the same
+    tiles: its error against the plain f32 chain, a repeat bit for bit,
+    its median time over the fresh inputs, the plain version's, and the
+    bound with 4-byte outputs."""
+    from biscuit_torch.ops.fused_preprocess import (
+        fused_preprocess,
+        fused_preprocess_reference,
+    )
+
+    f32 = torch.float32
+    got = fused_preprocess(xs[0], norm, out_dtype=f32)
+    err = (got - fused_preprocess_reference(xs[0], norm, f32)).abs().max()
+    err = err.item()
+    check(err <= PREPROCESS_F32_TOL, f"fused_preprocess f32: max abs err "
+                                     f"{err} > {PREPROCESS_F32_TOL}")
+    check(torch.equal(got, fused_preprocess(xs[0], norm, out_dtype=f32)),
+          "fused_preprocess f32: the same tiles repeat bit for bit")
+    del got
+    ms = cuda_ms(torch, lambda x: fused_preprocess(x, norm, out_dtype=f32),
+                 xs)
+    plain = cuda_ms(torch, lambda x: fused_preprocess_reference(x, norm, f32),
+                    xs[:N_PLAIN], warmup=1)
+    px = TILES * TILE_PX * TILE_PX
+    b, by = bound_ms(px * 3 * (1 + 4), {"f32": 60.0 * px})
+    return {"max_abs_err": err, "tol": PREPROCESS_F32_TOL,
+            "repeats_bit_for_bit": True, "ms": ms, "plain_ms": plain,
+            "library_ms": None, "bound_ms": b, "bound_by": by}
 
 
 def preprocess_compare(torch, gen):
@@ -665,11 +729,13 @@ def preprocess_compare(torch, gen):
 
 def library_middle(torch, x, dw, pw, sc, sh):
     """The same function from library calls: per unit a cuDNN depthwise
-    conv and a torch.matmul in bf16 (the port never calls this)."""
+    conv and a torch.matmul in x's dtype, bf16 or f32 (the port never
+    calls this)."""
     import torch.nn.functional as F
 
     n, h, w, c = x.shape
-    taps = dw.transpose(1, 2).reshape(-1, c, 1, 3, 3).to(torch.bfloat16)
+    taps = dw.transpose(1, 2).reshape(-1, c, 1, 3, 3).to(x.dtype)
+    pw = pw.to(x.dtype)
     y = x
     for b in range(dw.shape[0] // 3):
         res = y
@@ -678,7 +744,7 @@ def library_middle(torch, x, dw, pw, sc, sh):
             a = F.conv2d(torch.relu(y).permute(0, 3, 1, 2), taps[uid],
                          padding=1, groups=c).permute(0, 2, 3, 1)
             y = (a.reshape(-1, c) @ pw[uid]).reshape(n, h, w, c)
-            y = (y * sc[uid] + sh[uid]).to(torch.bfloat16)
+            y = (y * sc[uid] + sh[uid]).to(x.dtype)
         y = y + res
     return y
 
@@ -728,12 +794,50 @@ def kernel_middle(torch, gen):
                           if any(k in r["kernel"] for k in names)) / u
                 for part, names in (("gemm", ("sepconv_gemm",)),
                                     ("depthwise", ("dw_staged", "dw_narrow")))}
-    return {"name": "fused_middle_flow", "max_abs_err": err, "tol": tol,
-            "max_abs_ref": scale, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": b, "bound_by": by,
-            "two_pass_bytes_ms": two_pass / H100_HBM_BYTES_PER_S * 1e3,
-            "unit_ms": per_unit, "profile": prof,
-            "gemm_plan": gemm_plans("fused_middle_flow", TILES, hw, hw, c)[0]}
+    row = {"name": "fused_middle_flow", "max_abs_err": err, "tol": tol,
+           "max_abs_ref": scale, "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "bound_ms": b, "bound_by": by,
+           "two_pass_bytes_ms": two_pass / H100_HBM_BYTES_PER_S * 1e3,
+           "unit_ms": per_unit, "profile": prof,
+           "gemm_plan": gemm_plans("fused_middle_flow", TILES, hw, hw, c)[0]}
+    del xs
+    torch.cuda.empty_cache()
+    # f32 x (an f32 model's middle flow), the same weights.
+    xs = [normal((TILES, hw, hw, c), 1.0) for _ in range(N_TIMED)]
+    got = fused_middle_flow(xs[0], dw, pw, sc, sh)
+    ref = fused_middle_flow_reference(xs[0], dw, pw, sc, sh)
+    check(got.dtype == ref.dtype == torch.float32, "f32 in, f32 out")
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    tol = MIDDLE_F32_TOL * scale
+    # The gate bites: the plain version on x rounded to bf16, and its
+    # output rounded to bf16, must both miss it.
+    x_bf16_err = (fused_middle_flow_reference(
+        xs[0].to(torch.bfloat16).float(), dw, pw, sc, sh)
+        - ref).abs().max().item()
+    out_bf16_err = (ref.to(torch.bfloat16).float() - ref).abs().max().item()
+    check(err <= tol < min(x_bf16_err, out_bf16_err),
+          f"fused_middle_flow f32: max abs err {err}, x rounded to bf16 "
+          f"{x_bf16_err}, out rounded to bf16 {out_bf16_err}, bound {tol}")
+    check(torch.equal(got, fused_middle_flow(xs[0], dw, pw, sc, sh)),
+          "fused_middle_flow f32: repeats bit for bit")
+    del got, ref
+    ms = cuda_ms(torch, lambda x: fused_middle_flow(x, dw, pw, sc, sh), xs)
+    plain = cuda_ms(torch, lambda x: fused_middle_flow_reference(
+        x, dw, pw, sc, sh), xs[:N_PLAIN], warmup=1)
+    lib = cuda_ms(torch, lambda x: library_middle(torch, x, dw, pw, sc, sh),
+                  xs)
+    n_bytes = 2 * m * c * 4 + u * (9 * c * 4 + c * c * 2 + 2 * c * 4)
+    b, by = bound_ms(n_bytes, {"bf16": 2.0 * m * c * c * u,
+                               "f32": 18.0 * m * c * u})
+    row["by_dtype"] = {"float32": {
+        "max_abs_err": err, "tol": tol, "max_abs_ref": scale,
+        "max_abs_err_x_bf16": x_bf16_err, "max_abs_err_out_bf16": out_bf16_err,
+        "repeats_bit_for_bit": True, "ms": ms, "plain_ms": plain,
+        "library_ms": lib, "bound_ms": b, "bound_by": by,
+        "profile": kernel_profile(torch, lambda: fused_middle_flow(
+            xs[0], dw, pw, sc, sh), top=6)}}
+    return row
 
 
 def library_head(torch, feats, w1, b1, w2, b2, w3, b3):
@@ -1113,6 +1217,7 @@ def kernel_fused_block(torch, gen):
     row = {"name": "fused_block", "geometries": [], "ms": 0.0,
            "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "max_abs_err": 0.0}
+    f32_rows = []
     # f32 sums in another order can flip a bf16 rounding of a0, a1 or y1:
     # 1e-2 of the largest value.
     tol_rel = 1e-2
@@ -1161,11 +1266,86 @@ def kernel_fused_block(torch, gen):
                        ("bound_ms", b)):
             row[key] += v
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        del xs, block, wts
+        del xs
+        torch.cuda.empty_cache()
+        f32_rows.append(fused_block_f32(torch, gen, block, wts, hw, cin, f0,
+                                        f1, relu_first, tol_rel))
+        del block, wts
         torch.cuda.empty_cache()
     row["bound_by"] = max(row["geometries"],
                           key=lambda g: g["bound_ms"])["bound_by"]
+    f32 = {"geometries": f32_rows}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        f32[key] = sum(g[key] for g in f32_rows)
+    for key in ("max_abs_err", "residual_rel_err"):
+        f32[key] = max(g[key] for g in f32_rows)
+    f32["bound_by"] = max(f32_rows, key=lambda g: g["bound_ms"])["bound_by"]
+    row["by_dtype"] = {"float32": f32}
     return row
+
+
+def fused_block_f32(torch, gen, block, wts, hw, cin, f0, f1, relu_first,
+                    tol_rel) -> dict:
+    """Row 4 with f32 x at one geometry: the block against its plain
+    version (tol_rel of the largest value), the residual alone (BN1's
+    scale and shift zero) within RESIDUAL_F32_TOL of its largest value,
+    where x rounded to bf16 must miss it (the gate bites), a repeat bit
+    for bit, the kernel's, plain version's and the f32 eval-mode
+    XceptionBlock's median times, and the bound with f32 x and out."""
+    from biscuit_torch.ops.fused_block import (
+        fused_strided_block,
+        fused_strided_block_reference,
+    )
+
+    what = f"fused_block f32 {hw}^2 {cin}->{f0}->{f1}"
+    xs = [torch.randn((TILES, hw, hw, cin), generator=gen, device="cuda")
+          for _ in range(N_TIMED)]
+    got = fused_strided_block(xs[0], wts, relu_first)
+    ref = fused_strided_block_reference(xs[0], wts, relu_first)
+    check(got.dtype == ref.dtype == torch.float32, f"{what}: f32 out")
+    check(bool(torch.isfinite(got).all()), f"{what}: finite")
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    check(err <= tol_rel * scale, f"{what}: max abs err {err} > "
+                                  f"{tol_rel * scale}")
+    check(torch.equal(got, fused_strided_block(xs[0], wts, relu_first)),
+          f"{what}: repeats bit for bit")
+    del got, ref
+    zero = torch.zeros(f1, device="cuda")
+    res_only = tuple(wts[:6]) + (zero, zero) + tuple(wts[8:])
+    got = fused_strided_block(xs[0], res_only, relu_first)
+    ref = fused_strided_block_reference(xs[0], res_only, relu_first)
+    r_scale = ref.abs().max().item()
+    res_err = (got - ref).abs().max().item() / r_scale
+    bf16_err = (fused_strided_block_reference(
+        xs[0].to(torch.bfloat16).float(), res_only, relu_first)
+        - ref).abs().max().item() / r_scale
+    check(res_err <= RESIDUAL_F32_TOL < bf16_err,
+          f"{what}: residual rel err {res_err}, x rounded to bf16 "
+          f"{bf16_err}, bound {RESIDUAL_F32_TOL}")
+    del got, ref
+    ms = cuda_ms(torch, lambda x: fused_strided_block(x, wts, relu_first),
+                 xs)
+    plain = cuda_ms(torch, lambda x: fused_strided_block_reference(
+        x, wts, relu_first), xs[:N_PLAIN], warmup=1)
+    with torch.inference_mode():
+        lib = cuda_ms(torch, lambda x: block(x.permute(0, 3, 1, 2)), xs)
+    m, h2 = TILES * hw * hw, -(-hw // 2)
+    m2 = TILES * h2 * h2
+    n_bytes = (m * cin * 4 + m2 * f1 * 4
+               + sum(t.numel() * t.element_size() for t in wts))
+    b, by = bound_ms(n_bytes, {
+        "bf16": 2.0 * m * (cin * f0 + f0 * f1) + 2.0 * m2 * cin * f1,
+        "f32": 18.0 * m * (cin + f0) + 2.0 * m * (f0 + f1)})
+    return {"hw": hw, "cin": cin, "f0": f0, "f1": f1, "tiles": TILES,
+            "max_abs_err": err, "tol": tol_rel * scale, "max_abs_ref": scale,
+            "residual_rel_err": res_err, "residual_tol": RESIDUAL_F32_TOL,
+            "residual_rel_err_x_bf16": bf16_err, "repeats_bit_for_bit": True,
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b,
+            "bound_by": by,
+            "profile": kernel_profile(
+                torch, lambda: fused_strided_block(xs[0], wts, relu_first),
+                top=8)}
 
 
 def bf16_ulp(torch, v):
@@ -1661,6 +1841,111 @@ def main_wide_head(torch, hp, requests, card: str):
             "launches": launches, "row_sum_max_abs_err": row_sum_err,
             "dropout0_head_max_abs_err": head_err,
             "mean_of_std": float(std.mean())}, launches
+
+
+def main_f32(torch, requests, n_requests: int, bf16_rows, tf32_default,
+             card: str):
+    """Phase main_f32: hp.nature2022 with ``compute_dtype="float32"`` (the
+    published Xception-299 at full width and depth, 2x1024 head, dropout
+    0.1, K) with seeded random weights answers the same n_requests
+    requests through ``UncertaintyInterface``, default trunk then
+    ``fuse_blocks=True``: rows 1-3 once a request and row 4 four times
+    with ``fuse_blocks`` (counts zeroed just before, read just after);
+    the f32 features of the kernels' trunk on request 0 within 3e-2 of
+    the largest of ``model.features`` (the module trunk in f32, TF32 off)
+    on the same preprocessed tiles, since the kernels round every
+    pointwise product's input (34 units) and the blocks' y1 to bf16,
+    about 2**-9 each, where the module trunk rounds nothing; with the
+    logits spread over those features (``decisive_logits_``), the
+    dropout-0 means of the kernel head on them within 2e-2 of the plain
+    head on the module features, spread over 0.2 or more. It prints
+    tiles/s and ``stage_ms`` beside the bf16 rows' tiles/s of this run,
+    and tiles/s once more with TF32 as the library had it at start-up
+    (``tf32_default``: matmul, cuDNN), since the port leaves that setting
+    to its caller."""
+    import dataclasses
+
+    from biscuit_torch.data.normalize import (
+        inference_preprocess,
+        make_normalizer,
+    )
+    from biscuit_torch.hp import nature2022_params
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.ops.mcd_head import mcd_head, mcd_head_reference
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+
+    hp = dataclasses.replace(nature2022_params(), compute_dtype="float32")
+    model = build_model(hp)
+    init_random_(torch, model, SEED)
+    model = model.cuda().eval()
+    check(model.compute_dtype == torch.float32, "an f32 model")
+    with torch.inference_mode():
+        x0 = inference_preprocess(requests[0], make_normalizer(hp.normalizer))
+        fm = model.features(x0)
+    decisive_logits_(torch, model, fm)
+    row = {"phase": "main_f32", "model": "xception", "compute_dtype":
+           "float32", "tile_px": TILE_PX, "k": K, "dropout": hp.dropout,
+           "requests": n_requests, "tiles_per_request": TILES, "card": card,
+           "bf16_tiles_per_s": {r["phase"]: r["tiles_per_s"]
+                                for r in bf16_rows}}
+    total = {}
+    for fuse in (False, True):
+        ui = UncertaintyInterface.from_model(model, hp, device="cuda",
+                                             seed=SEED, fuse_blocks=fuse)
+        check(ui.k == K and ui._fused and ui._use_kernel,
+              "the f32 model routes to the kernels")
+        per_request = {name: 1 for name in SERVING}
+        if fuse:
+            per_request["fused_block"] = BLOCKS_PER_REQUEST
+        outs, secs, launches = serve(torch, ui, requests, n_requests,
+                                     per_request)
+        add_launches(total, launches)
+        flags = torch.backends.cuda.matmul, torch.backends.cudnn
+        off = tuple(f.allow_tf32 for f in flags)
+        for f, on in zip(flags, tf32_default):
+            f.allow_tf32 = on
+        try:
+            _, tf32_secs, tf32_launches = serve(torch, ui, requests,
+                                                n_requests, per_request)
+        finally:
+            for f, on in zip(flags, off):
+                f.allow_tf32 = on
+        add_launches(total, tf32_launches)
+        stage_ms = (stage_breakdown_fused if fuse else stage_breakdown)(
+            torch, ui, requests[1])
+        prof = kernel_profile(torch, lambda: ui(requests[1]))
+        with torch.inference_mode():
+            fk = trunk_features(model, x0, True, ui._mid_wts, fuse,
+                                ui._block_wts)
+            check(fk.dtype == torch.float32, "f32 features")
+            feat_err, feat_scale = held_features(
+                f"f32 features (fuse_blocks={fuse}) vs model.features", fk,
+                fm)
+            km, _ = mcd_head(fk, *ui._head_wts, k=K, dropout=0.0, seed=0)
+            rm, _ = mcd_head_reference(fm, *ui._head_wts, k=K, dropout=0.0)
+            spread = float(rm[:, 1].max() - rm[:, 1].min())
+            head_err = (km - rm).abs().max().item()
+        check(spread > 0.2, f"f32 dropout-0 means spread {spread}")
+        check(head_err <= 2e-2, f"f32 dropout-0 mean: max abs err {head_err}")
+        row["fuse_blocks" if fuse else "default"] = {
+            "request_s": secs, "tiles_per_s": TILES * n_requests / sum(secs),
+            "launches": launches,
+            "tf32_default": {
+                "matmul": tf32_default[0], "cudnn": tf32_default[1],
+                "request_s": tf32_secs,
+                "tiles_per_s": TILES * n_requests / sum(tf32_secs)},
+            "mean_of_mean": outs[0][0].mean(0).tolist(),
+            "mean_of_std": outs[0][1].mean(0).tolist(),
+            "features_max_abs_err": feat_err,
+            "features_tol": 3e-2 * feat_scale, "features_max_abs": feat_scale,
+            "dropout0_mean_max_abs_err": head_err,
+            "dropout0_mean_spread": spread, "stage_ms": stage_ms,
+            "profile": prof}
+        del ui
+        torch.cuda.empty_cache()
+    del model, x0, fm
+    torch.cuda.empty_cache()
+    return row, total
 
 
 def smooth_tiles(n: int, seed: int):
@@ -4618,6 +4903,8 @@ def main(argv=None) -> int:
                               opts.lockstep_child[1])
     from biscuit_torch.ops import _build
 
+    tf32_default = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
@@ -4752,6 +5039,11 @@ def main(argv=None) -> int:
     wide_row, wide_launches = main_wide_head(torch, hp, requests, card)
     emit(wide_row)
     torch.cuda.empty_cache()
+    f32_row, f32_launches = main_f32(torch, requests, REQUESTS,
+                                     (main_row, fused_row), tf32_default,
+                                     card)
+    emit(f32_row)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         emit(predict_phase(torch, hp, model, tmp, card))
         if importlib.util.find_spec("pandas") is None:
@@ -4815,7 +5107,8 @@ def main(argv=None) -> int:
     launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
-    for phase_launches in (wide_launches, int8_launches, par_launches,
+    for phase_launches in (wide_launches, f32_launches, int8_launches,
+                           par_launches,
                            ls_launches, tp_launches, ex_launches,
                            slide_launches, serve_launches, stats_launches,
                            pt_launches, rn_launches):

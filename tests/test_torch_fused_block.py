@@ -8,10 +8,15 @@ Tolerances: weight stacking is exact up to f32 rounding of the BN fold
 (rtol 1e-6). The plain version and the Pallas kernel share their rounding
 points (bf16 before each pointwise product, y0 in f32, y1 in bf16 before
 the pool), so only an f32 sum in another order flipping one bf16 rounding
-separates them: 1e-2 of the largest value. The fused trunk carries the
-middle flow in f32 and rounds at the kernels' points rather than Flax's:
-3e-2 of the largest feature, and of the largest mean probability at
-dropout 0.
+separates them: 1e-2 of the largest value, with bf16 x and with f32 x
+(whose residual product both take in f32: the Pallas kernel's jnp.dot of
+f32 x and bf16 rw promotes to f32). With f32 x the residual alone (BN1's
+scale and shift zero, so y1 and the pool are exact zeros) is held within
+1e-5 of its largest value: both sides take an f32 product, where x
+rounded to bf16 (within 2**-8 relative) moves it by about 2e-3. The fused trunk
+carries the middle flow in f32 and rounds at the kernels' points rather
+than Flax's: 3e-2 of the largest feature, and of the largest mean
+probability at dropout 0.
 """
 
 import copy
@@ -111,39 +116,56 @@ def _rand_weights(rng, cin, f0, f1):
 
 
 # (H, W, Cin, (F0, F1), relu_first, hs): tests/test_fused_block.py's CASES,
-# odd and even H and W, relu_first both ways, F0 != F1.
+# odd and even H and W, relu_first both ways, F0 != F1; in bf16, and one
+# odd geometry with f32 x.
 CASES = [
-    (14, 14, 8, (8, 16), True, 6),
-    (13, 13, 8, (8, 16), True, 6),
-    (16, 13, 8, (16, 16), False, 6),
-    (19, 19, 16, (16, 24), True, 18),
-    (12, 18, 8, (8, 24), False, 6),
+    (14, 14, 8, (8, 16), True, 6, "bfloat16"),
+    (13, 13, 8, (8, 16), True, 6, "bfloat16"),
+    (16, 13, 8, (16, 16), False, 6, "bfloat16"),
+    (19, 19, 16, (16, 24), True, 18, "bfloat16"),
+    (12, 18, 8, (8, 24), False, 6, "bfloat16"),
+    (13, 13, 8, (8, 16), True, 6, "float32"),
 ]
+CASE_IDS = [f"{h}-{w}-{cin}-f{i}-{relu}-{hs}" + ("" if dt == "bfloat16"
+                                                 else "-f32x")
+            for i, (h, w, cin, _, relu, hs, dt) in enumerate(CASES)]
 
 
-@pytest.mark.parametrize("h,w,cin,f,relu_first,hs", CASES)
-def test_reference_matches_pallas(h, w, cin, f, relu_first, hs):
+@pytest.mark.parametrize("h,w,cin,f,relu_first,hs,dtype", CASES,
+                         ids=CASE_IDS)
+def test_reference_matches_pallas(h, w, cin, f, relu_first, hs, dtype):
     rng = np.random.default_rng(h * 100 + w)
-    x = np.array(jnp.asarray(rng.normal(0, 1.5, (2, h, w, cin)),
-                             jnp.bfloat16).astype(jnp.float32))
+    x = rng.normal(0, 1.5, (2, h, w, cin)).astype(np.float32)
+    if dtype == "bfloat16":
+        x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
     wts = _rand_weights(rng, cin, *f)
     bf_idx = (1, 5, 8)
     jw = tuple(jnp.asarray(a, jnp.bfloat16) if i in bf_idx
                else jnp.asarray(a if a.ndim == 2 else a[None, :])
                for i, a in enumerate(wts))
-    want = np.asarray(jfb.fused_strided_block(
-        jnp.asarray(x, jnp.bfloat16), jw, relu_first=relu_first, hs=hs,
-        interpret=True).astype(jnp.float32))
+    want = jfb.fused_strided_block(
+        jnp.asarray(x, getattr(jnp, dtype)), jw, relu_first=relu_first, hs=hs,
+        interpret=True)
+    assert want.dtype == getattr(jnp, dtype)
+    want = np.asarray(want.astype(jnp.float32))
     tw = tuple(torch.from_numpy(a).to(torch.bfloat16) if i in bf_idx
                else torch.from_numpy(a) for i, a in enumerate(wts))
-    xt = torch.from_numpy(x).to(torch.bfloat16)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
     got = fused_strided_block_reference(xt, tw, relu_first)
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == getattr(torch, dtype)
     assert got.shape == want.shape == (2, -(-h // 2), -(-w // 2), f[1])
     assert np.abs(got.float().numpy() - want).max() <= 1e-2 * np.abs(want).max()
     # On a CPU tensor the wrapper is the plain version.
     torch.testing.assert_close(fused_strided_block(xt, tw, relu_first), got,
                                rtol=0, atol=0)
+    if dtype == "float32":
+        zero = np.zeros(f[1], np.float32)
+        jw = jw[:6] + (jnp.asarray(zero[None, :]),) * 2 + jw[8:]
+        tw = tw[:6] + (torch.from_numpy(zero),) * 2 + tw[8:]
+        want = np.asarray(jfb.fused_strided_block(
+            jnp.asarray(x), jw, relu_first=relu_first, hs=hs, interpret=True))
+        got = fused_strided_block_reference(xt, tw, relu_first).numpy()
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_fully_fused_trunk_matches_jax(tiny):

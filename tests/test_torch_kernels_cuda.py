@@ -183,7 +183,7 @@ def test_fused_preprocess_makes_no_copy_and_no_sync(gen):
     assert (outs[2].float() - want).abs().max().item() <= 2e-2
 
 
-def _middle_inputs(gen, n, hw, c, u):
+def _middle_inputs(gen, n, hw, c, u, dtype=torch.bfloat16):
     def normal(shape, std):
         return torch.randn(shape, generator=gen, device="cuda") * std
 
@@ -191,7 +191,7 @@ def _middle_inputs(gen, n, hw, c, u):
     pw = normal((u, c, c), 0.15 / c ** 0.5).to(torch.bfloat16)
     sc = 0.8 + 0.4 * torch.rand((u, c), generator=gen, device="cuda")
     sh = normal((u, c), 0.05)
-    x = normal((n, hw, hw, c), 1.0).to(torch.bfloat16)
+    x = normal((n, hw, hw, c), 1.0).to(dtype)
     return x, dw, pw, sc, sh
 
 
@@ -353,8 +353,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     x = torch.zeros((1, 8, 8, 3), device="cuda")
     with pytest.raises(TypeError):
         fused_preprocess(x.to(torch.float32))
-    with pytest.raises(ValueError):
-        fused_preprocess(x.to(torch.uint8), out_dtype=torch.float32)
+    with pytest.raises(ValueError):            # it writes bf16 or f32
+        fused_preprocess(x.to(torch.uint8), out_dtype=torch.float16)
+    x, dw, pw, sc, sh = _middle_inputs(gen, 1, 5, 16, 3)
+    with pytest.raises(TypeError):             # it takes bf16 or f32
+        fused_middle_flow(x.to(torch.float16), dw, pw, sc, sh)
 
 
 def test_jpeg_products_stay_f32_with_tf32_on(gen):
@@ -704,8 +707,8 @@ def test_block_and_depthwise_reject_what_the_kernels_do_not_take(gen):
     buf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
     shifted = buf[1:].view(x.shape)    # contiguous, 2 bytes off a boundary
     strided = x.permute(0, 2, 1, 3)    # not contiguous
-    with pytest.raises(TypeError):
-        fused_strided_block(x.float(), wts)
+    with pytest.raises(TypeError):             # it takes bf16 or f32
+        fused_strided_block(x.to(torch.float16), wts)
     with pytest.raises(ValueError):
         fused_strided_block(strided, wts)
     with pytest.raises(ValueError, match="16-byte"):
@@ -1043,10 +1046,10 @@ def test_registered_ops_pass_opcheck_on_the_card(gen):
         list(head_weights(head)), seed_tensor((1 << 63) + 5), 4, 0.25))
 
 
-def _servable_model_dir(tmp_path, dropout):
-    """xception_tiny (bf16, 32 px, 2 x 32 head, K=4) with seeded random
-    weights, its logits spread over random tiles, saved as a model dir;
-    and 16 random tiles."""
+def _servable_model_dir(tmp_path, dropout, compute_dtype="bfloat16"):
+    """xception_tiny (bf16 unless ``compute_dtype`` says, 32 px, 2 x 32
+    head, K=4) with seeded random weights, its logits spread over random
+    tiles, saved as a model dir; and 16 random tiles."""
     import numpy as np
 
     from biscuit_torch.data.normalize import inference_preprocess
@@ -1058,7 +1061,7 @@ def _servable_model_dir(tmp_path, dropout):
 
     hp = ModelParams(model="xception_tiny", tile_px=32, tile_um=32,
                      hidden_layer_width=32, dropout=dropout, uq=True,
-                     uq_samples=4)
+                     uq_samples=4, compute_dtype=compute_dtype)
     model = build_model(hp)
     init_random_(torch, model, 0)
     tiles = np.random.default_rng(0).integers(0, 256, (16, 32, 32, 3),
@@ -1069,8 +1072,8 @@ def _servable_model_dir(tmp_path, dropout):
         feats = trunk_features(model, inference_preprocess(
             torch.from_numpy(tiles), norm))
     decisive_logits_(torch, model, feats)
-    return save_checkpoint(str(tmp_path / f"m{dropout}"), model, hp, 1,
-                           "cohort", "SV", None), tiles
+    return save_checkpoint(str(tmp_path / f"m{dropout}{compute_dtype}"),
+                           model, hp, 1, "cohort", "SV", None), tiles
 
 
 @pytest.mark.parametrize("fuse_blocks", [False, True])
@@ -1354,3 +1357,281 @@ def test_int8_interface_on_the_card_matches_the_cpu(gen):
                                "mcd_head") else 0
         assert after[name] - before[name] == want_n, name
     assert torch.isfinite(mean).all()
+
+
+# f32 on the card: rows 1, 2 and 4 take the f32 their Pallas kernels take
+# (the preprocess's out_dtype, the middle flow's and the strided block's
+# x), so a compute_dtype="float32" Xception runs the kernels. Tolerances:
+# the preprocess's f32 output within F32_PREPROCESS_TOL of the plain f32
+# chain (its approximate base-2 logarithms and exponentials and its sums
+# in another order, with no bf16 rounding after them); the middle flow
+# within F32_MIDDLE_TOL of its largest value: a flipped bf16 rounding of
+# one pointwise product's input moves an output by about ulp(a)·|pw|, a
+# few 1e-5 of the largest value at these widths, while x read as bf16
+# (carried to the output by block 0's residual) or the output stored as
+# bf16 moves it by about 1e-3, and both must miss the bound; the block
+# at the bf16 test's bound, since it rounds at the same points (each
+# pointwise product's input, y1), and its residual alone within 1e-4 of
+# its largest value, which x rounded to bf16 does not meet.
+F32_PREPROCESS_TOL = 1e-3
+F32_MIDDLE_TOL = 3e-4
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 41, 3), (2, 299, 299, 3),
+                                   (1, 1, 1, 3), (5, 299, 299, 3)])
+def test_fused_preprocess_f32(gen, shape):
+    """f32 out: a 299 x 299 image is 1,072,812 bytes, 12 mod 16, so each
+    image after the first starts off a 16-byte boundary, as in bf16; the
+    output repeats bit for bit and its bf16 form is the bf16 kernel's
+    output within one bf16 rounding."""
+    x = torch.randint(0, 256, shape, generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    norm = ReinhardFastNormalizer()
+    before = _build.launch_counts()["fused_preprocess"]
+    got = fused_preprocess(x, norm, out_dtype=torch.float32)
+    assert _build.launch_counts()["fused_preprocess"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert bool(torch.isfinite(got).all())
+    want = fused_preprocess_reference(x, norm)
+    assert (got - want).abs().max().item() <= F32_PREPROCESS_TOL
+    assert torch.equal(got, fused_preprocess(x, norm,
+                                             out_dtype=torch.float32))
+    bf = fused_preprocess(x, norm).float()
+    assert (got - bf).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("n,hw,c,u", [(3, 5, 16, 3), (2, 19, 728, 6),
+                                      (1, 45, 16, 3), (2, 7, 8, 3)])
+def test_fused_middle_flow_f32(gen, n, hw, c, u):
+    x, dw, pw, sc, sh = _middle_inputs(gen, n, hw, c, u, torch.float32)
+    before = _build.launch_counts()["fused_middle_flow"]
+    got = fused_middle_flow(x, dw, pw, sc, sh)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fused_middle_flow"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    want = fused_middle_flow_reference(x, dw, pw, sc, sh)
+    assert want.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    tol = F32_MIDDLE_TOL * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+    assert torch.equal(got, fused_middle_flow(x, dw, pw, sc, sh))
+    rounded = fused_middle_flow_reference(x.to(torch.bfloat16).float(), dw,
+                                          pw, sc, sh)
+    assert (rounded - want).abs().max().item() > tol
+    assert (want.to(torch.bfloat16).float() - want).abs().max().item() > tol
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+def test_fused_block_f32(gen, shape):
+    """f32 x through the whole block at the bf16 test's bound, and the
+    residual alone (BN1's scale and shift zero: y1 and the pool are exact
+    zeros) within 1e-4 of its largest value: the kernel splits x into two
+    bf16 terms (2**-16 relative), where x rounded to bf16 (within 2**-8)
+    misses that bound, as the plain version on bf16 x shows."""
+    n, h, w, cin, f0, f1, relu_first = shape
+    wts = _block_weights(gen, cin, f0, f1)
+    x = 1.5 * torch.randn((n, h, w, cin), generator=gen, device="cuda")
+    before = _build.launch_counts()["fused_block"]
+    got = fused_strided_block(x, wts, relu_first)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fused_block"] == before + 1
+    want = fused_strided_block_reference(x, wts, relu_first)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == (n, -(-h // 2), -(-w // 2), f1)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    assert torch.equal(got, fused_strided_block(x, wts, relu_first))
+    zero = torch.zeros(f1, device="cuda")
+    res_only = wts[:6] + (zero, zero) + wts[8:]
+    got = fused_strided_block(x, res_only, relu_first)
+    want = fused_strided_block_reference(x, res_only, relu_first)
+    tol = 1e-4 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+    rounded = fused_strided_block_reference(x.to(torch.bfloat16).float(),
+                                            res_only, relu_first)
+    assert (rounded - want).abs().max().item() > tol
+
+
+def _f32_tiny():
+    """An f32 xception_tiny (32 px, 2 x 32 head, dropout 0, K=4) with
+    seeded random weights, its logits spread over 16 random tiles, on the
+    CPU; the tiles; the hp."""
+    import numpy as np
+
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.hp import ModelParams
+    from biscuit_torch.models.xception import build_model
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+    from chip_smoke import decisive_logits_, init_random_
+
+    hp = ModelParams(model="xception_tiny", tile_px=32, hidden_layer_width=32,
+                     dropout=0.0, uq=True, uq_samples=4,
+                     compute_dtype="float32")
+    model = build_model(hp)
+    init_random_(torch, model, 0)
+    model.eval()
+    tiles = np.random.default_rng(0).integers(0, 256, (16, 32, 32, 3),
+                                              dtype=np.uint8)
+    norm = UncertaintyInterface.from_model(model, hp,
+                                           device="cpu").wsi_normalizer
+    with torch.no_grad():
+        feats = trunk_features(model, inference_preprocess(
+            torch.from_numpy(tiles), norm))
+    decisive_logits_(torch, model, feats)
+    return model, tiles, hp
+
+
+@pytest.mark.parametrize("fuse_blocks", [False, True])
+def test_f32_xception_serves_on_the_card(gen, fuse_blocks):
+    """An f32 xception_tiny through ``UncertaintyInterface`` on the card,
+    default trunk and ``fuse_blocks=True``: rows 1-3 launch once a call
+    (row 4 four times with ``fuse_blocks``); the f32 features of the
+    kernels' trunk on the card preprocess's output within 3e-2 of the
+    largest of ``model.features`` on the CPU (the kernels round each
+    pointwise product's input to bf16, the module trunk does not), and
+    the means within 2e-2 of the CPU interface's at dropout 0, spread
+    over 0.2 or more."""
+    import copy
+
+    import numpy as np
+
+    from biscuit_torch.data.normalize import inference_preprocess
+    from biscuit_torch.train.uq import UncertaintyInterface, trunk_features
+
+    model, tiles, hp = _f32_tiny()
+    cpu = UncertaintyInterface.from_model(copy.deepcopy(model), hp,
+                                          device="cpu")
+    want_m, _ = cpu(tiles, seed=1)
+    card = UncertaintyInterface.from_model(copy.deepcopy(model).cuda(), hp,
+                                           fuse_blocks=fuse_blocks)
+    assert card._fused
+    before = _build.launch_counts()
+    mean, std = card(tiles, seed=1)
+    after = _build.launch_counts()
+    for name in after:
+        want_n = 1 if name in ("fused_preprocess", "fused_middle_flow",
+                               "mcd_head") else 0
+        if fuse_blocks and name == "fused_block":
+            want_n = 4
+        assert after[name] - before[name] == want_n, name
+    assert mean.is_cuda and bool(torch.isfinite(mean).all())
+    assert np.ptp(want_m[:, 1].numpy()) > 0.2
+    torch.testing.assert_close(mean.cpu(), want_m, rtol=0, atol=2e-2)
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
+        x = inference_preprocess(torch.from_numpy(tiles).cuda(),
+                                 card.wsi_normalizer)
+        got = trunk_features(card.model, x, True, card._mid_wts, fuse_blocks,
+                             card._block_wts)
+        want = model.features(x.cpu().float())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=3e-2 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("fuse_blocks", [False, True])
+def test_f32_kernels_artifact_equals_the_live_interface(gen, tmp_path,
+                                                        fuse_blocks):
+    """A kernels servable of an f32 xception_tiny (dropout 0.25) exported
+    on the card records f32 where the trunk runs and answers as the live
+    interface bit for bit at the same seeds, with rows 1-3 once a call
+    (row 4 four times with ``fuse_blocks``)."""
+    import io
+
+    from biscuit_torch import serve
+    from biscuit_torch.train.uq import UncertaintyInterface
+
+    model_dir, tiles = _servable_model_dir(tmp_path, 0.25, "float32")
+    path = serve.export_servable(model_dir, str(tmp_path / "f.biscuit"),
+                                 batch_size=16, fuse_blocks=fuse_blocks)
+    sv = serve.load_servable(path)
+    assert sv.header["use_kernels"] is True
+    ep = torch.export.load(io.BytesIO(sv._programs["uq"]))
+    trunk_ops = {"fused_middle_flow": 0, "fused_strided_block": 0}
+    for node in ep.graph.nodes:
+        name = getattr(node.target, "__name__", "").split(".")[0]
+        if node.op == "call_function" and name in trunk_ops:
+            assert node.meta["val"].dtype == torch.float32, name
+            trunk_ops[name] += 1
+    assert trunk_ops == {"fused_middle_flow": 1,
+                         "fused_strided_block": 4 if fuse_blocks else 0}
+    live = UncertaintyInterface(model_dir, fuse_blocks=fuse_blocks)
+    assert live.model.compute_dtype == torch.float32
+    for seed in (3, 11):
+        before = _build.launch_counts()
+        got = sv.call_exact(tiles, seed=seed)
+        after = _build.launch_counts()
+        for name in after:
+            want = 1 if name in ("fused_preprocess", "fused_middle_flow",
+                                 "mcd_head") else 0
+            if fuse_blocks and name == "fused_block":
+                want = 4
+            assert after[name] - before[name] == want, name
+        want = live(tiles, seed=seed)
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w)
+
+
+def test_f32_train_project_on_the_card(gen, tmp_path):
+    """``Project.train`` of an f32 xception_tiny (32 px, batch 16, uq=True
+    at K=4, dropout 0) on 6 slides of 16 PNG tiles, 3 steps an epoch over
+    epochs [1, 2], fold 1 of 3: the f32 model trains on the module path
+    (no kernel launch in its steps), its per-epoch predictions run rows
+    1-3 once for each of the 2 validation batches of each epoch, and the
+    epoch model's ``tile_predictions`` CSV, written on the card, holds
+    within 2e-2 of the same model scored on the CPU (the module path
+    there)."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    from biscuit_torch.data.tfrecord import TFRecordWriter
+    from biscuit_torch.hp import ModelParams
+    from biscuit_torch.project import Project
+    from biscuit_torch.train.trainer import score_tiles
+    from biscuit_torch.train.uq import UncertaintyInterface
+    from chip_smoke import encode_png
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "tfr").mkdir()
+    for s in range(6):
+        with TFRecordWriter(str(tmp_path / "tfr" / f"s{s}.tfrecords")) as w:
+            for t in range(16):
+                w.write_tile(f"s{s}", encode_png(rng.integers(
+                    0, 256, (32, 32, 3), dtype=np.uint8)), loc_x=t, loc_y=s)
+    pd.DataFrame({"patient": [f"p{s}" for s in range(6)],
+                  "slide": [f"s{s}" for s in range(6)],
+                  "cohort": [f"c{s % 2}" for s in range(6)],
+                  "site": [f"site{s // 2}" for s in range(6)]}).to_csv(
+                      tmp_path / "ann.csv", index=False)
+    project = Project(str(tmp_path / "root"),
+                      annotations=str(tmp_path / "ann.csv"), create=True)
+    project.add_source("SRC", tfrecords=str(tmp_path / "tfr"))
+    hp = ModelParams(model="xception_tiny", tile_px=32, tile_um=32,
+                     batch_size=16, epochs=[1, 2], early_stop=False,
+                     hidden_layer_width=32, dropout=0.0, uq=True,
+                     uq_samples=4, augment="xyrjb", compute_dtype="float32")
+    before = _build.launch_counts()
+    (model_dir,) = project.train("cohort", "f32", params=hp, val_k=[1],
+                                 steps_per_epoch_override=3, save_model=True)
+    after = _build.launch_counts()
+    for name in after:
+        want = 2 * 2 if name in ("fused_preprocess", "fused_middle_flow",
+                                 "mcd_head") else 0
+        assert after[name] - before[name] == want, name
+    ui = UncertaintyInterface(os.path.join(model_dir,
+                                           "cohort-f32-HP0-kfold1_epoch2"),
+                              device="cpu")
+    assert ui.model.compute_dtype == torch.float32
+    man = pd.read_csv(os.path.join(model_dir, "slide_manifest.csv"))
+    val = sorted(man.loc[man["dataset"] == "validation", "slide"])
+    labels = {f"s{s}": s % 2 for s in range(6)}
+    _, probs, _ = score_tiles(ui.model, ui.hp, [
+        str(tmp_path / "tfr" / f"{s}.tfrecords") for s in val], labels,
+        device="cpu")
+    csv = pd.read_csv(os.path.join(model_dir,
+                                   "tile_predictions_val_epoch2.csv"))
+    assert len(csv) == len(probs) == 16 * len(val)
+    np.testing.assert_allclose(
+        probs, csv[["cohort_y_pred0", "cohort_y_pred1"]], rtol=0, atol=2e-2)
