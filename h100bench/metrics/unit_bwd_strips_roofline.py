@@ -1,0 +1,10 @@
+"""Kernel unit_bwd_strips's share of its roofline over the traced
+window, %: the sum of its calls' least times (``counts/unit_bwd_strips.py``)
+over the sum of the device time of the kernels launched inside its
+calls. Nothing when no call ran."""
+
+from h100bench.harness.metric_util import roofline
+
+
+def read(run):
+    return roofline(run, "unit_bwd_strips")
