@@ -33,6 +33,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..tracing import span
 from .png import decode_png, describe
 from .tfrecord import load_index, read_example_at
 
@@ -249,7 +250,9 @@ class PrefetchBatcher:
 
     Wraps any iterable of batches (normally a TileBatcher). ``depth`` is
     the queue size; 2-3 suffices to hide decode latency behind a step
-    that takes longer than decoding a batch.
+    that takes longer than decoding a batch. Under a profiler the
+    consumer's wait for each batch is the span ``batcher.wait``
+    (``tracing``).
     """
 
     _SENTINEL = object()
@@ -290,7 +293,8 @@ class PrefetchBatcher:
 
     def __iter__(self):
         while True:
-            item = self._q.get()
+            with span("batcher.wait"):
+                item = self._q.get()
             if item is self._SENTINEL:
                 if self._error is not None:
                     # A worker-thread failure must surface, not masquerade

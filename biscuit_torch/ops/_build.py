@@ -10,8 +10,9 @@ compiled, which keeps a build to seconds. ``build_all`` starts one
 ``KERNELS`` names the kernels as the launch counts know them; a source
 may hold more than one (``SOURCE``), and ``REPLACES`` gives the TPU
 kernel each one ports. Every wrapper that launches a kernel adds one to
-its count here, and nowhere else, so a run can show that its path went
-through the kernels.
+its count here (a ``launch.<kernel>`` counter of ``tracing``), and
+nowhere else, so a run can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
+
+from .. import tracing
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -50,22 +52,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict = {}
 _fns: dict = {}
-_launches = {name: 0 for name in KERNELS}
-_launches_lock = threading.Lock()   # submesh trainings run in threads
 
 
 def count_launch(name: str) -> None:
-    with _launches_lock:
-        _launches[name] += 1
+    if name not in SOURCE:
+        raise KeyError(name)
+    tracing.count("launch." + name)
 
 
 def launch_counts() -> dict:
-    return dict(_launches)
+    """Each kernel's launches (the ``launch.<kernel>`` counters of
+    ``tracing``), every kernel named, zeros included."""
+    counted = tracing.counts()
+    return {name: counted.get("launch." + name, 0) for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    """Zero the launch counters (no other counter of ``tracing``)."""
+    tracing.reset_counts("launch.")
 
 
 def nvcc_path() -> str:

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ..tracing import span
 from . import _build
 
 NAME = "fused_middle_flow"
@@ -151,7 +152,8 @@ def trunk_features_fused(model, x, mid_wts=None, fuse_blocks: bool = False,
     and the list of ``stack_block_weights`` results of
     ``fused_block.trunk_blocks``, computed here when None. The kernels
     run through their registered ops (``ops/library.py``), so that this
-    composition traces into an exported program as it runs live."""
+    composition traces into an exported program as it runs live. Spans
+    ``trunk.entry``, ``trunk.middle`` and ``trunk.exit`` (``tracing``)."""
     from ..models.xception import ARCHS
     from . import library
 
@@ -159,19 +161,26 @@ def trunk_features_fused(model, x, mid_wts=None, fuse_blocks: bool = False,
         mid_wts = stack_middle_weights(
             model.backbone, ARCHS[model.arch]["middle_repeats"])
     if not fuse_blocks:
-        h = model.trunk_entry(x)
-        h = library.fused_middle_flow(h, *mid_wts)
-        return model.trunk_exit(h)
+        with span("trunk.entry"):
+            h = model.trunk_entry(x)
+        with span("trunk.middle"):
+            h = library.fused_middle_flow(h, *mid_wts)
+        with span("trunk.exit"):
+            return model.trunk_exit(h)
 
     from .fused_block import stack_block_weights, trunk_blocks
 
     blocks = trunk_blocks(model.backbone)
     if block_wts is None:
         block_wts = [stack_block_weights(b) for b in blocks]
-    h = model.trunk_stem(x).contiguous()
-    for blk, wts in zip(blocks[:-1], block_wts[:-1]):
-        h = library.fused_strided_block(h, list(wts), int(blk.relu_first))
-    h = library.fused_middle_flow(h, *mid_wts)
-    h = library.fused_strided_block(h, list(block_wts[-1]),
-                                    int(blocks[-1].relu_first))
-    return model.trunk_exit_tail(h)
+    with span("trunk.entry"):
+        h = model.trunk_stem(x).contiguous()
+        for blk, wts in zip(blocks[:-1], block_wts[:-1]):
+            h = library.fused_strided_block(h, list(wts),
+                                            int(blk.relu_first))
+    with span("trunk.middle"):
+        h = library.fused_middle_flow(h, *mid_wts)
+    with span("trunk.exit"):
+        h = library.fused_strided_block(h, list(block_wts[-1]),
+                                        int(blocks[-1].relu_first))
+        return model.trunk_exit_tail(h)

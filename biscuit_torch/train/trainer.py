@@ -52,6 +52,7 @@ from ..models.convert import from_flax, read_msgpack, to_flax, write_msgpack
 from ..models.resnet import BasicBlock, BottleneckBlock
 from ..models.xception import BatchNorm, Conv, bn_group, build_model
 from ..stats.roc import auc_score, average_precision
+from ..tracing import span
 from ..utils_log import log
 from .checkpoint import RunCheckpointer
 from .splits import kfold_split, train_val_slides
@@ -211,6 +212,10 @@ def make_train_step(model, tx: ScheduledOptimizer, hp: ModelParams,
     So every rank makes the same update, and N ranks compute what one
     computes on the group's batch. ``train_step(..., stop=)`` then also
     returns ``"stop"``: whether any rank passed ``stop=True``.
+
+    Under a profiler a step records the spans ``train.copy``,
+    ``train.augment``, ``train.forward``, ``train.backward`` and
+    ``train.optimizer`` (``tracing``).
     """
     from .fused_train import (
         apply_stat_updates,
@@ -236,10 +241,12 @@ def make_train_step(model, tx: ScheduledOptimizer, hp: ModelParams,
     bn_ranks = group if lockstep else None
 
     def train_step(images, labels, mask, generator=None, stop=False):
-        images, labels, mask = (torch.as_tensor(t).to(dev)
-                                for t in (images, labels, mask))
+        with span("train.copy"):
+            images, labels, mask = (torch.as_tensor(t).to(dev)
+                                    for t in (images, labels, mask))
         model.train()
-        tx.zero_grad()
+        with span("train.optimizer"):
+            tx.zero_grad()
         n = images.shape[0]
         start, total = (group.rank * n, group.size * n) if lockstep else (
             0, n)
@@ -247,44 +254,52 @@ def make_train_step(model, tx: ScheduledOptimizer, hp: ModelParams,
         def mine(draws: dict) -> dict:
             return {k: v[start:start + n] for k, v in draws.items()}
 
-        raw = images
-        if jpeg:
-            apply, q = sample_jpeg(total, generator, device=dev)
-            raw = jpeg_apply(images, apply[start:start + n],
-                             q[start:start + n])
-        x = preprocess(raw, normalizer)
-        if hp.augment:
-            x = apply_augment(x, mine(sample_augment(total, generator,
-                                                     hp.augment, dev)))
-        with bn_group(bn_ranks):
-            if fused_trunk:
-                feats, updates = trunk_train_apply(model.backbone, x, backend)
-                logits = model.head(feats, generator=generator,
-                                    rows=(start, total))
-            else:
-                logits = model(x, generator=generator, rows=(start, total))
-        labels = labels.long()
-        mask = mask.float()
-        ce = F.cross_entropy(logits, labels.clamp(min=0), reduction="none")
-        hits = ((logits.argmax(-1) == labels) * mask).sum()
+        with span("train.augment"):
+            raw = images
+            if jpeg:
+                apply, q = sample_jpeg(total, generator, device=dev)
+                raw = jpeg_apply(images, apply[start:start + n],
+                                 q[start:start + n])
+            x = preprocess(raw, normalizer)
+            if hp.augment:
+                x = apply_augment(x, mine(sample_augment(total, generator,
+                                                         hp.augment, dev)))
+        with span("train.forward"):
+            with bn_group(bn_ranks):
+                if fused_trunk:
+                    feats, updates = trunk_train_apply(model.backbone, x,
+                                                       backend)
+                    logits = model.head(feats, generator=generator,
+                                        rows=(start, total))
+                else:
+                    logits = model(x, generator=generator,
+                                   rows=(start, total))
+            labels = labels.long()
+            mask = mask.float()
+            ce = F.cross_entropy(logits, labels.clamp(min=0),
+                                 reduction="none")
+            hits = ((logits.argmax(-1) == labels) * mask).sum()
+            if not lockstep:
+                denom = mask.sum().clamp_min(1.0)
+                loss = (ce * mask).sum() / denom
+                acc = hits / denom
         out = {}
-        if lockstep:
-            sums = group.all_reduce_sum([torch.stack([
-                mask.sum(), (ce * mask).sum().detach(), hits,
-                mask.new_tensor(float(bool(stop)))])])[0]
-            denom = sums[0].clamp_min(1.0)
-            ((ce * mask).sum() / denom).backward()
-            loss, acc = sums[1] / denom, sums[2] / denom
-            group.all_reduce_grads(model.parameters())
-            out["stop"] = bool(sums[3] > 0)
-        else:
-            denom = mask.sum().clamp_min(1.0)
-            loss = (ce * mask).sum() / denom
-            acc = hits / denom
-            loss.backward()
-        tx.step()
-        if fused_trunk:
-            apply_stat_updates(model.backbone, updates)
+        with span("train.backward"):
+            if lockstep:
+                sums = group.all_reduce_sum([torch.stack([
+                    mask.sum(), (ce * mask).sum().detach(), hits,
+                    mask.new_tensor(float(bool(stop)))])])[0]
+                denom = sums[0].clamp_min(1.0)
+                ((ce * mask).sum() / denom).backward()
+                loss, acc = sums[1] / denom, sums[2] / denom
+                group.all_reduce_grads(model.parameters())
+                out["stop"] = bool(sums[3] > 0)
+            else:
+                loss.backward()
+        with span("train.optimizer"):
+            tx.step()
+            if fused_trunk:
+                apply_stat_updates(model.backbone, updates)
         return {"loss": loss.detach(), "acc": acc.detach(), **out}
 
     return train_step
@@ -680,16 +695,6 @@ def _train_single(
 
     from ..utils import tile_predictions_frame
 
-    phase_t = [time.perf_counter()]
-    phases: Dict[str, float] = {}
-    timing = bool(os.environ.get("BISCUIT_TIME_PHASES"))
-
-    def mark(name):
-        if timing:
-            now = time.perf_counter()
-            phases[name] = phases.get(name, 0.0) + (now - phase_t[0])
-            phase_t[0] = now
-
     dev = resolve_device(device)
     lockstep = group is not None
     main = not lockstep or group.is_main
@@ -702,7 +707,6 @@ def _train_single(
     train_step = make_train_step(model, tx, hp, normalizer, device=dev,
                                  group=group)
     val_metrics_step = make_val_metrics_step(model, normalizer, group)
-    mark("init")
 
     # Main allocates the run's directory; the other ranks receive its name.
     model_dir = (_model_dir(project.models_dir, outcome, exp_label, kfold)
@@ -722,7 +726,6 @@ def _train_single(
             json.dump(meta, f, indent=2)
     train_tfr = [by_slide[s] for s in train_slides if s in by_slide]
     val_tfr = [by_slide[s] for s in val_slides if s in by_slide]
-    mark("dirs")
 
     train_batcher = TileBatcher(
         train_tfr, labels, batch_size=local_bs, shuffle=True,
@@ -785,6 +788,8 @@ def _train_single(
     _, _, _, restored_step = ckpt.maybe_restore(model, tx, gen,
                                                 step=restore_step)
 
+    # BISCUIT_PROFILE=1: main's trace of the fold, in which the step's
+    # spans and `batcher.wait` (`tracing`) show where its host time goes.
     profiler = None
     if main and os.environ.get("BISCUIT_PROFILE") == "1":
         from torch.profiler import ProfilerActivity, profile
@@ -796,7 +801,6 @@ def _train_single(
     # The host reads and decodes the next batches while the device steps.
     train_stream = PrefetchBatcher(train_batcher, depth=3)
     train_iter = iter(train_stream)
-    mark("stream_setup")
     t_last = time.perf_counter()
 
     # Preemption: on SIGTERM, checkpoint at the next step boundary, then
@@ -887,7 +891,6 @@ def _train_single(
                             log.info(f"Early stop at batch {step} (val acc "
                                      f"EMA {es_ema:.4f} < {last_ema:.4f})")
                             break
-            mark("train_loop")
 
             # End of epoch. Skip epochs fully covered by a restored
             # checkpoint: the original run wrote their predictions, and
@@ -932,7 +935,6 @@ def _train_single(
                     save_checkpoint(model_dir, model, hp, epoch, outcome,
                                     exp_label, kfold,
                                     outcome_labels=outcome_labels)
-            mark("epoch_preds")
             if lockstep and record:
                 group.barrier("epoch_artifacts")
             if stopped:
@@ -958,8 +960,4 @@ def _train_single(
                                           index=False)
     if lockstep:
         group.barrier("fold_written")
-    if timing:
-        mark("close_writes")
-        print("[phases] " + json.dumps(
-            {k: round(v, 3) for k, v in phases.items()}), flush=True)
     return model_dir

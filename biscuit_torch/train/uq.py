@@ -44,6 +44,7 @@ import torch
 from ..data.normalize import inference_preprocess, make_normalizer
 from ..device import resolve_device
 from ..models.xception import ARCHS
+from ..tracing import span
 
 
 def _fused(fused_trunk: Optional[bool], fuse_blocks: bool, on_card: bool,
@@ -162,19 +163,22 @@ def mc_dropout_predict(model, x, seed: int = 0, k: int = 30,
     ``int8_qw``: calibrated w8a8 trunk weights (``ops/int8_trunk.py``,
     ``prepare_int8_trunk`` or ``place_int8_trunk`` of it); the trunk then
     runs int8, ``fused_trunk`` still choosing the middle flow's
-    backend."""
-    if int8_qw is not None:
-        from ..ops.int8_trunk import trunk_features_int8
+    backend. Spans ``serve.trunk`` and ``serve.head`` (``tracing``)."""
+    with span("serve.trunk"):
+        if int8_qw is not None:
+            from ..ops.int8_trunk import trunk_features_int8
 
-        if model.arch not in ARCHS:
-            raise ValueError("int8 trunk requires an Xception arch")
-        if fuse_blocks:
-            raise ValueError(_INT8_FUSE_BLOCKS)
-        feats = trunk_features_int8(model, x, int8_qw, fused_trunk, mid_wts)
+            if model.arch not in ARCHS:
+                raise ValueError("int8 trunk requires an Xception arch")
+            if fuse_blocks:
+                raise ValueError(_INT8_FUSE_BLOCKS)
+            feats = trunk_features_int8(model, x, int8_qw, fused_trunk,
+                                        mid_wts)
+        else:
+            feats = trunk_features(model, x, fused_trunk, mid_wts,
+                                   fuse_blocks, block_wts)
+    with span("serve.head"):
         return mc_dropout_head(model, feats, seed, k, use_kernel, head_wts)
-    feats = trunk_features(model, x, fused_trunk, mid_wts, fuse_blocks,
-                           block_wts)
-    return mc_dropout_head(model, feats, seed, k, use_kernel, head_wts)
 
 
 _INT8_FUSE_BLOCKS = ("the int8 trunk runs its own strided blocks; it cannot "
@@ -402,15 +406,20 @@ class UncertaintyInterface:
 
     def __call__(self, tiles, seed: Optional[int] = None):
         """tiles: (B, H, W, 3) or (H, W, 3) uint8/float RGB [0,255] ->
-        (probs, uncertainty), each (B, C) f32 on the model's device."""
+        (probs, uncertainty), each (B, C) f32 on the model's device.
+        Under a profiler the call records the spans ``serve.copy``,
+        ``serve.preprocess``, ``serve.trunk`` and ``serve.head``
+        (``tracing``)."""
         if seed is None:
             seed = (self.seed << 32) | (self._calls & 0xFFFFFFFF)
             self._calls += 1
-        tiles = torch.as_tensor(tiles).to(self.device)
+        with span("serve.copy"):
+            tiles = torch.as_tensor(tiles).to(self.device)
         if tiles.ndim == 3:
             tiles = tiles[None]
         with torch.inference_mode():
-            x = inference_preprocess(tiles, self.wsi_normalizer)
+            with span("serve.preprocess"):
+                x = inference_preprocess(tiles, self.wsi_normalizer)
             qw = self._int8_weights(x) if self._int8 else None
             return mc_dropout_predict(
                 self.model, x, seed, self.k, use_kernel=self._use_kernel,
