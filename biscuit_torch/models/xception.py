@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bn_train import bn_train
+
 # Architecture presets (copied from biscuit_tpu/models/xception.py).
 ARCHS = {
     "xception": {
@@ -107,29 +109,19 @@ def current_bn_group():
 def batch_norm_train(x, weight, bias, eps: float, dims, group=None):
     """Train-mode BatchNorm as Flax computes it: statistics over ``dims``
     in f32, the biased fast variance ``max(0, E[x^2] - E[x]^2)``, and the
-    output rounded once to x's dtype. ``weight`` and ``bias`` broadcast
-    against x. Returns (y, mean, var), mean and var of shape (C,).
+    output rounded once to x's dtype. The one dimension not in ``dims``
+    holds the channels, which ``weight`` and ``bias`` (C,) scale and
+    shift. Returns (y, mean, var), mean and var of shape (C,).
 
-    With a ``group`` of several ranks, each holding as many rows as the
-    others, the statistics are over every rank's rows: the f32 (sum x,
-    sum x^2) are all-reduced, through an all-reduce whose backward
-    all-reduces their cotangents, so that the input's gradient sees the
-    whole group's batch while gamma's and beta's stay this rank's
-    share."""
-    xf = x.float()
-    if group is None or group.size == 1:
-        mu = xf.mean(dim=dims, keepdim=True)
-        mu2 = xf.square().mean(dim=dims, keepdim=True)
-    else:
-        sums = group.all_reduce_sum_differentiable(torch.stack(
-            [xf.sum(dim=dims, keepdim=True),
-             xf.square().sum(dim=dims, keepdim=True)]))
-        count = xf.numel() // sums[0].numel() * group.size
-        mu, mu2 = sums[0] / count, sums[1] / count
-    var = torch.clamp_min(mu2 - mu.square(), 0.0)
-    inv = torch.rsqrt(var + eps)
-    y = ((xf - mu) * (inv * weight.float()) + bias.float()).to(x.dtype)
-    return y, mu.reshape(-1), var.reshape(-1)
+    The op is ``ops/bn_train.bn_train`` on the channels-last view of x
+    (its kernels on the card, its plain versions on the CPU), with its
+    closed-form backward. With a ``group`` of several ranks, each holding
+    as many rows as the others, the statistics are over every rank's
+    rows, so that the input's gradient sees the whole group's batch while
+    gamma's and beta's stay this rank's share."""
+    (cdim,) = (d for d in range(x.ndim) if d not in dims)
+    y, mu, var = bn_train(x.movedim(cdim, -1), weight, bias, eps, group)
+    return y.movedim(-1, cdim), mu, var
 
 
 def running_update(old, batch):
@@ -154,10 +146,8 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y, mu, var = batch_norm_train(x, self.weight[:, None, None],
-                                      self.bias[:, None, None], self.eps,
-                                      (0, 2, 3),
-                                      current_bn_group())
+        y, mu, var = batch_norm_train(x, self.weight, self.bias, self.eps,
+                                      (0, 2, 3), current_bn_group())
         with torch.no_grad():
             self.running_mean.copy_(running_update(self.running_mean, mu))
             self.running_var.copy_(running_update(self.running_var, var))

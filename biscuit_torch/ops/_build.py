@@ -9,10 +9,10 @@ compiled, which keeps a build to seconds. ``build_all`` starts one
 
 ``KERNELS`` names the kernels as the launch counts know them; a source
 may hold more than one (``SOURCE``), and ``REPLACES`` gives the TPU
-kernel each one ports. Every wrapper that launches a kernel adds one to
-its count here (a ``launch.<kernel>`` counter of ``tracing``), and
-nowhere else, so a run can show that its path went through the
-kernels.
+kernel each one ports, or says that it ports none. Every wrapper that
+launches a kernel adds one to its count here (a ``launch.<kernel>``
+counter of ``tracing``), and nowhere else, so a run can show that its
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -35,7 +35,9 @@ SOURCE = {"fused_preprocess": "fused_preprocess",
           "unit_bwd_plane": "fused_unit_bwd",
           "unit_bwd_strips": "fused_unit_bwd",
           "fused_block": "fused_block",
-          "depthwise3x3": "depthwise3x3"}
+          "depthwise3x3": "depthwise3x3",
+          "bn_train_fwd": "bn_train",
+          "bn_train_bwd": "bn_train"}
 KERNELS = tuple(SOURCE)
 SOURCES = tuple(dict.fromkeys(SOURCE.values()))
 REPLACES = {
@@ -46,6 +48,10 @@ REPLACES = {
     "unit_bwd_strips": "biscuit_tpu/ops/fused_unit_bwd.py:364",
     "fused_block": "biscuit_tpu/ops/fused_block.py:115",
     "depthwise3x3": "biscuit_tpu/ops/depthwise_pallas.py:38",
+    "bn_train_fwd": "none: train-mode BatchNorm, left to XLA by the JAX "
+                    "package",
+    "bn_train_bwd": "none: train-mode BatchNorm, left to XLA by the JAX "
+                    "package",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -177,9 +183,14 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t) -> ctypes.c_void_p:
+    """PyTorch's current stream on t's card, read as the raw handle
+    (``torch.cuda.current_stream`` would build a Stream object on every
+    launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    index = t.device.index
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index))
 
 
 def ptr(t) -> ctypes.c_void_p:

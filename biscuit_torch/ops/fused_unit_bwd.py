@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .bn_train import bn_apply, group_sums
 
 PLANE = "unit_bwd_plane"
 STRIPS = "unit_bwd_strips"
@@ -73,9 +74,11 @@ DEFAULT_HS = 24       # strip height (rows), as the JAX strip kernel's default
 def unit_fwd(a, taps, wpw, gamma, beta, eps: float, relu_first: bool,
              group=None):
     """Forward of the unit on NHWC ``a`` with library convs (cast to a's
-    dtype, as Flax casts its f32 kernels). Returns (y, mean, var,
-    (r, d, p)); r, d and p are contiguous NHWC. With a ``group`` of
-    several ranks, mean and var are over every rank's pixels."""
+    dtype, as Flax casts its f32 kernels) and the BatchNorm tail of
+    ``ops/bn_train`` (its sums and forward-apply kernels on the card).
+    Returns (y, mean, var, (r, d, p)); r, d and p are contiguous NHWC.
+    With a ``group`` of several ranks, mean and var are over every rank's
+    pixels."""
     n, h, w, ci = a.shape
     co = wpw.shape[1]
     r = torch.relu(a) if relu_first else a
@@ -85,17 +88,8 @@ def unit_fwd(a, taps, wpw, gamma, beta, eps: float, relu_first: bool,
     p = F.conv2d(d, wp)
     d = d.permute(0, 2, 3, 1).contiguous()
     p = p.permute(0, 2, 3, 1).contiguous()
-    pf = p.float()
-    if group is None or group.size == 1:
-        mu = pf.mean(dim=(0, 1, 2))
-        mu2 = pf.square().mean(dim=(0, 1, 2))
-    else:
-        s = group.all_reduce_sum([torch.stack(
-            [pf.sum(dim=(0, 1, 2)), pf.square().sum(dim=(0, 1, 2))])])[0]
-        mu, mu2 = s / (n * h * w * group.size)
-    var = torch.clamp_min(mu2 - mu.square(), 0.0)
-    inv = torch.rsqrt(var + eps)
-    y = ((pf - mu) * (inv * gamma.float()) + beta.float()).to(a.dtype)
+    _, sums, m = group_sums(p, group)
+    y, mu, var = bn_apply(p, gamma, beta, eps, sums, m)
     return y, mu, var, (r.contiguous(), d, p)
 
 

@@ -7,7 +7,7 @@ replica of the model and its optimizer, steps on its own rows of the
 group's batch, and takes part in three kinds of collective:
 
 * the train-mode BatchNorm statistics, forward and backward, over the
-  group's batch (``models/xception.batch_norm_train``,
+  group's batch (``ops/bn_train.bn_train``,
   ``ops/fused_unit_bwd.sep_bn_unit``), as the JAX package's BatchNorm
   takes them under ``jit`` with the batch sharded;
 * the step's loss and accuracy over the group's mask;
@@ -94,21 +94,6 @@ def choose_backend(keys: List[str]) -> str:
             len(set(keys)) == len(keys)):
         return "nccl"
     return "gloo"
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """The group's sum, whose backward is the group's sum of the
-    cotangents: each rank's loss depends on every rank's input through
-    the sum."""
-
-    @staticmethod
-    def forward(ctx, group, x):
-        ctx.group = group
-        return group.all_reduce_sum([x])[0]
-
-    @staticmethod
-    def backward(ctx, g):
-        return None, ctx.group.all_reduce_sum([g])[0]
 
 
 class Group:
@@ -231,11 +216,6 @@ class Group:
             out.append(flat[i:i + n].reshape(t.shape).to(t.dtype))
             i += n
         return out
-
-    def all_reduce_sum_differentiable(self, x: torch.Tensor):
-        """``all_reduce_sum`` of one tensor, differentiable: its backward
-        is the group's sum of the cotangents."""
-        return _AllReduceSum.apply(self, x)
 
     def all_reduce_grads(self, params) -> None:
         """Sum the ``.grad`` of ``params`` over the group, in place, in one

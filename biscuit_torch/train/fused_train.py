@@ -4,10 +4,11 @@ Counterpart of ``biscuit_tpu/train/fused_train.py``: the same trunk as
 ``models/xception.py`` in train mode, written as a function over the
 backbone module's parameters, with every separable conv + BatchNorm pair
 sent through ``ops/fused_unit_bwd.sep_bn_unit`` (whose backward is the
-hand-written kernel on the card). The stem convs, the residual 1x1 convs,
-the max-pools and their BatchNorms stay on library ops, as the JAX twin
-keeps them on XLA. Activations are NHWC; the library ops see NCHW views
-with channels-last strides.
+hand-written kernel on the card). The stem convs, the residual 1x1 convs
+and the max-pools stay on library ops, as the JAX twin keeps them on XLA,
+and their BatchNorms are ``ops/bn_train.bn_train``, whose two passes
+each way give the port what XLA's fusion gives the JAX twin. Activations
+are NHWC; the library ops see NCHW views with channels-last strides.
 
 The forward is the module path's arithmetic; the gradients differ from
 autograd's only by the fused backward's f32 handling of gd
@@ -28,11 +29,11 @@ from ..models.xception import (
     ARCHS,
     _nchw,
     _nhwc,
-    batch_norm_train,
     current_bn_group,
     max_pool_same,
     running_update,
 )
+from ..ops.bn_train import bn_train
 from ..ops.fused_unit_bwd import sep_bn_unit
 
 Updates = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -44,9 +45,8 @@ def _record(updates: Updates, path: str, bn, mu, var) -> None:
 
 
 def _bn(x, bn, updates: Updates, path: str):
-    """Library train-mode BatchNorm on NHWC x."""
-    y, mu, var = batch_norm_train(x, bn.weight, bn.bias, bn.eps, (0, 1, 2),
-                                  current_bn_group())
+    """Train-mode BatchNorm on NHWC x (``ops/bn_train``)."""
+    y, mu, var = bn_train(x, bn.weight, bn.bias, bn.eps, current_bn_group())
     _record(updates, path, bn, mu, var)
     return y
 

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --serve
     python3 chip_smoke.py --stats | --pretrained | --resnet
     python3 chip_smoke.py --int8 | --parallel | --lockstep
+    python3 chip_smoke.py --bn-train
 
 The second form only profiles the unit backward pass by pass at
 UNIT_PASS_GEOMETRIES (one line a geometry), the third only times the
@@ -18,7 +19,9 @@ time another checkout's kernels in the same call). The fourth builds and
 runs phase slide alone (one line), the fifth phase serve alone (a line an
 artifact, then the phase's), the sixth phase stats, pretrained or resnet
 alone (one line), the seventh phase int8, parallel or lockstep alone
-(one line). The first form runs
+(one line), the eighth builds ``csrc/bn_train.cu`` alone (its ptxas
+entries on the build line) and prints its two kernel rows. The first
+form runs
 these phases, each printing one JSON line:
 
 1. env: torch/CUDA versions and ``nvidia-smi`` name and power limit (also
@@ -69,7 +72,17 @@ these phases, each printing one JSON line:
    tiles, its library yardstick the port's eval-mode ``XceptionBlock``;
    the depthwise 3x3 at 147^2 x 128 and 19^2 x 728 in bf16, with its
    gradients held against autograd of its plain version; each row adds
-   its geometries. Rows 1, 2 and 4 add ``by_dtype.float32``: the same
+   its geometries. The train-mode BatchNorm op (``ops/bn_train.py``)
+   gives rows ``bn_train_fwd`` (its sums and forward apply) and
+   ``bn_train_bwd`` (the backward's) at BN_GEOMETRIES, batch 128, bf16:
+   the apply passes bit for bit against their plain versions from the
+   kernel's sums, the sums within 2e-5 of their terms' magnitudes and
+   repeated bit for bit, each geometry's roofline share and profile,
+   ``F.batch_norm(training=True)`` and its backward as the library
+   yardstick. Every training phase holds its launches to
+   ``train_launches``: 40 ``bn_train_fwd`` and 6 ``bn_train_bwd`` an
+   Xception step, 53 and 53 a ResNet-50 one (whose phase also counts the
+   BatchNorm inputs that are not channels-last). Rows 1, 2 and 4 add ``by_dtype.float32``: the same
    shapes with f32 out (row 1, within PREPROCESS_F32_TOL of the plain f32
    chain) or f32 x (row 2 within MIDDLE_F32_TOL of its largest value,
    which x rounded to bf16 and the output rounded to bf16 must miss; row
@@ -330,6 +343,13 @@ TRAIN_BATCH = 128     # hp.nature2022's batch size
 TRAIN_STEPS = 5       # counted training steps
 CHECK_BATCH = 32      # batch of the kernel-vs-plain gradient check
 UNITS_PER_STEP = 34   # sep+BN units of Xception: 6 entry, 24 middle, 4 exit
+# Train-mode BatchNorms a step through ops/bn_train, forward and back:
+# Xception's 34 units forward (their backward is the unit kernel's) and
+# its 2 stem and 4 residual BatchNorms both ways; ResNet-50's 53.
+BN_TRAIN_A_STEP = {"xception": (40, 6), "resnet50": (53, 53)}
+# (H = W, C) of the BatchNorm kernel rows, batch TRAIN_BATCH: Xception's
+# largest (entry0's units), a middle-flow unit, ResNet-50's stage 0.
+BN_GEOMETRIES = ((147, 128), (19, 728), (75, 256))
 # (H = W, CI, CO, relu_first) of the unit-backward kernel rows: entry0's
 # first unit and a middle-flow unit.
 UNIT_GEOMETRIES = ((147, 64, 128, False), (19, 728, 728, True))
@@ -528,6 +548,18 @@ def ptxas_entries(log: str, names) -> list:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def train_launches(steps: int, arch: str = "xception",
+                   unit_bwd: str = "unit_bwd_strips") -> dict:
+    """The kernel launches of ``steps`` training steps of ``arch`` at
+    full width: Xception's unit backwards on ``unit_bwd``, and each
+    network's train-mode BatchNorms through ops/bn_train."""
+    fwd, bwd = BN_TRAIN_A_STEP[arch]
+    want = {"bn_train_fwd": fwd * steps, "bn_train_bwd": bwd * steps}
+    if arch == "xception":
+        want[unit_bwd] = UNITS_PER_STEP * steps
+    return want
 
 
 def encode_png(img, filters=0) -> bytes:
@@ -1425,6 +1457,128 @@ def kernel_depthwise(torch, gen):
     row["bound_by"] = max(row["geometries"],
                           key=lambda g: g["bound_ms"])["bound_by"]
     return row
+
+
+def kernel_bn_train(torch, gen):
+    """ops/bn_train's kernels against their plain versions at each of
+    BN_GEOMETRIES (bf16, TRAIN_BATCH images): row ``bn_train_fwd`` (the
+    sums and the forward apply) and row ``bn_train_bwd`` (the backward's
+    sums and apply), each with its time, plain time and bound added over
+    the geometries, each way one call (the apply taking its own sums).
+    The apply passes must equal the plain versions' bit for bit from the
+    kernel's sums, and the one call the sums then the apply; the sums lie
+    within 2e-5 of the sums of their terms' magnitudes (f32 in another
+    order), and two runs give the same bits. Library yardstick: ``F.batch_norm(training=True)`` on
+    the channels-last NCHW view, its forward and its autograd backward.
+    Bound: 6 bytes an element forward, 10 backward, over 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from biscuit_torch.ops.bn_train import (
+        bn_apply,
+        bn_apply_bwd,
+        bn_apply_bwd_reference,
+        bn_apply_reference,
+        bn_sums,
+        bn_sums_reference,
+        launch_plan,
+    )
+
+    eps = 1e-5
+    rows = {d: {"name": f"bn_train_{d}", "geometries": [], "ms": 0.0,
+                "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                "max_abs_err": 0.0} for d in ("fwd", "bwd")}
+    for hw, c in BN_GEOMETRIES:
+        shape = (TRAIN_BATCH, hw, hw, c)
+        m = TRAIN_BATCH * hw * hw
+        xs = [(2 * torch.randn(shape, generator=gen, device="cuda") + 0.5)
+              .to(torch.bfloat16) for _ in range(N_TIMED)]
+        gy = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+
+        def fwd(x):
+            return bn_apply(x, w, b, eps)
+
+        def fwd_plain(x):
+            return bn_apply_reference(x, w, b, eps)
+
+        def bwd(x, mu, var):
+            return bn_apply_bwd(gy, x, mu, var, w, eps)
+
+        def bwd_plain(x, mu, var):
+            return bn_apply_bwd_reference(gy, x, mu, var, w, eps)
+
+        x = xs[0]
+        sums = bn_sums(x)
+        y, mu, var = bn_apply(x, w, b, eps, sums, m)
+        want = bn_apply_reference(x, w, b, eps, sums, m)
+        check(all(torch.equal(g, r) for g, r in zip((y, mu, var), want)),
+              f"bn_train_fwd {hw}^2 x {c}: apply bit for bit")
+        check(all(torch.equal(g, r) for g, r in zip(fwd(x), (y, mu, var))),
+              f"bn_train_fwd {hw}^2 x {c}: one call bit for bit")
+        back = bn_sums(x, gy, mu, var, eps)
+        gx, _ = bn_apply_bwd(gy, x, mu, var, w, eps, back, m)
+        check(torch.equal(gx, bn_apply_bwd_reference(gy, x, mu, var, w, eps,
+                                                     back, m)[0]),
+              f"bn_train_bwd {hw}^2 x {c}: apply bit for bit")
+        check(all(torch.equal(g, r) for g, r in zip(bwd(x, mu, var),
+                                                    (gx, back))),
+              f"bn_train_bwd {hw}^2 x {c}: one call bit for bit")
+        again = (bn_sums(x), bn_sums(x, gy, mu, var, eps))
+        check(torch.equal(again[0], sums) and torch.equal(again[1], back),
+              f"bn_train {hw}^2 x {c}: sums repeat bit for bit")
+        xf, gf = x.reshape(-1, c).float(), gy.reshape(-1, c).float()
+        xh = (xf - mu) * torch.rsqrt(var + eps)
+        errs = {}
+        for d, got, ref, scale in (
+                ("fwd", sums, bn_sums_reference(x),
+                 torch.stack([xf.abs().sum(0), xf.square().sum(0)])),
+                ("bwd", back, bn_sums_reference(x, gy, mu, var, eps),
+                 torch.stack([gf.abs().sum(0), (gf * xh).abs().sum(0)]))):
+            rel = ((got - ref).abs() / scale).max().item()
+            check(rel <= 2e-5, f"bn_train_{d} {hw}^2 x {c}: sums {rel} of "
+                               f"their terms' magnitudes")
+            errs[d] = rel
+        del xf, gf, xh
+
+        xr = [t.permute(0, 3, 1, 2) for t in xs]     # channels-last NCHW
+        lib_x = xr[0].detach().requires_grad_()
+        lib_y = F.batch_norm(lib_x, None, None, w, b, True, 0.0, eps)
+        lib_g = gy.permute(0, 3, 1, 2)
+        times = {
+            "fwd": (cuda_ms(torch, fwd, xs),
+                    cuda_ms(torch, fwd_plain, xs[:N_PLAIN], warmup=1),
+                    cuda_ms(torch, lambda t: F.batch_norm(
+                        t, None, None, w, b, True, 0.0, eps), xr)),
+            "bwd": (cuda_ms(torch, lambda t: bwd(t, mu, var), xs),
+                    cuda_ms(torch, lambda t: bwd_plain(t, mu, var),
+                            xs[:N_PLAIN], warmup=1),
+                    cuda_ms(torch, lambda _: torch.autograd.grad(
+                        lib_y, lib_x, lib_g, retain_graph=True), xs))}
+        profiles = {"fwd": kernel_profile(torch, lambda: fwd(x), top=4),
+                    "bwd": kernel_profile(torch, lambda: bwd(x, mu, var),
+                                          top=4)}
+        for d, per_elem in (("fwd", 6), ("bwd", 10)):
+            ms, plain, lib = times[d]
+            bound, by = bound_ms(per_elem * m * c, {"f32": 0.0})
+            rows[d]["geometries"].append({
+                "hw": hw, "c": c, "batch": TRAIN_BATCH, "dtype": "bfloat16",
+                "sums_err_of_magnitudes": errs[d], "ms": ms,
+                "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                "bound_by": by, "roofline": bound / ms,
+                "plan": launch_plan(m, c, torch.bfloat16),
+                "profile": profiles[d]})
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("library_ms", lib), ("bound_ms", bound)):
+                rows[d][key] += v
+            rows[d]["max_abs_err"] = max(rows[d]["max_abs_err"], errs[d])
+        del xs, xr, gy, lib_x, lib_y, lib_g, x, y, gx
+        torch.cuda.empty_cache()
+    for row in rows.values():
+        row["bound_by"] = "bytes"
+        row["roofline"] = row["bound_ms"] / row["ms"]
+    return [rows["fwd"], rows["bwd"]]
 
 
 def depthwise_entry(torch, gen, card: str):
@@ -2391,7 +2545,7 @@ def train_path(torch, seed: int, card: str):
     launches = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     for name, count in launches.items():
-        want = UNITS_PER_STEP * TRAIN_STEPS if name == "unit_bwd_strips" else 0
+        want = train_launches(TRAIN_STEPS).get(name, 0)
         check(count == want, f"{name}: {count} launches in {TRAIN_STEPS} "
                              f"training steps, expected {want}")
     losses = [float(o["loss"]) for o in outs]
@@ -2415,7 +2569,7 @@ def train_path(torch, seed: int, card: str):
     torch.cuda.synchronize()
     plane_launches = _build.launch_counts()
     for name, count in plane_launches.items():
-        want = UNITS_PER_STEP if name == "unit_bwd_plane" else 0
+        want = train_launches(1, unit_bwd="unit_bwd_plane").get(name, 0)
         check(count == want, f"{name}: {count} launches in the plane-kernel "
                              f"step, expected {want}")
     check(math.isfinite(plane_loss), "plane-kernel step: finite loss")
@@ -2598,7 +2752,7 @@ def train_project_phase(torch, tmp: str, card: str):
         rows, train_log = check_model_dir(model_dir, k, TP_EPOCHS,
                                           [1, steps], hp)
         for name, count in launches.items():
-            want = {"unit_bwd_strips": UNITS_PER_STEP * steps}.get(
+            want = train_launches(steps).get(
                 name, len(TP_EPOCHS) if name in SERVING else 0)
             check(count == want, f"fold {k}: {name} {count} launches, "
                                  f"expected {want}")
@@ -2649,7 +2803,7 @@ def train_project_phase(torch, tmp: str, card: str):
           "the relaunch reuses fold 1's dir")
     check_model_dir(again, 1, TP_EPOCHS[-1:], [steps], hp)
     for name, count in resume_launches.items():
-        want = {"unit_bwd_strips": UNITS_PER_STEP * (steps - TP_STEPS)}.get(
+        want = train_launches(steps - TP_STEPS).get(
             name, 1 if name in SERVING else 0)
         check(count == want, f"resumed fold 1: {name} {count} launches, "
                              f"expected {want}")
@@ -2863,7 +3017,7 @@ def experiment_phase(torch, tmp: str, card: str):
         f"patient_predictions_{OUTCOME}_eval.csv"}, "the eval-dir files")
     eval_batches = math.ceil(EX_EVAL * EX_TILES / TRAIN_BATCH)
     for name, count in launches.items():
-        want = {"unit_bwd_strips": UNITS_PER_STEP * steps}.get(
+        want = train_launches(steps).get(
             name, uq_batches + eval_batches if name in SERVING else 0)
         check(count == want, f"experiment: {name} {count} launches, "
                              f"expected {want}")
@@ -3892,9 +4046,9 @@ def pretrained_phase(torch, tmp: str, card: str):
         losses.append(float(step(*b, gen)["loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    train_launches = _build.launch_counts()
-    for name, count in train_launches.items():
-        want = UNITS_PER_STEP * 2 if name == "unit_bwd_strips" else 0
+    step_launches = _build.launch_counts()
+    for name, count in step_launches.items():
+        want = train_launches(2).get(name, 0)
         check(count == want, f"{name}: {count} launches in 2 steps from "
                              f"the grafted trunk, expected {want}")
     import math
@@ -3902,7 +4056,7 @@ def pretrained_phase(torch, tmp: str, card: str):
     check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
     del step, model2, batches
     torch.cuda.empty_cache()
-    for name, count in train_launches.items():
+    for name, count in step_launches.items():
         launches[name] += count
     return {"phase": "pretrained", "card": card, "model": "xception",
             "tile_px": TILE_PX, "k": K, "requests": REQUESTS,
@@ -4031,14 +4185,26 @@ def resnet_phase(torch, tmp: str, card: str):
     del sv, live, ui, kern, plain, requests, outs
     torch.cuda.empty_cache()
 
-    # Two training steps, module path (no unit-backward kernel).
+    # Two training steps, module path (no unit-backward kernel). In the
+    # warm-up step, the BatchNorms whose input is not channels-last (the
+    # op copies those to NHWC).
+    from biscuit_torch.models.xception import BatchNorm
+
     normalizer = make_normalizer(hp.normalizer)
     tx = make_optimizer(hp, model.parameters())
     model.train()
     step = make_train_step(model, tx, hp, normalizer)
     batches = [train_batch(torch, gen, TRAIN_BATCH) for _ in range(3)]
+    bn_inputs = []
+    hooks = [mod.register_forward_pre_hook(lambda mod, args: bn_inputs.append(
+        args[0].permute(0, 2, 3, 1).is_contiguous()))
+        for mod in model.modules() if isinstance(mod, BatchNorm)]
     step(*batches[-1], gen)                           # warm-up
     torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    check(len(bn_inputs) == BN_TRAIN_A_STEP["resnet50"][0],
+          f"{len(bn_inputs)} train-mode BatchNorms in a ResNet-50 step")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     losses, step_s = [], []
@@ -4047,14 +4213,16 @@ def resnet_phase(torch, tmp: str, card: str):
         losses.append(float(step(*b, gen)["loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    train_launches = _build.launch_counts()
+    step_launches = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(not any(train_launches.values()),
-          f"the ResNet step launches no kernel: {train_launches}")
+    for name, count in step_launches.items():
+        want = train_launches(2, "resnet50").get(name, 0)
+        check(count == want, f"{name}: {count} launches in 2 ResNet-50 "
+                             f"steps, expected {want}")
     check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
     del step, tx, model, batches
     torch.cuda.empty_cache()
-    for name, count in art_launches.items():
+    for name, count in (*art_launches.items(), *step_launches.items()):
         launches[name] += count
     return {"phase": "resnet", "card": card, "model": hp.model,
             "tile_px": TILE_PX, "k": K, "dropout": hp.dropout,
@@ -4069,7 +4237,8 @@ def resnet_phase(torch, tmp: str, card: str):
             "train": {"batch": TRAIN_BATCH, "steps": 2, "step_s": step_s,
                       "tiles_per_s": TRAIN_BATCH * 2 / sum(step_s),
                       "losses": losses, "max_memory_allocated_bytes": peak,
-                      "launches": train_launches},
+                      "launches": step_launches,
+                      "bn_inputs_not_channels_last": bn_inputs.count(False)},
             "launches": launches}, launches
 
 
@@ -4786,7 +4955,7 @@ def lockstep_phase(torch, tmp: str, card: str):
                                               1)]
     for who, row, steps in runs:
         for name, count in row["launches"].items():
-            want = UNITS_PER_STEP * steps if name == "unit_bwd_strips" else 0
+            want = train_launches(steps).get(name, 0)
             check(count == want, f"{who}: {name} {count} launches in "
                                  f"{steps} steps, expected {want}")
 
@@ -4808,7 +4977,7 @@ def lockstep_phase(torch, tmp: str, card: str):
                 ("experiment", 3 * LS_TP_STEPS, 0)):
             got = c[what]["launches"]
             for name, count in got.items():
-                want = {"unit_bwd_strips": UNITS_PER_STEP * steps}.get(
+                want = train_launches(steps).get(
                     name, serving if name in SERVING else 0)
                 check(count == want, f"rank {r} {what}: {name} {count} "
                                      f"launches, expected {want}")
@@ -4885,6 +5054,9 @@ def main(argv=None) -> int:
                          "lockstep")
     ap.add_argument("--lockstep-child", nargs=2, metavar=("RANK", "ARGS"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--bn-train", action="store_true",
+                    help="only the build of csrc/bn_train.cu and its two "
+                         "kernel rows")
     ap.add_argument("--root", help="import biscuit_torch from this checkout "
                                    "(with --unit-bwd-passes or --preprocess)")
     opts = ap.parse_args(argv)
@@ -4923,6 +5095,16 @@ def main(argv=None) -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "biscuit_torch": _build.__file__})
         unit_bwd_passes(torch, torch.Generator(device="cuda").manual_seed(SEED))
+        return 0
+    if opts.bn_train:
+        t0 = time.perf_counter()
+        _build.build_all((_build.SOURCE["bn_train_fwd"],))
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "ptxas": ptxas_entries(_build.build_log("bn_train"),
+                                     ("bn_",))})
+        for row in kernel_bn_train(
+                torch, torch.Generator(device="cuda").manual_seed(SEED)):
+            emit({"phase": "kernel", **row, "card": card})
         return 0
     if opts.preprocess:
         t0 = time.perf_counter()
@@ -5023,6 +5205,8 @@ def main(argv=None) -> int:
     for fn in (kernel_fused_block, kernel_depthwise):
         rows.append(fn(torch, gen))
         torch.cuda.empty_cache()
+    rows += kernel_bn_train(torch, gen)
+    torch.cuda.empty_cache()
     for row in rows:
         row["card"] = card
         emit({"phase": "kernel", **row})
@@ -5107,6 +5291,8 @@ def main(argv=None) -> int:
     launches["depthwise3x3"] = dw_launches["depthwise3x3"]
     launches["unit_bwd_strips"] = strip_launches["unit_bwd_strips"]
     launches["unit_bwd_plane"] = plane_launches["unit_bwd_plane"]
+    for name in ("bn_train_fwd", "bn_train_bwd"):
+        launches[name] = strip_launches[name] + plane_launches[name]
     for phase_launches in (wide_launches, f32_launches, int8_launches,
                            par_launches,
                            ls_launches, tp_launches, ex_launches,

@@ -582,7 +582,9 @@ def ladder50(tmp_path_factory):
     eval_P = build_project(tmp, "gev", 10, seed=5)
     exp = Experiment(train_P, eval_projects=[eval_P], outcome=OUTCOME,
                      outdir=str(tmp / "results"))
-    exp.train_kwargs = {"device": "cpu", "seed": 0, "validate_on_batch": 16,
+    # Whether a fold's thresholds exist turns on bf16 roundings of the 19
+    # trainings (at seed 4 no fold has them); seed 1 leaves several.
+    exp.train_kwargs = {"device": "cpu", "seed": 1, "validate_on_batch": 16,
                         "validation_steps": 8}
     exp.run({"G": {"out1": 25, "out2": 25}}, steps=[3, 4, 5, 6],
             hp=tiny_hp())

@@ -791,9 +791,10 @@ def test_train_project_on_the_card(gen, tmp_path):
     """``Project.train`` of xception_tiny (bf16, 32 px, batch 16, uq=True
     at K=4) on a project of 6 slides of 16 PNG tiles, 3 steps an epoch
     over epochs [1, 2], fold 1 of 3: every step's 16 unit backwards on
-    the strip kernel, the preprocess, middle-flow and MC-head kernels
-    once for each of the 2 validation batches of each epoch, nothing
-    else; the model-dir contract; and the epoch model, loaded by
+    the strip kernel and its BatchNorms on the op's kernels, the
+    preprocess, middle-flow and MC-head kernels once for each of the 2
+    validation batches of each epoch, nothing else; the model-dir
+    contract; and the epoch model, loaded by
     ``UncertaintyInterface``, gives its CSV's probabilities again."""
     import os
 
@@ -830,9 +831,13 @@ def test_train_project_on_the_card(gen, tmp_path):
     (model_dir,) = project.train("cohort", "card", params=hp, val_k=[1],
                                  steps_per_epoch_override=3, save_model=True)
     after = _build.launch_counts()
+    # 6 steps of xception_tiny: 16 units, 22 BatchNorms, 6 of them
+    # outside the units.
     for name in after:
-        want = {"unit_bwd_strips": 16 * 6}.get(name, 2 * 2 if name in (
-            "fused_preprocess", "fused_middle_flow", "mcd_head") else 0)
+        want = {"unit_bwd_strips": 16 * 6, "bn_train_fwd": 22 * 6,
+                "bn_train_bwd": 6 * 6}.get(name, 2 * 2 if name in (
+                    "fused_preprocess", "fused_middle_flow", "mcd_head")
+                else 0)
         assert after[name] - before[name] == want, name
     files = set(os.listdir(model_dir))
     for e in (1, 2):
@@ -1576,7 +1581,8 @@ def test_f32_train_project_on_the_card(gen, tmp_path):
     """``Project.train`` of an f32 xception_tiny (32 px, batch 16, uq=True
     at K=4, dropout 0) on 6 slides of 16 PNG tiles, 3 steps an epoch over
     epochs [1, 2], fold 1 of 3: the f32 model trains on the module path
-    (no kernel launch in its steps), its per-epoch predictions run rows
+    (its steps launch only the BatchNorm op's f32 kernels, 22 each way a
+    step), its per-epoch predictions run rows
     1-3 once for each of the 2 validation batches of each epoch, and the
     epoch model's ``tile_predictions`` CSV, written on the card, holds
     within 2e-2 of the same model scored on the CPU (the module path
@@ -1617,8 +1623,9 @@ def test_f32_train_project_on_the_card(gen, tmp_path):
                                  steps_per_epoch_override=3, save_model=True)
     after = _build.launch_counts()
     for name in after:
-        want = 2 * 2 if name in ("fused_preprocess", "fused_middle_flow",
-                                 "mcd_head") else 0
+        want = {"bn_train_fwd": 22 * 6, "bn_train_bwd": 22 * 6}.get(
+            name, 2 * 2 if name in ("fused_preprocess", "fused_middle_flow",
+                                    "mcd_head") else 0)
         assert after[name] - before[name] == want, name
     ui = UncertaintyInterface(os.path.join(model_dir,
                                            "cohort-f32-HP0-kfold1_epoch2"),
