@@ -12,8 +12,10 @@ compared with the f32 reference on the same inputs as a run compares
 them; for each fault seed, a run with each of the cell's planted faults
 (``harness/faults.py``) whose reading a check needs (training only: the
 parameters left unchanged read 1 by the measure and need no run; the
-``scaled`` fault once for each of the configuration's leaf groups). One
-JSON line a reading; all in one process, so that the kernels load once."""
+``scaled`` fault once for each of the configuration's leaf groups;
+``frozen_stats`` only where the model keeps running statistics, its skip
+said on standard error otherwise). One JSON line a reading; all in one
+process, so that the kernels load once."""
 
 import argparse
 import json
@@ -62,6 +64,22 @@ def control_numbers(cell, seed, device):
         return check.train_numbers(low, ref, cfg["leaf_groups"])
 
 
+def planted_faults(cell):
+    """(reading's name, fault, leaf prefixes) of each training fault whose
+    reading a check needs; a fault that the cell's model cannot have is
+    said on standard error to be skipped."""
+    from h100bench.harness import faults
+
+    kept = faults.applicable("train", cell.config)
+    if "frozen_stats" not in kept:
+        print(f"fault frozen_stats skipped: {cell.config['name']} keeps no "
+              "running statistics", file=sys.stderr, flush=True)
+    planted = [(f, f, ()) for f in ("half_batch", "altered", "frozen_stats")
+               if f in kept]
+    return planted + [(f"scaled.{g}", "scaled", prefixes) for g, prefixes
+                      in cell.config["leaf_groups"].items()]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
@@ -97,11 +115,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         emit("control_fp8", seed, control_numbers(cell, seed, device), t0)
     if cell.entry == "train":
-        planted = [(f, f, ()) for f in ("half_batch", "altered",
-                                        "frozen_stats")]
-        planted += [(f"scaled.{g}", "scaled", prefixes) for g, prefixes
-                    in cell.config["leaf_groups"].items()]
-        for kind, fault, prefixes in planted:
+        for kind, fault, prefixes in planted_faults(cell):
             for seed in _seeds(args.fault_seeds):
                 t0 = time.perf_counter()
                 with faults.planted("train", fault, prefixes):

@@ -23,9 +23,10 @@ the configuration names (``grad1_gap.<group>``: stem, stages, head), so
 that a fault confined to one group shows; ``grad1_worst_gap`` is the
 worst leaf's. Of the change the worst leaf's (``change_gap``), of the
 second moment the median leaf's (``adam_v_median_gap``), of the running
-statistics the worst leaf's (``running_gap``). Leaves whose reference
-gradient is under a thousandth of the median leaf's move under Adam by
-round-off alone and are left out of the change. The relative gaps of the
+statistics the worst leaf's (``running_gap``; only where the model keeps
+running statistics). Leaves whose reference gradient is under a
+thousandth of the median leaf's move under Adam by round-off alone and
+are left out of the change. The relative gaps of the
 first step's loss (``loss1_gap``) and of the checked steps'
 (``loss_gap``) are readings. PERF.md gives the readings behind these
 choices: the stem's gradient and the losses swing with bf16 rounding on
@@ -35,8 +36,13 @@ import statistics
 
 import numpy as np
 
+from ..reference.params import param_specs, running_statistics
+
 FLOOR_SHARE = 1e-3
 SLOPE_FLOOR = 1e-4      # the slope of a softmax saturated to 1e-4
+SERVE_NUMBERS = ("mean_logit_gap", "std_gap", "mean_gap")
+TRAIN_NUMBERS = ("loss_gap", "loss1_gap", "grad1_median_gap",
+                 "grad1_worst_gap", "change_gap", "adam_v_median_gap")
 
 
 def serve_numbers(program, reference) -> dict:
@@ -88,13 +94,14 @@ def train_numbers(program: dict, reference: dict, groups: dict) -> dict:
     change = leaf_gaps(program["change"], reference["change"],
                        moving_leaves(reference["grad1"]))
     adam_v = leaf_gaps(program["adam_v"], reference["adam_v"])
-    running = leaf_gaps(program["running"], reference["running"])
     out = {"loss_gap": max(loss), "loss1_gap": loss[0],
            "grad1_median_gap": statistics.median(grad1.values()),
            "grad1_worst_gap": max(grad1.values()),
            "change_gap": max(change.values()),
-           "adam_v_median_gap": statistics.median(adam_v.values()),
-           "running_gap": max(running.values())}
+           "adam_v_median_gap": statistics.median(adam_v.values())}
+    if reference["running"]:
+        out["running_gap"] = max(leaf_gaps(program["running"],
+                                           reference["running"]).values())
     for group, leaves in group_leaves(grad1, groups).items():
         out[f"grad1_gap.{group}"] = statistics.median(grad1[n]
                                                       for n in leaves)
@@ -107,14 +114,33 @@ def worst_leaves(program: dict, reference: dict):
     for what, leaves in (("grad1", None),
                          ("change", moving_leaves(reference["grad1"])),
                          ("running", None)):
+        if not reference[what]:
+            continue
         gap = leaf_gaps(program[what], reference[what], leaves)
         leaf = max(gap, key=gap.get)
         out.append((what, leaf, gap[leaf]))
     return out
 
 
+def givable(entry: str, config: dict) -> set:
+    """The names of the numbers a cell of ``entry`` over ``config``'s model
+    gives: ``running_gap`` only where the model keeps running statistics."""
+    if entry == "serve":
+        return set(SERVE_NUMBERS)
+    out = set(TRAIN_NUMBERS) | {f"grad1_gap.{g}"
+                                for g in config["leaf_groups"]}
+    if running_statistics(param_specs(config)):
+        out.add("running_gap")
+    return out
+
+
 def judge(numbers: dict, limits: dict):
-    """(every number within its limit, {name: {value, limit}})."""
+    """(every number within its limit, {name: {value, limit}}); raises
+    where a limit names a number that the run did not give."""
+    missing = sorted(set(limits) - set(numbers))
+    if missing:
+        raise ValueError(f"the limits name {missing}, which this cell's "
+                         f"model cannot give (it gives {sorted(numbers)})")
     checks = {name: {"value": numbers[name], "limit": limits[name]}
               for name in limits}
     ok = all(np.isfinite(c["value"]) and c["value"] <= c["limit"]

@@ -12,18 +12,29 @@ Training: ``unchanged`` makes the optimizer's update a no-op;
 mean over the rest); ``altered`` moves one leaf twice as far as the
 optimizer's update (an answer altered where it is produced);
 ``frozen_stats`` leaves every BatchNorm running statistic as it was
-before each step (that state left unchanged); ``scaled`` doubles the
-gradient of the leaves of one group (``prefixes``: the group's entry in
-the configuration's ``leaf_groups``) before the optimizer reads it."""
+before each step (that state left unchanged; a model with no BatchNorm
+cannot have it); ``scaled`` doubles the gradient of the leaves of one
+group (``prefixes``: the group's entry in the configuration's
+``leaf_groups``) before the optimizer reads it."""
 
 from contextlib import contextmanager
 
 import torch
 
+from ..reference.params import param_specs, running_statistics
+
 FAULTS = {"serve": ("half_batch", "altered", "stale"),
           "train": ("unchanged", "half_batch", "altered", "frozen_stats",
                     "scaled")}
 _STATS = ("running_mean", "running_var")
+
+
+def applicable(entry: str, config: dict) -> tuple:
+    """The faults a cell of ``entry`` over ``config``'s model can have:
+    ``frozen_stats`` only where the model keeps running statistics."""
+    if running_statistics(param_specs(config)):
+        return FAULTS[entry]
+    return tuple(f for f in FAULTS[entry] if f != "frozen_stats")
 
 
 @contextmanager

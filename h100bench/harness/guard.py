@@ -29,9 +29,10 @@ def imports_of(path: Path) -> set:
 
 
 def reference_breaches(ref_dir: Path = None) -> list:
-    """(file, module) of every import under ``reference/`` of the program
-    or of a forbidden module."""
+    """(file, module) of every import under ``reference/``, its trunk
+    families included, of the program or of a forbidden module."""
     ref_dir = ref_dir or Path(__file__).resolve().parent.parent / "reference"
     bad = set(FORBIDDEN) | {PROGRAM}
-    return [(p.name, m) for p in sorted(ref_dir.glob("*.py"))
+    return [(str(p.relative_to(ref_dir)), m)
+            for p in sorted(ref_dir.rglob("*.py"))
             for m in sorted(imports_of(p) & bad)]

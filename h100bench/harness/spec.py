@@ -1,14 +1,19 @@
 """Everything of a cell is found by name: ``workloads/<cell>.json`` names
 its configuration (``configs/<config>.json``), its traffic mix
-(``traffic/<mix>.json``) and its correctness limits; ``BENCHMARK.json``
-at the checkout's root says which metrics the cell reports, and each
-metric's reader is ``metrics/<metric>.py``. A later cell, mix,
-configuration or metric is a file added beside these."""
+(``traffic/<mix>.json``) and its correctness limits; the configuration's
+``arch.family`` names its trunk family (``reference/families/
+<family>.py``); ``BENCHMARK.json`` at the checkout's root says which
+metrics the cell reports, and each metric's reader is
+``metrics/<metric>.py``. A later cell, mix, configuration, family or
+metric is a file added beside these."""
 
 import importlib.util
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
+
+from ..reference import families
+from . import check
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
@@ -51,10 +56,20 @@ def _reports(metric: dict, cell: str, e2e_of_cell: set) -> bool:
 
 def load_cell(name: str, base: Path = BENCH_DIR, bench: dict = None) -> Cell:
     """The cell ``name`` with its files and the metrics ``bench`` (the
-    manifest, read from the checkout's root when None) gives it."""
+    manifest, read from the checkout's root when None) gives it. The
+    configuration keeps ``base`` as ``bench_dir``, where its family is
+    looked for first. Raises where the family has no file, or the limits
+    name a number that the cell's model cannot give."""
     workload = _load("workloads", name, base)
-    cell = Cell(name, workload, _load("configs", workload["config"], base),
+    config = _load("configs", workload["config"], base)
+    config["bench_dir"] = str(base)
+    families.of(config)
+    cell = Cell(name, workload, config,
                 _load("traffic", workload["traffic"], base))
+    missing = sorted(set(cell.limits) - check.givable(cell.entry, config))
+    if missing:
+        raise ValueError(f"cell {name!r}: its limits name {missing}, which "
+                         f"the model of {config['name']!r} cannot give")
     bench = manifest() if bench is None else bench
     cell.end_to_end = [m for m in bench["end_to_end"]
                        if "workloads" not in m or name in m["workloads"]]

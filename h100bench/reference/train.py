@@ -7,14 +7,15 @@ train-mode forward in f32, the masked cross-entropy, autograd, Adam
 decayed rate of ``hp``, and the BatchNorm running statistics blended
 from each step's batch statistics. Returns, as norms, each step's loss,
 each leaf's first gradient, each leaf's change and Adam's second moment
-after the steps, and each running statistic's change."""
+after the steps, and each running statistic's change (none for a model
+with no BatchNorm)."""
 
 import torch
 import torch.nn.functional as F
 
 from . import augment, nets
 from .nets import MOMENTUM
-from .params import param_specs, trainable
+from .params import param_specs, running_statistics, trainable
 from .preprocess import preprocess
 from .quant import quantizer
 
@@ -46,8 +47,7 @@ def steps(weights: dict, config: dict, batches, device, quant=None):
     m = {n: torch.zeros_like(w) for n, w in leaves.items()}
     v = {n: torch.zeros_like(w) for n, w in leaves.items()}
     b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
-    running = {n: p[n].detach().clone() for n, _, role in specs
-               if role in ("bn_mean", "bn_var")}
+    running = {n: p[n].detach().clone() for n in running_statistics(specs)}
     out = {"loss": [], "grad1": {}, "change": {}}
     for t, (tiles, labels, mask, seed) in enumerate(batches):
         gen = torch.Generator(device=device).manual_seed(seed)

@@ -1,12 +1,14 @@
 """The harness finds every piece of a cell by name, and the manifest keeps
 to the contract's shapes."""
 
+import importlib
 import json
 import re
 
 import pytest
 
 from h100bench.harness import spec
+from h100bench.reference import families
 from h100bench.tests import tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -70,27 +72,32 @@ def test_config_files_are_the_manifest_files(bench):
         assert cfg["source"] == c["source"]
 
 
-def test_config_arch_tables_are_the_ports():
-    from biscuit_torch.models.resnet import RESNET_ARCHS
-    from biscuit_torch.models.xception import ARCHS
+def _port(module: str):
+    return importlib.import_module(f"biscuit_torch.{module}")
 
+
+def test_config_arch_tables_are_the_ports():
     for path in sorted((spec.BENCH_DIR / "configs").glob("*.json")):
         cfg = json.loads(path.read_text())
-        arch = dict(cfg["arch"])
-        family = arch.pop("family")
-        if family == "xception":
-            want = {k: list(v) if isinstance(v, tuple) else v
-                    for k, v in ARCHS[cfg["hp"]["model"]].items()}
-        else:
-            block, repeats, stem = RESNET_ARCHS[cfg["hp"]["model"]]
-            want = {"block": block, "repeats": list(repeats), "stem": stem}
-        assert arch == want, path.name
+        fam = families.lookup(cfg["arch"]["family"])
+        assert fam.port_arch(cfg["hp"]["model"], _port) == cfg["arch"], \
+            path.name
+
+
+def test_every_config_finds_its_family_and_counts():
+    for path in sorted((spec.BENCH_DIR / "configs").glob("*.json")):
+        cfg = json.loads(path.read_text())
+        fam = families.lookup(cfg["arch"]["family"])
+        _, width = fam.param_specs(cfg["arch"])
+        counts = importlib.import_module(f"h100bench.counts.{cfg['counts']}")
+        assert counts.feature_dim(cfg["arch"]) == width, path.name
+        assert counts.trunk_flops(cfg["arch"], cfg["hp"]["tile_px"]) > 0
 
 
 def test_kernel_counts_are_discovered():
     counts = spec.kernel_counts()
-    assert set(counts) == {"fused_preprocess", "fused_middle_flow",
-                           "mcd_head", "unit_bwd_strips"}
+    assert {"fused_preprocess", "fused_middle_flow", "mcd_head",
+            "unit_bwd_strips"} <= set(counts)
     for mod in counts.values():
         assert callable(mod.call_bound) and len(mod.TARGET) == 2
 

@@ -21,11 +21,10 @@ def _faults():
     whose first gradient the cell compares."""
     out = []
     for cell in CELLS:
-        entry = "serve" if ".serve." in cell else "train"
-        out += [(cell, f, None) for f in faults.FAULTS[entry]
+        c = spec.load_cell(cell)
+        out += [(cell, f, None) for f in faults.applicable(c.entry, c.config)
                 if f != "scaled"]
-        if entry == "train":
-            c = spec.load_cell(cell)
+        if c.entry == "train":
             out += [(cell, "scaled", g) for g in c.config["leaf_groups"]
                     if f"grad1_gap.{g}" in c.limits]
     return out

@@ -24,6 +24,17 @@ def test_the_reference_imports_nothing_of_the_program(tmp_path):
                                                   ("b.py", "jax")]
 
 
+def test_the_guard_reads_the_trunk_families(tmp_path):
+    assert any(p.parent.name == "families" for p in
+               (spec.BENCH_DIR / "reference").rglob("*.py"))
+    (tmp_path / "families").mkdir()
+    (tmp_path / "families" / "vit.py").write_text(
+        "def port_arch(name, port):\n"
+        "    from biscuit_torch.models import vit\n")
+    assert guard.reference_breaches(tmp_path) == [("families/vit.py",
+                                                   "biscuit_torch")]
+
+
 def test_a_run_loads_no_jax():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "from h100bench.harness import drive, guard\n"

@@ -92,9 +92,10 @@ def test_tiny_runs_are_correct(cell, tmp_path):
     c = tiny.load(tmp_path, bench, names[cell])
     torch.set_num_threads(2)
     for seed in (2 ** 31 + 3, 17):
-        line, _ = drive.execute(c, seed, 0.3, False, torch.device("cpu"),
-                                time.perf_counter())
+        line, record = drive.execute(c, seed, 0.3, False,
+                                     torch.device("cpu"), time.perf_counter())
         assert line["correct"], line["checks"]
+        assert set(record["readings"]) == check.givable(c.entry, c.config)
         assert line["attempted"] > 0 and line["failed"] == 0
         assert list(line)[-1] == "checks"
         names = {m["name"] for m in c.end_to_end}
