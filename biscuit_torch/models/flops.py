@@ -1,9 +1,11 @@
-"""Analytic FLOPs model for the Xception tile classifier, and the H100's
-published peaks that a kernel's bound is computed from.
+"""Analytic FLOPs model for the Xception and ViT tile classifiers, and the
+H100's published peaks that a kernel's bound is computed from.
 
 The port's copy of ``biscuit_tpu/models/flops.py``. Counts 2*MACs for
 convs/matmuls, walking the same ARCHS config the model is built from
-(models/xception.py ARCHS; Chollet 2017 arch).
+(models/xception.py ARCHS; Chollet 2017 arch), and for a ViT
+(models/vit.py VIT_ARCHS) the patch conv, every Linear and the two
+attention products.
 
 Spatial sizes follow SAME padding (out = ceil(in / stride)) everywhere
 except the two stem convs, which are VALID to match keras.applications
@@ -14,7 +16,8 @@ from __future__ import annotations
 
 import math
 
-from .xception import ARCHS
+from .vit import VIT_ARCHS
+from .xception import ARCHS, _feature_width
 
 
 def _conv(h, w, cin, cout, k=3, stride=1, groups=1, padding="SAME"):
@@ -25,9 +28,28 @@ def _conv(h, w, cin, cout, k=3, stride=1, groups=1, padding="SAME"):
     return 2 * ho * wo * cout * (k * k * cin // groups), ho, wo
 
 
+def vit_trunk_flops(arch: str = "uni2_h", tile_px: int = 224) -> int:
+    """Forward FLOPs of one ViT pass: the patch conv, per block the qkv,
+    proj, fc1 and fc2 Linears over every token and Q K^T and A V
+    (LayerNorm, softmax, the gate and LayerScale omitted, as
+    bandwidth-bound)."""
+    cfg = VIT_ARCHS[arch]
+    d, p = cfg["width"], cfg["patch"]
+    patches = (tile_px // p) ** 2
+    t = 1 + cfg["reg_tokens"] + patches
+    f = 2 * patches * d * 3 * p * p
+    per_block = 2 * t * d * (3 * d + d + cfg["mlp_hidden"]
+                             + cfg["mlp_hidden"] // 2)
+    per_block += 2 * 2 * t * t * d          # Q K^T and A V, every head
+    return f + cfg["depth"] * per_block
+
+
 def trunk_flops(arch: str = "xception", tile_px: int = 299) -> int:
     """Forward FLOPs of one backbone pass (conv + sepconv + residual convs;
-    BN/ReLU/pool omitted — they are bandwidth-, not FLOP-bound)."""
+    BN/ReLU/pool omitted — they are bandwidth-, not FLOP-bound); a ViT's
+    by ``vit_trunk_flops``."""
+    if arch in VIT_ARCHS:
+        return vit_trunk_flops(arch, tile_px)
     cfg = ARCHS[arch]
     f = 0
     h = w = tile_px
@@ -85,9 +107,8 @@ def uq_flops_per_tile(arch: str = "xception", tile_px: int = 299,
                       k: int = 30) -> int:
     """Fast MC-dropout inference: one trunk pass + K head passes
     (train/uq.py's trunk-once decomposition)."""
-    cfg = ARCHS[arch]
     return trunk_flops(arch, tile_px) + k * head_flops(
-        feature_dim=cfg["exit_convs"][-1]
+        feature_dim=_feature_width(arch)
     )
 
 
@@ -98,7 +119,7 @@ def train_flops_per_tile(arch: str = "xception", tile_px: int = 299,
     the head once, and the backward at twice the forward (a data gradient
     and a weight gradient of every conv and matmul)."""
     fwd = trunk_flops(arch, tile_px) + head_flops(
-        ARCHS[arch]["exit_convs"][-1], hidden, hidden_layers, num_classes)
+        _feature_width(arch), hidden, hidden_layers, num_classes)
     return 3 * fwd
 
 

@@ -3,9 +3,10 @@
 Counterpart of ``biscuit_tpu/models/xception.py``: the same architecture
 presets, module names and stage seams, so a Flax parameter tree maps onto
 this module's ``state_dict`` name for name (``models/convert.py``).
-``build_model`` is the ``hp.model`` registry: these presets and the
-ResNet family of ``models/resnet.py`` (the classifier's backbone), and an
-unknown name falls back to 'xception' with a warning.
+``build_model`` is the ``hp.model`` registry: these presets, the ResNet
+family of ``models/resnet.py`` and the ViT family of ``models/vit.py``
+(the classifier's backbone), and an unknown name falls back to
+'xception' with a warning.
 
 Public functions and stage seams take and return NHWC tensors, as the
 JAX package does; inside, activations are NCHW views with channels-last
@@ -317,11 +318,14 @@ class XceptionClassifier(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         from .resnet import RESNET_ARCHS, ResNetBackbone
+        from .vit import VIT_ARCHS, ViTBackbone
 
         if arch in ARCHS:
             backbone = XceptionBackbone(arch, compute_dtype)
         elif arch in RESNET_ARCHS:
             backbone = ResNetBackbone(arch, compute_dtype)
+        elif arch in VIT_ARCHS:
+            backbone = ViTBackbone(arch, compute_dtype)
         else:
             raise ValueError(f"Unknown architecture {arch!r}; the port has "
                              f"{available_models()}")
@@ -344,7 +348,7 @@ class XceptionClassifier(nn.Module):
         return self.backbone(_nchw(x))
 
     # The stage seams below are the Xception trunk's (its fused kernels'
-    # composition points); a ResNet backbone has none of them.
+    # composition points); a ResNet or ViT backbone has none of them.
     def trunk_stem(self, x):
         """Entry convs only: tiles -> first entry-block input (NHWC)."""
         return _nhwc(self.backbone.stem(_nchw(x)))
@@ -373,13 +377,18 @@ class XceptionClassifier(nn.Module):
 def available_models():
     """All registered backbone names (the hp.model selection surface)."""
     from .resnet import RESNET_ARCHS
+    from .vit import VIT_ARCHS
 
-    return sorted(ARCHS) + sorted(RESNET_ARCHS)
+    return sorted(ARCHS) + sorted(RESNET_ARCHS) + sorted(VIT_ARCHS)
 
 
 def _feature_width(arch: str) -> int:
     if arch in ARCHS:
         return ARCHS[arch]["exit_convs"][-1]
+    from .vit import VIT_ARCHS
+
+    if arch in VIT_ARCHS:
+        return VIT_ARCHS[arch]["width"]
     from .resnet import resnet_feature_dim
 
     return resnet_feature_dim(arch)

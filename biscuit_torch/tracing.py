@@ -15,7 +15,11 @@ switch (``BISCUIT_PROFILE=1`` for a training fold, ``h100bench``'s
   tiles to the model's device), ``serve.preprocess``, ``serve.trunk``
   (on the fused trunk ``trunk.entry``, ``trunk.middle``, ``trunk.exit``;
   with ``fuse_blocks`` entry is the stem and the strided blocks before
-  the middle flow, exit the last block and the tail), ``serve.head``;
+  the middle flow, exit the last block and the tail; on a ViT trunk,
+  ``models/vit.py``, ``vit.embed`` (patch embedding, tokens, position),
+  then per block ``vit.attention`` and ``vit.mlp``, each from its
+  LayerNorm to its residual add, and ``vit.norm`` (the final LayerNorm
+  and the class token)), ``serve.head``;
 - training, one ``make_train_step`` step: ``train.copy``,
   ``train.augment`` (JPEG, preprocess, augment), ``train.forward``
   (trunk, head, loss), ``train.backward`` (with the lockstep
@@ -26,7 +30,11 @@ switch (``BISCUIT_PROFILE=1`` for a training fold, ``h100bench``'s
 ``count(name, n)`` adds to a process-wide integer counter, read by
 ``counts()`` and zeroed by ``reset_counts(prefix)``, from any thread. The
 counters: ``launch.<kernel>``, each hand-written kernel's launches
-(``ops/_build.launch_counts``).
+(``ops/_build.launch_counts``); ``vit.attention.<backend>``, the ViT's
+attention calls by the SDPA backend that ran them (``cudnn_attention``,
+``efficient_attention`` for f32 on the card, ``math`` on the CPU), so that
+a fallback shows (``models/vit.attention_counts``, zeroed by
+``reset_attention_counts``).
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ XLA off the TPU; passing ``True`` runs the kernels' plain versions.
 ``BISCUIT_FUSED_BLOCKS=1``) opts into the fully fused trunk, whose entry
 and exit blocks go through the fused strided-block kernel
 (``ops/fused_block.py``); it implies the fused trunk. Both fused trunks
-are Xception's: a ResNet model (``models/resnet.py``) runs the module
-trunk and the head kernel, and asking it for a fused trunk raises.
+are Xception's: a ResNet or ViT model (``models/resnet.py``,
+``models/vit.py``) runs the module trunk and the head kernel, and asking
+it for a fused trunk raises.
 
 The opt-in w8a8 trunk (``ops/int8_trunk.py``; ``int8_qw=`` here,
 ``int8_trunk=True`` or ``BISCUIT_INT8_TRUNK=1`` on the interface) is
